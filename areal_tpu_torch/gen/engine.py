@@ -1,0 +1,679 @@
+"""Slot-based continuous-batching generation engine over a paged KV pool
+(counterpart of ``areal_tpu/gen/engine.py``, vanilla decode path).
+
+- KV memory is a POOL of fixed-size pages (``models/transformer.
+  PagedKVCache`` + ``gen/pages.py``); each slot holds a page table, and
+  prompts share pages for their longest common page-aligned prefix (radix
+  tree; one prefill serves a whole GRPO group). The pool can store int8
+  (``kv_dtype`` / ``cfg.kv_dtype`` / ``AREAL_KV_DTYPE``).
+- Admission = CHUNKED PREFILL: prompts stream through ``[n_rows,
+  admit_chunk]`` extend calls in admit-row buckets, in two waves (cold
+  prompts first, then prefix borrowers, whose shared pages the first
+  wave wrote).
+- Decode: a chunk of N steps; stop-token detection and per-slot caps run
+  on the device, so the host syncs once per chunk. Each step's attention
+  is the paged decode kernel on a GPU.
+- Interruption: the host stops issuing chunks and harvests partial
+  outputs; clients re-submit with the accumulated tokens.
+- Weight update: swap the params between chunks; the prefix cache is
+  invalidated (KV from old weights must not seed new generations).
+
+Left out of this port so far (all off by default in the reference):
+speculative decoding and drafters, the tensor-parallel mesh, the fused
+sampling epilogue and chunk pipelining.
+
+Thread-safety: ``submit`` arrives on the server's handler threads while
+``step`` runs on the server's engine thread. ``_lock`` guards device
+state, slots and pool; ``_pending_lock`` guards only the intake queue.
+"""
+
+import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from areal_tpu_torch.base import constants
+from areal_tpu_torch.base.device import resolve_device, torch_dtype
+from areal_tpu_torch.gen.pages import OutOfPagesError, PagePool, PrefixRegistry
+from areal_tpu_torch.gen.sampling import SamplingParams, sample_tokens
+from areal_tpu_torch.models import transformer as tfm
+from areal_tpu_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass
+class GenState:
+    cache: tfm.PagedKVCache
+    lens: torch.Tensor          # [B] i32 resident tokens per slot
+    last_tokens: torch.Tensor   # [B] i64 token to feed next decode
+    active: torch.Tensor        # [B] bool
+    n_gen: torch.Tensor         # [B] i32
+    min_gen: torch.Tensor       # [B] i32 suppress stop below this count
+    max_gen: torch.Tensor       # [B] i32
+    stop_ids: torch.Tensor      # [B, K] i64 per-slot stop tokens (-1 = unused)
+    out_tokens: torch.Tensor    # [B, G] i64
+    out_logprobs: torch.Tensor  # [B, G] f32
+    sp: SamplingParams
+
+
+@dataclasses.dataclass
+class GenRequest:
+    rid: str
+    input_ids: List[int]
+    max_new_tokens: int = 256
+    min_new_tokens: int = 0
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: int = 1 << 30
+    greedy: bool = False
+    stop_token_ids: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class GenOutput:
+    rid: str
+    output_ids: List[int]
+    output_logprobs: List[float]
+    finish_reason: str            # "stop" | "length" | "interrupted"
+    version: int = 0
+
+
+# Fixed at the reference engine's defaults; the port's callers never set
+# them (a launcher or config that needs another value brings the option).
+MAX_NEW_TOKENS_CAP = 1024          # output buffer width per slot
+ADMIT_BUCKETS = (1, 2, 4, 8)       # rows per prefill extend call
+
+
+def _finish_reason(n_gen, max_gen) -> str:
+    return "length" if n_gen >= max_gen else "stop"
+
+
+def _resolve_kv_dtype(kv_dtype: Optional[str], serving_dtype: str) -> str:
+    """None/"bf16"/"bfloat16"/the serving dtype -> the serving dtype (raw
+    pages); "int8" -> quantized pool; anything else raises."""
+    if kv_dtype is None:
+        return serving_dtype
+    v = kv_dtype.strip().lower()
+    if v == "int8":
+        return "int8"
+    if v in ("bf16", "bfloat16", serving_dtype):
+        return serving_dtype
+    raise ValueError(
+        f"unsupported kv_dtype {kv_dtype!r}: expected 'int8', 'bf16', or "
+        f"the serving dtype ({serving_dtype!r})"
+    )
+
+
+@dataclasses.dataclass
+class _SlotInfo:
+    rid: str
+    pages: List[int]          # owned pages (refcount held by this slot)
+    borrowed: List[int]       # shared prefix pages (one ref held)
+
+
+class _Clock:
+    """Marks on the device timeline (CUDA events) or the host clock (CPU);
+    read only after a sync, so timing adds none."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def seconds(self, a, b) -> float:
+        return a.elapsed_time(b) / 1e3 if self.cuda else b - a
+
+
+class GenerationEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        max_slots: int = 8,
+        max_seqlen: int = 2048,
+        seed: int = 0,
+        page_size: int = 128,
+        kv_dtype: Optional[str] = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        # explicit argument > cfg.kv_dtype > AREAL_KV_DTYPE > serving dtype
+        kd = kv_dtype if kv_dtype is not None else (
+            cfg.kv_dtype if cfg.kv_dtype is not None else constants.kv_dtype()
+        )
+        self.kv_dtype = _resolve_kv_dtype(kd, cfg.dtype)
+        self.kv_quantized = self.kv_dtype == "int8"
+        self.params = self.prepare_params(params)
+        self.B = max_slots
+        self.page = page_size
+        self.M = -(-max_seqlen // page_size)      # table width (pages/slot)
+        self.S = self.M * page_size
+        self.G = MAX_NEW_TOKENS_CAP
+        self.version = 0
+        self.admit_chunk = page_size   # prefill tokens per row per extend
+        self.max_stop_ids = 8
+        # dense-equivalent pool sized at the SERVING-dtype byte budget: an
+        # int8 pool buys itemsize-ratio x the pages for the same bytes
+        itemsize = torch_dtype(cfg.dtype).itemsize
+        bytes_ratio = itemsize if self.kv_quantized else 1
+        self.n_pages = self.B * self.M * bytes_ratio
+        self.pool = PagePool(self.n_pages, page_size)
+        self.prefix = PrefixRegistry(self.pool)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.state = self._make_state()
+        self.accepting = True  # False = decode only, no new admissions
+        self.paused = False
+        self._slots: List[Optional[_SlotInfo]] = [None] * self.B
+        self._table_host = np.zeros((self.B, self.M), np.int32)
+        # host mirror of per-slot resident lengths: admission knows them,
+        # each chunk's sync refreshes them (width-limits decode tables)
+        self._lens_host = np.zeros((self.B,), np.int64)
+        # host mirror of "does this slot warp" (top-p/top-k): when no
+        # resident slot warps, the chunk skips the [B, V] sort
+        self._warp_host = np.zeros((self.B,), bool)
+        self._pending: List[GenRequest] = []
+        self._req_meta: Dict[str, GenRequest] = {}
+        self._lock = threading.RLock()
+        self._pending_lock = threading.Lock()
+        self._clock = _Clock(self.device)
+        self.stats = {
+            "prefill_tokens": 0,        # prompt tokens actually computed
+            "prefix_hit_tokens": 0,     # prompt tokens served from shared pages
+            "prefix_hits": 0,
+            "admitted": 0,
+            "decode_steps": 0,          # decode steps run (one kernel per layer each)
+            "prefill_s": 0.0,           # device time of admission (prefill)
+            "decode_s": 0.0,            # device time of decode chunks
+        }
+
+    def _make_state(self) -> GenState:
+        B, dev = self.B, self.device
+
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=dev)
+
+        return GenState(
+            cache=tfm.PagedKVCache.empty(
+                self.cfg, self.n_pages, self.page,
+                kv_dtype="int8" if self.kv_quantized else None, device=dev,
+            ),
+            lens=full((B,), 0, torch.int32),
+            last_tokens=full((B,), 0, torch.int64),
+            active=full((B,), False, torch.bool),
+            n_gen=full((B,), 0, torch.int32),
+            min_gen=full((B,), 0, torch.int32),
+            max_gen=full((B,), 0, torch.int32),
+            stop_ids=full((B, self.max_stop_ids), -1, torch.int64),
+            out_tokens=full((B, self.G), 0, torch.int64),
+            out_logprobs=full((B, self.G), 0.0, torch.float32),
+            sp=SamplingParams.filled(B, device=dev),
+        )
+
+    # ------------------------------------------------------------------ #
+    # Client API
+    # ------------------------------------------------------------------ #
+
+    def submit(self, req: GenRequest):
+        need = len(req.input_ids) - 1 + min(req.max_new_tokens, self.G)
+        if need > self.S:
+            raise ValueError(
+                f"prompt {len(req.input_ids)} + max_new "
+                f"{req.max_new_tokens} exceeds per-slot capacity {self.S}"
+            )
+        with self._pending_lock:
+            self._pending.append(req)
+            self._req_meta[req.rid] = req
+
+    def free_slots(self) -> int:
+        return sum(s is None for s in self._slots)
+
+    def n_running(self) -> int:
+        return sum(s is not None for s in self._slots)
+
+    def n_pending(self) -> int:
+        with self._pending_lock:
+            return len(self._pending)
+
+    def kv_pool_bytes(self) -> int:
+        """Configured KV-pool footprint (pages + quant scales), from shapes."""
+        cfg = self.cfg
+        elems = cfg.n_layers * self.n_pages * 2 * cfg.n_kv_heads * self.page
+        item = 1 if self.kv_quantized else torch_dtype(cfg.dtype).itemsize
+        total = elems * cfg.head_dim * item
+        if self.kv_quantized:
+            total += elems * 4  # one f32 scale per (token slot, head, K|V)
+        return total
+
+    def kv_pool_occupancy(self) -> float:
+        """Fraction of pool pages currently held (slots + prefix cache)."""
+        return 1.0 - self.pool.n_free / max(self.n_pages, 1)
+
+    def kv_pool_demand_occupancy(self) -> float:
+        """Occupancy excluding prefix-cache-only pages (instantly
+        evictable under pressure): the admission signal."""
+        free_eq = self.pool.n_free + self.prefix.n_reclaimable()
+        return 1.0 - free_eq / max(self.n_pages, 1)
+
+    def prepare_params(self, params):
+        """The port's param dict in the serving dtype on the engine's device."""
+        return tfm.cast_params(self.cfg, params, self.device)
+
+    def update_params(self, params, version: Optional[int] = None):
+        """Hot weight swap between decode chunks. Invalidates the prefix
+        cache: prompt KV computed under old weights must not seed new
+        generations."""
+        params = self.prepare_params(params)
+        with self._lock:
+            self.params = params
+            self.version = version if version is not None else self.version + 1
+            self.prefix.clear()
+
+    def partial_outputs(
+        self, rids: Optional[Sequence[str]] = None
+    ) -> Dict[str, Tuple[List[int], List[float]]]:
+        """Accumulated (tokens, logprobs) so far for running slots; one
+        device pull serves every requested slot."""
+        with self._lock:
+            wanted = None if rids is None else set(rids)
+            sel = [
+                (b, s.rid)
+                for b, s in enumerate(self._slots)
+                if s is not None and (wanted is None or s.rid in wanted)
+            ]
+            if not sel:
+                return {}
+            host = self._pull_outputs()
+            out: Dict[str, Tuple[List[int], List[float]]] = {}
+            for b, rid in sel:
+                n = int(host["n_gen"][b])
+                out[rid] = (
+                    host["out_tokens"][b, :n].tolist(),
+                    host["out_logprobs"][b, :n].tolist(),
+                )
+            return out
+
+    def cancel(self, rid: str) -> bool:
+        """Abort a request: drop it from the pending queue, or release its
+        slot + pages mid-generation. False when the rid is unknown."""
+        with self._pending_lock:
+            for i, r in enumerate(self._pending):
+                if r.rid == rid:
+                    del self._pending[i]
+                    self._req_meta.pop(rid, None)
+                    return True
+        with self._lock:
+            for b, s in enumerate(self._slots):
+                if s is not None and s.rid == rid:
+                    self._release_slot(b)
+                    self.state.active[b] = False
+                    self.state.lens[b] = 0
+                    return True
+        return False
+
+    def pause(self) -> List[GenOutput]:
+        """Stop generating and harvest all running slots as interrupted."""
+        with self._lock:
+            self.paused = True
+            if not any(s is not None for s in self._slots):
+                return []
+            host_state = self._pull_outputs()
+            outs = []
+            for b, s in enumerate(self._slots):
+                if s is not None:
+                    reason = (
+                        "interrupted" if host_state["active"][b]
+                        else _finish_reason(
+                            host_state["n_gen"][b], host_state["max_gen"][b]
+                        )
+                    )
+                    outs.append(
+                        self._harvest(b, reason, host_state=host_state)
+                    )
+            self.state.active.zero_()
+            self.state.lens.zero_()
+            return outs
+
+    def resume(self):
+        with self._lock:
+            self.paused = False
+
+    # ------------------------------------------------------------------ #
+    # Admission: chunked prefill through the page pool
+    # ------------------------------------------------------------------ #
+
+    def _table_width(self, max_pos: int) -> int:
+        """Page-table width for work that touches positions up to
+        ``max_pos``: enough pages, rounded up to a power of two, floored at
+        32 and capped at the full table. The plain-PyTorch gather behind
+        prefill then reads O(resident) pages, and the decode kernel gets
+        the narrowed table with its row stride."""
+        need = -(-max_pos // self.page)
+        w = 32
+        while w < need:
+            w *= 2
+        return min(w, self.M)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _row_bucket(self, n: int) -> int:
+        return next(b for b in ADMIT_BUCKETS if b >= min(n, ADMIT_BUCKETS[-1]))
+
+    def _run_extends(self, rows: List[dict]):
+        """Stream each row's tokens through fixed ``[n_rows, admit_chunk]``
+        extend calls (rows padded to an admit bucket with ``n_new = 0``);
+        each wave sees only the table prefix its positions can touch."""
+        if not rows:
+            return
+        C = self.admit_chunk
+        i = 0
+        while i < len(rows):
+            n = self._row_bucket(len(rows) - i)
+            chunk_rows = rows[i : i + n]
+            i += len(chunk_rows)
+            max_t = max(len(r["tokens"]) for r in chunk_rows)
+            n_chunks = max(1, -(-max_t // C))
+            tables = np.zeros((n, self.M), np.int32)
+            starts0 = np.zeros((n,), np.int32)
+            all_tokens = np.zeros((n, n_chunks * C), np.int64)
+            counts = np.zeros((n,), np.int32)
+            for j, r in enumerate(chunk_rows):
+                tables[j] = r["table_row"]
+                starts0[j] = r["start"]
+                all_tokens[j, : len(r["tokens"])] = r["tokens"]
+                counts[j] = len(r["tokens"])
+            for c in range(n_chunks):
+                n_new = np.clip(counts - c * C, 0, C).astype(np.int32)
+                if not n_new.any():
+                    break
+                max_pos = int(np.max(starts0 + np.minimum(counts, (c + 1) * C)))
+                W = self._table_width(max_pos)
+                # cold-prompt first waves start every row at position 0:
+                # nothing in the pool is visible, skip its gather + scan
+                skip_pool = c == 0 and not starts0.any()
+                tfm.extend_paged(
+                    self.params, self.cfg, self.state.cache,
+                    self._to_device(all_tokens[:, c * C : (c + 1) * C]),
+                    self._to_device(tables[:, :W]),
+                    self._to_device(starts0 + c * C),
+                    self._to_device(n_new),
+                    skip_pool=skip_pool,
+                )
+
+    def _admit_pending(self) -> bool:
+        """Admit what fits; returns whether anything was admitted."""
+        if not self.accepting:
+            return False
+        free = [b for b, s in enumerate(self._slots) if s is None]
+        if not free:
+            return False
+        admitted: List[Tuple[GenRequest, int]] = []
+        misses: List[dict] = []
+        hits: List[dict] = []
+        deferred_inserts: List[Tuple[List[int], List[int]]] = []
+        still_pending: List[GenRequest] = []
+        with self._pending_lock:
+            take = self._pending[: len(free) + 8]  # small lookahead
+            del self._pending[: len(take)]
+        while take and free:
+            r = take.pop(0)
+            ids = list(r.input_ids)
+            plen_eff = len(ids) - 1               # prefilled positions
+            max_gen = min(r.max_new_tokens, self.G)
+            n_total = -(-(plen_eff + max_gen) // self.page)
+            n_shared_full = plen_eff // self.page
+            shared: List[int] = []
+            if n_shared_full > 0:
+                shared = self.prefix.lookup(ids, n_shared_full) or []
+            n_owned = n_total - len(shared)
+            if self.pool.n_free < n_owned:
+                self.prefix.evict_lru(n_owned)
+            try:
+                owned = self.pool.alloc(n_owned)
+            except OutOfPagesError:
+                # pool pressure: retry on a later step
+                if shared:
+                    self.pool.release(shared)
+                still_pending.append(r)
+                break
+            slot = free.pop(0)
+            table_row = np.zeros((self.M,), np.int32)
+            table_row[: len(shared) + len(owned)] = shared + owned
+            self._table_host[slot] = table_row
+            self._slots[slot] = _SlotInfo(rid=r.rid, pages=owned, borrowed=shared)
+            covered = len(shared) * self.page
+            row = {"tokens": ids[covered:plen_eff], "start": covered,
+                   "table_row": table_row}
+            if shared:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_hit_tokens"] += covered
+                hits.append(row)
+                if n_shared_full > len(shared):
+                    # partial hit: register the divergent tail only AFTER
+                    # the extend waves ran (a same-cycle borrower in wave 2
+                    # must not read pages before they are written)
+                    n_new = n_shared_full - len(shared)
+                    deferred_inserts.append((ids, shared + owned[:n_new]))
+            else:
+                misses.append(row)
+                if n_shared_full > 0:
+                    # cold prompt: its pages are written in wave 1, so
+                    # same-cycle group members can borrow them in wave 2
+                    self.prefix.insert(ids, list(owned[:n_shared_full]))
+            self.stats["prefill_tokens"] += len(row["tokens"])
+            self.stats["admitted"] += 1
+            admitted.append((r, slot))
+        still_pending.extend(take)  # slots/pool ran out: back in line
+        if still_pending:
+            with self._pending_lock:
+                self._pending[:0] = still_pending
+        if not admitted:
+            return False
+        # wave 1: unique prompts compute their KV; wave 2: prefix borrowers
+        # extend only their tails
+        self._run_extends(misses)
+        self._run_extends(hits)
+        for ins_ids, ins_pages in deferred_inserts:
+            self.prefix.insert(ins_ids, ins_pages)
+        self._commit(admitted)
+        return True
+
+    def _commit(self, admitted: List[Tuple[GenRequest, int]]):
+        """Write the admitted slots' decode state in one batch of small
+        host-to-device copies (slot indices are host-known, so no padding
+        rows need dropping)."""
+        n, K = len(admitted), self.max_stop_ids
+        slots = np.zeros((n,), np.int64)
+        last_toks = np.zeros((n,), np.int64)
+        lens = np.zeros((n,), np.int32)
+        temp = np.ones((n,), np.float32)
+        top_p = np.ones((n,), np.float32)
+        top_k = np.full((n,), 1 << 30, np.int64)
+        min_gen = np.zeros((n,), np.int32)
+        max_gen = np.zeros((n,), np.int32)
+        stop_ids = np.full((n, K), -1, np.int64)
+        for j, (r, slot) in enumerate(admitted):
+            ids = r.input_ids
+            slots[j] = slot
+            last_toks[j] = ids[-1]
+            lens[j] = len(ids) - 1
+            self._lens_host[slot] = len(ids) - 1
+            self._warp_host[slot] = (
+                r.top_p < 1.0 or r.top_k < self.cfg.vocab_size
+            ) and not r.greedy and r.temperature > 0.0
+            temp[j] = 0.0 if r.greedy else r.temperature
+            top_p[j] = r.top_p
+            top_k[j] = min(r.top_k, 1 << 30)
+            min_gen[j] = r.min_new_tokens
+            max_gen[j] = min(r.max_new_tokens, self.G)
+            merged = list(dict.fromkeys(r.stop_token_ids))[:K]
+            stop_ids[j, : len(merged)] = merged
+        st, idx = self.state, self._to_device(slots)
+        st.lens[idx] = self._to_device(lens)
+        st.last_tokens[idx] = self._to_device(last_toks)
+        st.active[idx] = True
+        st.n_gen[idx] = 0
+        st.min_gen[idx] = self._to_device(min_gen)
+        st.max_gen[idx] = self._to_device(max_gen)
+        st.stop_ids[idx] = self._to_device(stop_ids)
+        st.out_tokens[idx] = 0
+        st.out_logprobs[idx] = 0.0
+        st.sp.temperature[idx] = self._to_device(temp)
+        st.sp.top_p[idx] = self._to_device(top_p)
+        st.sp.top_k[idx] = self._to_device(top_k)
+
+    # ------------------------------------------------------------------ #
+    # Decode
+    # ------------------------------------------------------------------ #
+
+    def _warp_bucket(self, n: int) -> int:
+        """Power-of-two capacity for the warping-slot index operand (0 =
+        nothing warps), as in the reference's jit keys."""
+        if n <= 0:
+            return 0
+        w = 1
+        while w < n:
+            w *= 2
+        return min(w, self.B)
+
+    def _decode_chunk(self, n_steps: int, W: int,
+                      warp_rows: Optional[torch.Tensor]) -> torch.Tensor:
+        """Run ``n_steps`` decode steps for every slot on the device and
+        return the harvest flags ``[4, B]`` (active, n_gen, max_gen, lens)
+        still on the device; the caller's pull is the chunk's one sync."""
+        cfg, st = self.cfg, self.state
+        table = self._to_device(self._table_host[:, :W])
+        rows = torch.arange(self.B, device=self.device)
+        last_col = st.out_tokens.shape[1] - 1
+        for _ in range(n_steps):
+            logits, _, new_lens = tfm.decode_step_paged(
+                self.params, cfg, st.cache, st.last_tokens, table,
+                st.lens, st.active,
+            )
+            tokens, lp = sample_tokens(
+                self._gen, logits, st.sp, warp=warp_rows is not None,
+                warp_rows=warp_rows,
+            )
+            tokens = torch.where(st.active, tokens, st.last_tokens)
+            idx = st.n_gen.clamp(0, last_col).long()
+            st.out_tokens[rows, idx] = torch.where(
+                st.active, tokens, st.out_tokens[rows, idx]
+            )
+            st.out_logprobs[rows, idx] = torch.where(
+                st.active, lp, st.out_logprobs[rows, idx]
+            )
+            n_gen = st.n_gen + st.active.int()
+            hit_stop = (tokens[:, None] == st.stop_ids).any(1) & (
+                n_gen >= st.min_gen
+            )
+            st.active = st.active & ~hit_stop & (n_gen < st.max_gen)
+            st.n_gen = n_gen
+            st.lens = new_lens
+            st.last_tokens = tokens
+        self.stats["decode_steps"] += n_steps
+        return torch.stack([st.active.int(), st.n_gen, st.max_gen, st.lens])
+
+    def _pull_outputs(self) -> dict:
+        """ONE device pull of every slot's accumulated outputs + flags."""
+        st = self.state
+        flags = torch.stack(
+            [st.n_gen, st.active.int(), st.max_gen]
+        ).cpu().numpy()
+        return {
+            "n_gen": flags[0], "active": flags[1].astype(bool),
+            "max_gen": flags[2],
+            "out_tokens": st.out_tokens.cpu().numpy(),
+            "out_logprobs": st.out_logprobs.cpu().numpy(),
+        }
+
+    def _release_slot(self, b: int) -> _SlotInfo:
+        info = self._slots[b]
+        self._slots[b] = None
+        self.pool.release(info.pages)
+        if info.borrowed:
+            self.pool.release(info.borrowed)
+        self._table_host[b] = 0
+        self._lens_host[b] = 0
+        self._warp_host[b] = False
+        with self._pending_lock:
+            self._req_meta.pop(info.rid, None)
+        return info
+
+    def _harvest(self, b: int, reason: str, host_state: dict) -> GenOutput:
+        """Release slot ``b`` and build its output from a host snapshot."""
+        n = int(host_state["n_gen"][b])
+        info = self._release_slot(b)
+        return GenOutput(
+            rid=info.rid,
+            output_ids=host_state["out_tokens"][b, :n].tolist(),
+            output_logprobs=host_state["out_logprobs"][b, :n].tolist(),
+            finish_reason=reason,
+            version=self.version,
+        )
+
+    def step(self, decode_steps: int = 16) -> List[GenOutput]:
+        """Admit pending requests, run one decode chunk, harvest finished."""
+        with self._lock:
+            if self.paused:
+                return []
+            t0 = self._clock.mark()
+            admitted = self._admit_pending()
+            if self.n_running() == 0:
+                return []
+            t1 = self._clock.mark()
+            running = [b for b, s in enumerate(self._slots) if s is not None]
+            warp_slots = [b for b in running if self._warp_host[b]]
+            wb = self._warp_bucket(len(warp_slots))
+            warp_rows = None
+            if wb:
+                idx = np.full((wb,), self.B, np.int64)  # padding => dropped
+                idx[: len(warp_slots)] = warp_slots
+                warp_rows = self._to_device(idx)
+            # width-limit the chunk to the pages it can touch
+            W = self._table_width(
+                int(self._lens_host[running].max()) + decode_steps
+            )
+            flags = self._decode_chunk(decode_steps, W, warp_rows)
+            t2 = self._clock.mark()
+            # the chunk's one host sync
+            active, n_gen, max_gen, lens = flags.cpu().numpy()
+            if admitted:
+                self.stats["prefill_s"] += self._clock.seconds(t0, t1)
+            self.stats["decode_s"] += self._clock.seconds(t1, t2)
+            self._lens_host[:] = lens
+            finished = [
+                b for b, info in enumerate(self._slots)
+                if info is not None and not active[b]
+            ]
+            if not finished:
+                return []
+            # the chunk already deactivated them on the device
+            host_state = self._pull_outputs()
+            return [
+                self._harvest(b, _finish_reason(n_gen[b], max_gen[b]),
+                              host_state=host_state)
+                for b in finished
+            ]
+
+    def run_until_done(self, decode_steps: int = 16, timeout: float = 600.0):
+        """Convenience loop: run until every submitted request finished."""
+        outs = []
+        t0 = time.time()
+        while True:
+            with self._lock:
+                busy = (self._pending or self.n_running()) and not self.paused
+            if not busy:
+                break
+            outs.extend(self.step(decode_steps))
+            if time.time() - t0 > timeout:
+                raise TimeoutError("generation did not finish in time")
+        return outs

@@ -1,0 +1,325 @@
+"""Generation HTTP server (counterpart of ``areal_tpu/gen/server.py``),
+built on the standard library: a ``ThreadingHTTPServer`` answers each
+request on its own thread, and one engine thread drives admission and
+decode continuously.
+
+Routes (the slice's subset of the reference's route table):
+
+- ``POST /generate``: submit a request, wait for completion (or
+  interruption); answers ``rid``, ``output_ids``, ``output_logprobs``,
+  ``finish_reason`` and ``version``.
+- ``POST /pause_generation`` / ``POST /continue_generation``.
+- ``GET /health``, ``GET /metrics_json``.
+
+A malformed ``/generate`` body is answered 400 with the reference's error
+texts. If the engine fails, every waiting and later request is answered
+500 with the error; the server does not carry on without its engine.
+"""
+
+import concurrent.futures
+import json
+import logging
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, Optional
+
+from areal_tpu_torch.gen.engine import GenerationEngine, GenOutput, GenRequest
+
+logger = logging.getLogger("areal_tpu_torch.gen.server")
+
+
+class RequestValidationError(ValueError):
+    """Malformed /generate payload: answered 400, never a 500 from deep
+    inside the engine."""
+
+
+def parse_generate_request(
+    d: dict, vocab_size: int, max_capacity: int, max_new_cap: int = 1 << 30
+) -> GenRequest:
+    """Validate a /generate JSON body into a GenRequest. Every reachable
+    malformation is rejected here with a message naming the field."""
+    if not isinstance(d, dict):
+        raise RequestValidationError("body must be a JSON object")
+    if "rid" not in d:
+        raise RequestValidationError("missing required field 'rid'")
+    ids = d.get("input_ids")
+    if not isinstance(ids, (list, tuple)) or not ids:
+        raise RequestValidationError(
+            "'input_ids' must be a non-empty list of token ids"
+        )
+    try:
+        ids = [int(t) for t in ids]
+    except (TypeError, ValueError):
+        raise RequestValidationError("'input_ids' must all be integers")
+    bad = [t for t in ids if t < 0 or t >= vocab_size]
+    if bad:
+        raise RequestValidationError(
+            f"input token {bad[0]} outside vocab [0, {vocab_size})"
+        )
+    sp = d.get("sampling_params", {})
+    if not isinstance(sp, dict):
+        raise RequestValidationError("'sampling_params' must be an object")
+    try:
+        max_new = int(sp.get("max_new_tokens", 256))
+        min_new = int(sp.get("min_new_tokens", 0))
+        temperature = float(sp.get("temperature", 1.0))
+        top_p = float(sp.get("top_p", 1.0))
+        top_k = int(sp.get("top_k", 1 << 30))
+        greedy = bool(sp.get("greedy", False))
+        stop_ids = [int(t) for t in sp.get("stop_token_ids", [])]
+    except (TypeError, ValueError) as e:
+        raise RequestValidationError(f"malformed sampling_params: {e}")
+    if max_new < 1:
+        raise RequestValidationError("max_new_tokens must be >= 1")
+    if min_new < 0 or min_new > max_new:
+        raise RequestValidationError(
+            "min_new_tokens must be in [0, max_new_tokens]"
+        )
+    if temperature < 0.0:
+        raise RequestValidationError("temperature must be >= 0")
+    if not 0.0 < top_p <= 1.0:
+        raise RequestValidationError("top_p must be in (0, 1]")
+    if top_k < 1:
+        raise RequestValidationError("top_k must be >= 1")
+    # mirror engine.submit's admissibility check
+    if len(ids) - 1 + min(max_new, max_new_cap) > max_capacity:
+        raise RequestValidationError(
+            f"prompt {len(ids)} + max_new_tokens {max_new} exceeds "
+            f"per-slot capacity {max_capacity}"
+        )
+    return GenRequest(
+        rid=str(d["rid"]),
+        input_ids=ids,
+        max_new_tokens=max_new,
+        min_new_tokens=min_new,
+        temperature=temperature,
+        top_p=top_p,
+        top_k=top_k,
+        greedy=greedy,
+        stop_token_ids=stop_ids,
+    )
+
+
+class GenerationHTTPServer:
+    """``start()`` binds and starts the HTTP and engine threads and
+    returns the port; ``stop()`` ends both."""
+
+    def __init__(self, engine: GenerationEngine, decode_steps: int = 16):
+        self.engine = engine
+        self.decode_steps = decode_steps
+        self._futures: Dict[str, concurrent.futures.Future] = {}
+        self._futures_lock = threading.Lock()
+        # serializes engine.step against pause (the engine's own lock
+        # would let a pause land between two halves of a serving round)
+        self._step_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._error: Optional[BaseException] = None
+        self._served = 0
+        self._gen_tokens = 0
+        self._n_interrupted = 0
+        self._t_step_busy = 0.0
+        self._start = time.time()
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._threads = []
+        self.port: Optional[int] = None
+
+    # ------------------------------------------------------------------ #
+    # lifecycle
+    # ------------------------------------------------------------------ #
+
+    def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+        self._httpd.daemon_threads = True
+        self._threads = [
+            threading.Thread(target=self._httpd.serve_forever,
+                             name="gen-http", daemon=True),
+            threading.Thread(target=self._run, name="gen-engine",
+                             daemon=True),
+        ]
+        for t in self._threads:
+            t.start()
+        self.port = self._httpd.server_address[1]
+        logger.info("generation server on %s:%d", host, self.port)
+        return self.port
+
+    def stop(self):
+        self._stop.set()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        for t in self._threads:
+            t.join()
+        self._fail_all(RuntimeError("server stopped"))
+
+    # ------------------------------------------------------------------ #
+    # engine loop
+    # ------------------------------------------------------------------ #
+
+    def _run(self):
+        eng = self.engine
+        while not self._stop.is_set():
+            if eng.paused or (not eng.n_pending() and eng.n_running() == 0):
+                time.sleep(0.005)
+                continue
+            try:
+                with self._step_lock:
+                    t0 = time.monotonic()
+                    outs = eng.step(self.decode_steps)
+                    self._t_step_busy += time.monotonic() - t0
+            except BaseException as e:  # noqa: BLE001 - reported to callers
+                logger.exception("engine step failed; serving stops")
+                self._error = e
+                self._fail_all(e)
+                return
+            self._resolve(outs)
+
+    def _fail_all(self, err: BaseException):
+        with self._futures_lock:
+            futs, self._futures = list(self._futures.values()), {}
+        for f in futs:
+            if not f.done():
+                f.set_exception(err)
+
+    def _resolve(self, outs):
+        for o in outs:
+            self._served += 1
+            self._gen_tokens += len(o.output_ids)
+            with self._futures_lock:
+                fut = self._futures.pop(o.rid, None)
+            if fut is not None and not fut.done():
+                fut.set_result(o)
+
+    # ------------------------------------------------------------------ #
+    # handlers: each returns (status, json body)
+    # ------------------------------------------------------------------ #
+
+    def generate(self, body: bytes):
+        if self._error is not None:
+            return 500, {"error": f"engine failed: {self._error!r}"}
+        try:
+            try:
+                d = json.loads(body)
+            except (ValueError, TypeError):
+                raise RequestValidationError("body is not valid JSON")
+            req = parse_generate_request(
+                d, self.engine.cfg.vocab_size, self.engine.S, self.engine.G
+            )
+        except RequestValidationError as e:
+            return 400, {"error": str(e)}
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._futures_lock:
+            self._futures[req.rid] = fut
+        try:
+            self.engine.submit(req)
+        except ValueError as e:
+            with self._futures_lock:
+                self._futures.pop(req.rid, None)
+            return 400, {"error": str(e)}
+        try:
+            out: GenOutput = fut.result()
+        except BaseException as e:  # noqa: BLE001 - engine failure -> 500
+            return 500, {"error": f"engine failed: {e!r}"}
+        return 200, {
+            "rid": out.rid,
+            "output_ids": out.output_ids,
+            "output_logprobs": out.output_logprobs,
+            "finish_reason": out.finish_reason,
+            "version": out.version,
+        }
+
+    def pause(self, body: bytes):
+        with self._step_lock:
+            interrupted = self.engine.pause()
+            self._n_interrupted += len(interrupted)
+            self._resolve(interrupted)
+        return 200, {"num_paused_requests": len(interrupted)}
+
+    def resume(self, body: bytes):
+        self.engine.resume()
+        return 200, {"success": True}
+
+    def health(self, body: bytes):
+        if self._error is not None:
+            return 500, {"status": "error", "error": repr(self._error)}
+        return 200, {"status": "ok"}
+
+    def metrics_dict(self) -> dict:
+        eng = self.engine
+        return {
+            "running": eng.n_running(),
+            "pending": eng.n_pending(),
+            "served": self._served,
+            "gen_tokens": self._gen_tokens,
+            "gen_throughput": self._gen_tokens / max(time.time() - self._start, 1e-6),
+            "version": eng.version,
+            "max_slots": eng.B,
+            # per-slot token capacity: the gateway's prompt-size bound
+            "slot_capacity": eng.S,
+            "paused": bool(eng.paused),
+            "pages_free": eng.pool.n_free,
+            "pages_total": eng.n_pages,
+            "n_pages_free": eng.pool.n_free,
+            "kv_dtype": eng.kv_dtype,
+            "kv_pool_bytes": eng.kv_pool_bytes(),
+            "kv_pool_occupancy": round(eng.kv_pool_occupancy(), 4),
+            "kv_pool_demand_occupancy": round(
+                eng.kv_pool_demand_occupancy(), 4
+            ),
+            "prefix_pages": len(eng.prefix),
+            "uptime_s": round(time.time() - self._start, 3),
+            "step_busy_s": round(self._t_step_busy, 3),
+            "n_interrupted": self._n_interrupted,
+            **{f"engine_{k}": v for k, v in eng.stats.items()},
+        }
+
+    def metrics(self, body: bytes):
+        return 200, self.metrics_dict()
+
+
+def _make_handler(srv: GenerationHTTPServer):
+    routes = {
+        ("POST", "/generate"): srv.generate,
+        ("POST", "/pause_generation"): srv.pause,
+        ("POST", "/continue_generation"): srv.resume,
+        ("GET", "/health"): srv.health,
+        ("GET", "/metrics_json"): srv.metrics,
+    }
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def _dispatch(self, method: str):
+            fn = routes.get((method, self.path.split("?", 1)[0]))
+            n = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(n) if n else b""
+            if fn is None:
+                status, payload = 404, {"error": f"no route {method} {self.path}"}
+            else:
+                status, payload = fn(body)
+            data = json.dumps(payload).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            self._dispatch("GET")
+
+        def do_POST(self):
+            self._dispatch("POST")
+
+        def log_message(self, fmt, *args):
+            logger.debug("%s - " + fmt, self.address_string(), *args)
+
+    return Handler
+
+
+def serve(engine: GenerationEngine, host: str = "127.0.0.1", port: int = 0,
+          **kw) -> GenerationHTTPServer:
+    """Start serving ``engine``; returns the running server (caller stops
+    it). ``server.port`` is the bound port."""
+    srv = GenerationHTTPServer(engine, **kw)
+    srv.start(host, port)
+    return srv

@@ -1,0 +1,281 @@
+"""Port parity: the generation engine and sampling of ``areal_tpu_torch``
+against ``areal_tpu``.
+
+Greedy output is compared TOKEN FOR TOKEN with the JAX engine on the
+``tests/test_gen_engine.py`` config (float32, one param tree from a seed
+fed to both): slot turnover, stop tokens, min/max tokens, an 8-way
+shared-prefix group, pause -> resubmit, and the int8 pool. Logprobs agree
+to 1e-4 (float32, accumulation order). Sampled rows cannot match JAX's
+random bits, so they are held to the warped distribution by chi-square;
+the warpers themselves match JAX exactly.
+"""
+
+import numpy as np
+import pytest
+from scipy import stats
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from areal_tpu.gen import engine as jax_engine
+from areal_tpu.gen import sampling as jax_sampling
+from areal_tpu.models import transformer as jax_tfm
+from areal_tpu.models.config import ModelConfig as JaxConfig
+from areal_tpu_torch.gen import engine as pt_engine
+from areal_tpu_torch.gen import sampling as pt_sampling
+from areal_tpu_torch.models import transformer as pt_tfm
+from areal_tpu_torch.models.config import ModelConfig as PtConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tensors here are tiny, so torch's intra-op thread pool buys nothing;
+    one pool per test worker crowds out the timing-sensitive tests that
+    other workers run beside this file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+CFG_KW = dict(n_layers=2, n_q_heads=4, n_kv_heads=2, head_dim=8,
+              hidden_dim=32, intermediate_dim=64, vocab_size=128,
+              dtype="float32")
+ENGINE_KW = dict(max_slots=4, max_seqlen=128, page_size=8)
+STEPS = 4
+
+
+@pytest.fixture(scope="module")
+def tree():
+    return jax.tree.map(
+        np.asarray, jax_tfm.init_params(JaxConfig(**CFG_KW), jax.random.key(5))
+    )
+
+
+def _pt_engine(tree, **kw):
+    return pt_engine.GenerationEngine(
+        PtConfig(**CFG_KW), pt_tfm.params_from_numpy(tree, device="cpu"),
+        device="cpu", **{**ENGINE_KW, **kw},
+    )
+
+
+def _jax_engine(tree, **kw):
+    return jax_engine.GenerationEngine(
+        JaxConfig(**CFG_KW), jax.tree.map(jnp.asarray, tree),
+        **{**ENGINE_KW, **kw},
+    )
+
+
+def _run(eng, module, reqs):
+    for r in reqs:
+        eng.submit(module.GenRequest(**r))
+    return {o.rid: o for o in eng.run_until_done(decode_steps=STEPS)}
+
+
+@pytest.fixture(scope="module")
+def workload(tree):
+    """11 requests over 4 slots: an 8-way group on one 21-token prompt
+    (2 shared pages), a plain request, a stop-token request and a
+    min-tokens request whose stop token would fire early."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, 128, 21).tolist()
+    p_plain = rng.integers(1, 128, 5).tolist()
+    p_stop = rng.integers(1, 128, 7).tolist()
+    p_min = rng.integers(1, 128, 9).tolist()
+    pre = _run(_pt_engine(tree), pt_engine, [
+        dict(rid="s", input_ids=p_stop, max_new_tokens=12, greedy=True),
+        dict(rid="m", input_ids=p_min, max_new_tokens=12, greedy=True),
+    ])
+    reqs = [dict(rid=f"g{i}", input_ids=shared, max_new_tokens=6, greedy=True)
+            for i in range(8)]
+    reqs += [
+        dict(rid="plain", input_ids=p_plain, max_new_tokens=10, greedy=True),
+        dict(rid="stop", input_ids=p_stop, max_new_tokens=12, greedy=True,
+             stop_token_ids=[pre["s"].output_ids[3]]),
+        dict(rid="min", input_ids=p_min, max_new_tokens=12, greedy=True,
+             min_new_tokens=4, stop_token_ids=[pre["m"].output_ids[1]]),
+    ]
+    return reqs
+
+
+@pytest.fixture(scope="module")
+def jax_outputs(tree, workload):
+    out = {}
+    for kv in ("raw", "int8"):
+        eng = _jax_engine(tree, kv_dtype="int8" if kv == "int8" else None)
+        out[kv] = (_run(eng, jax_engine, workload), dict(eng.stats),
+                   eng.kv_pool_bytes())
+    return out
+
+
+@pytest.mark.parametrize("kv", ["raw", "int8"])
+def test_greedy_token_exact_vs_jax_engine(tree, workload, jax_outputs, kv):
+    want, want_stats, want_bytes = jax_outputs[kv]
+    eng = _pt_engine(tree, kv_dtype="int8" if kv == "int8" else None)
+    got = _run(eng, pt_engine, workload)
+    assert set(got) == set(want)
+    for rid, w in want.items():
+        g = got[rid]
+        assert g.output_ids == w.output_ids, rid
+        assert g.finish_reason == w.finish_reason, rid
+        np.testing.assert_allclose(g.output_logprobs, w.output_logprobs,
+                                   atol=1e-4)
+    assert got["stop"].finish_reason == "stop"
+    assert len(got["min"].output_ids) >= 4
+    assert all(got[f"g{i}"].output_ids == got["g0"].output_ids
+               for i in range(8))
+    for k in ("prefill_tokens", "prefix_hit_tokens", "prefix_hits",
+              "admitted"):
+        assert eng.stats[k] == want_stats[k], k
+    assert eng.stats["prefix_hits"] > 0
+    assert eng.kv_pool_bytes() == want_bytes
+    # every page accounted for once the registry lets go
+    eng.prefix.clear()
+    assert eng.pool.n_free == eng.n_pages
+
+
+def test_pause_resubmit_continues_the_same_tokens(tree, workload, jax_outputs):
+    req = next(r for r in workload if r["rid"] == "plain")
+    ref = jax_outputs["raw"][0]["plain"].output_ids
+    eng = _pt_engine(tree)
+    eng.submit(pt_engine.GenRequest(**req))
+    eng.step(decode_steps=STEPS)
+    partial = eng.partial_outputs()["plain"][0]
+    parts = eng.pause()
+    assert len(parts) == 1 and parts[0].finish_reason == "interrupted"
+    got = parts[0].output_ids
+    assert got == partial and 0 < len(got) < req["max_new_tokens"]
+    assert eng.step() == []          # paused: nothing runs
+    eng.resume()
+    eng.submit(pt_engine.GenRequest(
+        rid="plain2", input_ids=req["input_ids"] + got,
+        max_new_tokens=req["max_new_tokens"] - len(got), greedy=True,
+    ))
+    rest = eng.run_until_done(decode_steps=STEPS)
+    assert got + rest[0].output_ids == ref
+
+
+def test_cancel_update_params_and_accounting(tree):
+    eng = _pt_engine(tree, max_slots=2)
+    eng.submit(pt_engine.GenRequest(rid="a", input_ids=[1, 2, 3],
+                                    max_new_tokens=20, greedy=True))
+    eng.submit(pt_engine.GenRequest(rid="b", input_ids=[4, 5, 6],
+                                    max_new_tokens=3, greedy=True))
+    eng.submit(pt_engine.GenRequest(rid="c", input_ids=[7, 8],
+                                    max_new_tokens=3, greedy=True))
+    assert eng.cancel("c")                        # still pending
+    eng.step(decode_steps=2)
+    assert eng.n_running() == 2 and eng.free_slots() == 0
+    assert 0.0 < eng.kv_pool_occupancy() <= 1.0
+    assert eng.cancel("a") and not eng.cancel("a")
+    outs = eng.run_until_done(decode_steps=STEPS)
+    assert [o.rid for o in outs] == ["b"] and outs[0].version == 0
+    new = jax.tree.map(lambda a: a * 0.5, tree)
+    eng.update_params(pt_tfm.params_from_numpy(new, device="cpu"), version=3)
+    assert len(eng.prefix) == 0
+    out = _run(eng, pt_engine, [dict(rid="d", input_ids=[1, 2, 3],
+                                     max_new_tokens=2, greedy=True)])
+    assert out["d"].version == 3
+    assert eng.pool.n_free == eng.n_pages
+
+
+def test_submit_rejects_over_capacity(tree):
+    eng = _pt_engine(tree)
+    with pytest.raises(ValueError, match="per-slot capacity"):
+        eng.submit(pt_engine.GenRequest(rid="x", input_ids=[1] * 120,
+                                        max_new_tokens=20))
+
+
+def test_kv_dtype_knob(tree, monkeypatch):
+    monkeypatch.setenv("AREAL_KV_DTYPE", "int8")
+    assert _pt_engine(tree).kv_quantized
+    monkeypatch.setenv("AREAL_KV_DTYPE", "nonsense")
+    assert not _pt_engine(tree).kv_quantized
+    assert not _pt_engine(tree, kv_dtype="bf16").kv_quantized
+    with pytest.raises(ValueError, match="unsupported kv_dtype"):
+        _pt_engine(tree, kv_dtype="fp4")
+
+
+# --------------------------------------------------------------------------- #
+# sampling
+# --------------------------------------------------------------------------- #
+
+
+def _sp_pair(temp, top_p, top_k):
+    j = jax_sampling.SamplingParams(
+        temperature=jnp.asarray(temp, jnp.float32),
+        top_p=jnp.asarray(top_p, jnp.float32),
+        top_k=jnp.asarray(top_k, jnp.int32),
+    )
+    t = pt_sampling.SamplingParams(
+        temperature=torch.tensor(temp, dtype=torch.float32),
+        top_p=torch.tensor(top_p, dtype=torch.float32),
+        top_k=torch.tensor(top_k, dtype=torch.int64),
+    )
+    return j, t
+
+
+WARP_ROWS = dict(
+    temp=[0.0, 1.0, 0.7, 1.3, 0.5, 1.0],
+    top_p=[1.0, 0.9, 1.0, 0.5, 0.8, 1.0],
+    top_k=[1 << 30, 1 << 30, 5, 3, 10, 1],
+)
+
+
+def test_warp_logits_exact_vs_jax():
+    logits = np.random.default_rng(2).normal(size=(6, 50)).astype(np.float32) * 3
+    jsp, tsp = _sp_pair(**WARP_ROWS)
+    want = jax_sampling.warp_logits(jnp.asarray(logits), jsp)
+    got = pt_sampling.warp_logits(torch.from_numpy(logits), tsp)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_warp_logits_rows_exact_vs_jax():
+    logits = np.random.default_rng(3).normal(size=(6, 50)).astype(np.float32) * 3
+    jsp, tsp = _sp_pair(**WARP_ROWS)
+    rows = np.asarray([1, 3, 4, 6], np.int32)     # 6 == B: padding, dropped
+    want = jax_sampling.warp_logits_rows(jnp.asarray(logits), jsp,
+                                         jnp.asarray(rows))
+    got = pt_sampling.warp_logits_rows(torch.from_numpy(logits), tsp,
+                                       torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("warp", [False, True])
+def test_sample_tokens_distribution_and_logprobs(warp):
+    """Sampled rows follow softmax(JAX-warped logits) (chi-square), greedy
+    rows are the first-max argmax, and logprobs are the warped log-softmax
+    at the token."""
+    V, N = 12, 20000
+    base = np.random.default_rng(4).normal(size=(V,)).astype(np.float32)
+    logits = np.tile(base, (N, 1))
+    temp = np.full(N, 0.8, np.float32)
+    temp[:5] = 0.0                                  # greedy rows
+    top_p = np.full(N, 0.9 if warp else 1.0, np.float32)
+    top_k = np.full(N, 6 if warp else 1 << 30, np.int64)
+    jsp, tsp = _sp_pair(temp, top_p, top_k)
+    gen = torch.Generator().manual_seed(0)
+    tokens, lp = pt_sampling.sample_tokens(
+        gen, torch.from_numpy(logits), tsp, warp=warp,
+    )
+    tokens, lp = tokens.numpy(), lp.numpy()
+    assert (tokens[:5] == np.argmax(base)).all()
+    warped = (jax_sampling.warp_logits(jnp.asarray(logits[5:6]), jsp_row(jsp, 5))
+              if warp else jnp.asarray(logits[5:6] / 0.8))
+    probs = np.asarray(jax.nn.softmax(warped, axis=-1), np.float64)[0]
+    counts = np.bincount(tokens[5:], minlength=V)
+    kept = probs > 1e-6
+    assert counts[~kept].sum() == 0
+    chi = stats.chisquare(counts[kept], probs[kept] / probs[kept].sum()
+                          * counts.sum())
+    assert chi.pvalue > 1e-3, (counts, probs)
+    want_lp = np.asarray(jax.nn.log_softmax(warped, axis=-1))[0][tokens[5:]]
+    np.testing.assert_allclose(lp[5:], want_lp, atol=1e-5)
+
+
+def jsp_row(jsp, i):
+    return jax_sampling.SamplingParams(
+        temperature=jsp.temperature[i : i + 1], top_p=jsp.top_p[i : i + 1],
+        top_k=jsp.top_k[i : i + 1],
+    )

@@ -1,0 +1,101 @@
+"""The port stands alone: importing every ``areal_tpu_torch`` module (and
+``chip_smoke.py``) loads neither ``jax`` nor ``areal_tpu``; no source line
+imports them; entry points refuse to fall back to the CPU; the kernel
+build raises when the toolchain is missing.
+
+The import check runs in a subprocess: this test process already imported
+jax through ``tests/conftest.py``.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from areal_tpu_torch.gen import engine as pt_engine
+from areal_tpu_torch.models import transformer as pt_tfm
+from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.ops.cuda import build
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "areal_tpu_torch"
+CFG = ModelConfig(n_layers=1, n_q_heads=2, n_kv_heads=1, head_dim=8,
+                  hidden_dim=16, intermediate_dim=32, vocab_size=32,
+                  dtype="float32")
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import areal_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    areal_tpu_torch.__path__, "areal_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "areal_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_importing_the_port_loads_no_jax():
+    r = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 15, r.stdout
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|areal_tpu)(?![\w])", re.MULTILINE
+)
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 15
+    offenders = [
+        f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+        for p in files for m in _FORBIDDEN.finditer(p.read_text())
+    ]
+    assert not offenders, offenders
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_tfm.init_params(CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_tfm.params_from_numpy({"embed": {"weight": np.zeros((2, 2))}})
+    params = pt_tfm.init_params(CFG, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_engine.GenerationEngine(CFG, params, max_slots=1, max_seqlen=16)
+    # an explicit CPU device is honoured
+    eng = pt_engine.GenerationEngine(CFG, params, max_slots=1, max_seqlen=16,
+                                     page_size=8, device="cpu")
+    assert eng.state.cache.pages.device.type == "cpu"
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv(build.BUILD_DIR_ENV, str(tmp_path / "build"))
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load("paged_decode")
+    with pytest.raises(RuntimeError, match="no CUDA source"):
+        build.load("no_such_kernel")
+    assert not (tmp_path / "build").exists()
+
+
+def test_every_cuda_source_is_named_by_a_wrapper():
+    sources = {p.stem for p in (PORT / "csrc").glob("*.cu")}
+    assert sources == {"paged_decode"}
+    wrapper = (PORT / "ops" / "cuda" / "paged_attention.py").read_text()
+    assert 'build.load("paged_decode")' in wrapper
