@@ -146,10 +146,11 @@ class ModelConfig:
     remat_policy: str = "full"
 
     def flash_enabled(self) -> bool:
-        """Whether packed attention takes a flash kernel. The port has no
-        flash kernel yet (it lands with the trainer slice), so ``None``
-        (auto) means off; the field keeps its meaning for configs shared
-        with the JAX package."""
+        """The JAX package's attention-backend switch. It gates nothing in
+        the port: packed attention takes the CUDA flash kernels for CUDA
+        tensors and the plain version for CPU tensors whatever this says.
+        The field (and ``flash_block_size``/``flash_block_size_k``) stays
+        for configs shared with the JAX package."""
         return bool(self.use_flash_attention)
 
     @property

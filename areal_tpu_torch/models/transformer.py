@@ -1,16 +1,22 @@
-"""The transformer's paged-KV generation path as plain PyTorch functions
-(counterpart of the paged half of ``areal_tpu/models/transformer.py``).
+"""The transformer as plain PyTorch functions (counterpart of
+``areal_tpu/models/transformer.py``): the packed training / logprob
+forward and the paged-KV generation path.
 
 Parameters are a plain dict. The JAX package stacks layer params on a
 leading ``[L, ...]`` axis for its ``lax.scan``; the port keeps one dict
 per layer in ``params["layers"]`` (a Python loop over layers needs no
 stacking), and keeps the JAX weight layout ``[in, out]`` so that
 ``x @ w`` reads the same in both packages. :func:`params_from_numpy`
-converts a JAX param tree (as numpy) into this form.
+converts a JAX param tree (as numpy) into this form and
+:func:`params_to_numpy` back.
 
-The model functions expect params already in ``cfg.dtype``
-(:func:`cast_params`; the generation engine casts once when it takes
-params). Logits come out in float32.
+The packed forward takes f32 master params and casts them to
+``cfg.dtype`` where they are used — per layer INSIDE the checkpointed
+layer, as the reference does — so bf16 compute sends its gradients to the
+f32 masters and no bf16 copy of the weights persists. The paged path
+expects params already in ``cfg.dtype`` (:func:`cast_params`; the
+generation engine casts once when it takes params), where those casts are
+no-ops. Logits come out in float32.
 """
 
 import dataclasses
@@ -18,11 +24,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.base.device import resolve_device, torch_dtype
 from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.ops import attention as attn_ops
 from areal_tpu_torch.ops import norms
 from areal_tpu_torch.ops import paged_attention as paged_ops
+from areal_tpu_torch.ops import ppo as ppo_ops
 from areal_tpu_torch.ops.activations import ACT2FN
 from areal_tpu_torch.ops.rotary import RotaryConfig, apply_rotary, rotary_cos_sin
 
@@ -34,19 +43,29 @@ Params = Dict[str, Any]
 # --------------------------------------------------------------------------- #
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a dict/list param tree."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor leaf of a dict/list param tree (and the
+    matching leaves of ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def cast_params(cfg: ModelConfig, params: Params, device=None) -> Params:
     """Params in the serving dtype (``cfg.dtype``) on ``device``."""
     dt = torch_dtype(cfg.dtype)
     return tree_map(lambda t: t.to(device=device, dtype=dt), params)
+
+
+def _cast(cfg: ModelConfig, tree):
+    """``tree`` in ``cfg.dtype`` (differentiable; a no-op on params that
+    are already in it)."""
+    dt = torch_dtype(cfg.dtype)
+    return tree_map(lambda t: t.to(dt), tree)
 
 
 def init_params(
@@ -148,6 +167,24 @@ def params_from_numpy(tree: Dict[str, Any], device=None, dtype=None) -> Params:
     return out
 
 
+def params_to_numpy(params: Params) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: float32 numpy arrays in
+    the JAX package's layout (layer leaves stacked ``[L, ...]``)."""
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    out: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k == "layers":
+            out[k] = tree_map(
+                lambda *leaves: np.stack([host(t) for t in leaves]), *v
+            )
+        else:
+            out[k] = tree_map(host, v)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Layer pieces
 # --------------------------------------------------------------------------- #
@@ -217,11 +254,13 @@ def _attn_out(p, ctx):
 
 
 def _embed(cfg: ModelConfig, params: Params, input_ids, positions):
-    x = params["embed"]["weight"][input_ids]
+    # gather, then cast the gathered rows (the reference casts the table)
+    dt = torch_dtype(cfg.dtype)
+    x = params["embed"]["weight"][input_ids].to(dt)
     if cfg.normalize_embed:
         x = x * torch.tensor(cfg.hidden_dim ** 0.5, dtype=x.dtype)
     if cfg.abs_position_embedding:
-        x = x + params["pos_embed"]["weight"][positions]
+        x = x + params["pos_embed"]["weight"][positions].to(dt)
     return x
 
 
@@ -233,19 +272,123 @@ def head_weight(cfg: ModelConfig, params: Params):
 
 
 def _head(cfg: ModelConfig, params: Params, x):
+    dt = torch_dtype(cfg.dtype)
     if cfg.is_critic:
-        return (x @ params["head"]["weight"]).float()
-    logits = (x @ head_weight(cfg, params)).float()
+        return (x @ params["head"]["weight"].to(dt)).float()
+    logits = (x @ head_weight(cfg, params).to(dt)).float()
     if cfg.final_logits_soft_cap is not None:
         c = cfg.final_logits_soft_cap
         logits = c * torch.tanh(logits / c)
     return logits
 
 
+def apply_head(cfg: ModelConfig, params: Params, x):
+    """Full logits (``[..., vocab]`` f32, or ``[..., 1]`` values for a
+    critic) from final-norm hidden states."""
+    return _head(cfg, params, x)
+
+
 def _rotary(cfg: ModelConfig, positions):
     if not cfg.apply_rotary:
         return None
     return rotary_cos_sin(_rotary_cfg(cfg), positions, torch.float32)
+
+
+# --------------------------------------------------------------------------- #
+# Packed forward (training / logprob inference)
+# --------------------------------------------------------------------------- #
+
+
+def forward_packed(
+    params: Params,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,     # [T] int
+    segment_ids: torch.Tensor,   # [T] int32, 0 = padding
+    positions: torch.Tensor,     # [T] int32, restart per segment
+    *,
+    remat: bool = True,
+    with_head: bool = True,
+) -> torch.Tensor:
+    """Full forward over a packed token axis. Returns ``[T, vocab]`` logits
+    (fp32) or ``[T, 1]`` values for critics; ``with_head=False`` returns
+    the final-norm HIDDEN states ``[T, E]`` instead (the chunked loss
+    applies the head per token block). Padding rows are garbage — mask
+    downstream with ``segment_ids > 0``.
+
+    ``cfg.remat_policy``: ``"full"`` checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant), ``"none"`` keeps every
+    activation; ``remat=False`` or a run without autograd (inference)
+    takes the ``"none"`` path. Layer params are cast to ``cfg.dtype``
+    inside the checkpointed region, so the recompute casts again and no
+    cast copy is saved."""
+    policy = cfg.remat_policy if remat else "none"
+    if policy in ("dots", "dots_attn"):
+        raise NotImplementedError(
+            f"remat_policy {policy!r} is not ported yet (use 'full' or 'none')"
+        )
+    if policy not in ("full", "none"):
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    x = _embed(cfg, params, input_ids, positions)
+    rot = _rotary(cfg, positions)
+
+    def layer(x, lp):
+        lp = _cast(cfg, lp)
+        h = _norm(cfg, lp["ln1"], x)
+        q, k, v = _qkv(cfg, lp["attn"], h)
+        if rot is not None:
+            q = apply_rotary(q, *rot)
+            k = apply_rotary(k, *rot)
+        ctx = attn_ops.packed_attention(
+            q, k, v, segment_ids,
+            softmax_scale=cfg.softmax_scale,
+            soft_cap=cfg.attn_logits_soft_cap,
+            sliding_window=cfg.sliding_window,
+            max_seqlen=cfg.attn_max_seqlen,
+        )
+        x = x + _attn_out(lp["attn"], ctx)
+        return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+
+    remat_layers = policy == "full" and torch.is_grad_enabled()
+    for lp in params["layers"]:
+        if remat_layers:
+            x = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x = layer(x, lp)
+    x = _norm(cfg, _cast(cfg, params["final_ln"]), x)
+    return _head(cfg, params, x) if with_head else x
+
+
+def chunked_next_token_logprobs(
+    params: Params,
+    cfg: ModelConfig,
+    hidden: torch.Tensor,       # [T, E] final-norm hidden (with_head=False)
+    input_ids: torch.Tensor,    # [T]
+    segment_ids: torch.Tensor,  # [T]
+    chunk: int = 4096,
+) -> torch.Tensor:
+    """Next-token logprobs ``[T]`` without materializing ``[T, vocab]``
+    logits: the LM head, log-softmax and label gather run per token block,
+    each block checkpointed (its logits are recomputed in the backward).
+    The chunk rounds DOWN to a divisor of T. Semantics match
+    ``ops.ppo.gather_packed_shifted_log_probs``."""
+    T = hidden.shape[0]
+    if T % chunk:
+        chunk = next(c for c in range(min(chunk, T), 0, -1) if T % c == 0)
+    nxt = torch.cat([input_ids[1:], input_ids.new_zeros(1)]).long()
+
+    def block(h_c, ids_c):
+        logp = torch.log_softmax(_head(cfg, params, h_c), dim=-1)
+        return logp.gather(-1, ids_c[:, None])[:, 0]
+
+    remat = torch.is_grad_enabled()
+    lps = []
+    for off in range(0, T, chunk):
+        args = (hidden[off : off + chunk], nxt[off : off + chunk])
+        lps.append(checkpoint(block, *args, use_reentrant=False) if remat
+                   else block(*args))
+    lp = torch.cat(lps)
+    has_next = (segment_ids > 0) & ~ppo_ops.is_segment_end(segment_ids)
+    return torch.where(has_next, lp, 0.0)
 
 
 # --------------------------------------------------------------------------- #

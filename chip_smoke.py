@@ -5,16 +5,24 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``: builds every CUDA kernel of the serving path from
-   ``areal_tpu_torch/csrc`` with nvcc (one process per source).
+1. ``build``: builds every CUDA kernel from ``areal_tpu_torch/csrc`` with
+   nvcc (one process per source, all started together).
 2. ``kernels``: calls each kernel's wrapper on the card and holds it
-   against its plain PyTorch version on the same inputs, at the serving
-   path's shape (B 64, Hq 12, Hkv 2, D 128, page 128, table width 16,
-   L 28, lens over [0, 2047]) in bf16 and int8, and at small shapes in
-   f32 and bf16 with soft cap, sliding window, GQA groups of 1 and 8, a
-   narrowed table and D 48. Times the kernel, the plain version and one
-   PyTorch library call (SDPA over K/V already gathered dense) with CUDA
-   events, beside the least time the card could take.
+   against its plain PyTorch version on the same inputs, timing the
+   kernel, the plain version and one PyTorch library call with CUDA
+   events beside the least time the card could take.
+   - paged decode, at the serving path's shape (B 64, Hq 12, Hkv 2, D 128,
+     page 128, table width 16, L 28, lens over [0, 2047]) in bf16 and
+     int8, and at small shapes in f32 and bf16 with soft cap, sliding
+     window, GQA groups of 1 and 8, a narrowed table and D 48; library:
+     SDPA over K/V already gathered dense.
+   - flash attention forward and backward (dq, dk, dv), at the trainer's
+     shape (T 8192, H 12, Hkv 2, D 128, bf16, 8 segments of 512-1536
+     tokens plus tail padding) and at small shapes in f32 and bf16 with
+     soft cap, sliding window, GQA groups of 1 and 8, D 64 and 256 (bf16
+     with D 64 or 128 runs the tensor-core kernels, the rest the CUDA-core
+     ones), one segment and all-padding tail rows; library: SDPA with an explicit
+     [T, T] segment-causal boolean mask, forward and backward.
 3. ``parity``: a tiny float32 model served by the engine on the card and
    on the CPU must give the same greedy tokens.
 4. ``serve``: the engine at the full width of the R1-Distill-Qwen-1.5B
@@ -24,6 +32,20 @@ Phases, each printing one JSON line:
    every answer is checked, the prefix cache must have been hit, and the
    paged-decode launch count must equal layers x decode steps.
 5. ``serve_int8``: the same with an int8 KV pool and 8 requests.
+6. ``train_parity``: a tiny float32 model trained two SFT optimizer steps
+   on the card and on the CPU from the same numpy params and batch; loss,
+   grad norm and weights must agree.
+7. ``train``: critic-free GRPO rounds of the PPO actor (decoupled loss,
+   2 minibatches) at the 1.5B profile's full width (f32 master weights
+   from seed 0, bf16 compute, full remat, chunked loss), 2 prompts x 8
+   samples of 512 + 256-1024 tokens, micro-batches of 8192 tokens: each
+   round runs inference (proximal logprobs) then train_step (two
+   optimizer steps). A first round takes the one-time costs; the second
+   is measured and counted. Stats must be finite, the weights must move,
+   and the flash launch counts must equal layers x micro-batches (full
+   remat re-runs each layer's forward in the backward). Prints trained
+   tokens/s, seconds per optimizer step and peak memory; ``--profile``
+   adds the busy share and device time by kernel over the second round.
 
 Then it prints the kernel table line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed check raises: the
@@ -41,7 +63,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-PHASES = ("build", "kernels", "parity", "serve", "serve_int8")
+PHASES = ("build", "kernels", "parity", "serve", "serve_int8",
+          "train_parity", "train")
+SOURCES = ("paged_decode", "flash_attention")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
 # Tolerances, elementwise: |kernel - plain| <= atol + rtol * |plain|, as
@@ -237,6 +261,226 @@ def kernels_phase(torch):
     return results
 
 
+# --------------------------------------------------------------------------- #
+# kernels: packed flash attention, forward and backward
+# --------------------------------------------------------------------------- #
+
+# Tolerances, |kernel - plain| against the plain version (autograd through
+# ops/attention.py::attention_plain for the gradients). float32: elementwise
+# atol + rtol*|plain|, both sides f32, summation order only (sums run over
+# up to 384 keys or queries); on an H100 the worst case read 3.6e-5 at a
+# value of 10.8 (dv, GQA 8). bfloat16: both sides round outputs to bf16 and
+# round at different points inside (P before PV in both; the plain version
+# also rounds dP, the kernel dS), so they differ by an output ulp or two: the
+# largest difference must stay within 2 ulps of the tensor's largest element
+# (2^-6 of its max magnitude) and the rms difference within 2^-6 of its rms.
+# On an H100 the largest differences read 1 ulp (0.0156 at max 4.1 for out,
+# 0.031 at max 7.5 / 12.1 for dk / dv at the slice shape).
+FLASH_TOL = {"float32": ("elementwise", 1e-4, 1e-4),
+             "bfloat16": ("normwise", 2.0 ** -6, 2.0 ** -6)}
+SLICE_LENS = [512, 1536, 768, 1280, 640, 1024, 896, 1152]  # + 384 pad of 8192
+
+
+def make_flash_inputs(torch, *, T, H, Hkv, D, lens, dtype, seed, **_):
+    """Random attention operands on the card; segments packed from token 0
+    (ids 1, 2, ...), padding (id 0) at the tail, as the packer lays them."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    seg = np.zeros(T, np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[off:off + n] = i + 1
+        off += n
+    return dict(q=randn(T, H, D), k=randn(T, Hkv, D), v=randn(T, Hkv, D),
+                do=randn(T, H, D), seg=torch.from_numpy(seg).cuda(),
+                seg_np=seg)
+
+
+def flash_pairs(seg, window):
+    """(query, key) pairs the segment-causal (windowed) mask keeps."""
+    pairs = 0
+    for sid in np.unique(seg[seg > 0]):
+        n = int((seg == sid).sum())
+        i = np.arange(n)
+        pairs += int(np.minimum(i + 1, window or n).sum())
+    return pairs
+
+
+def flash_bound(torch, x, kw, backward):
+    """Least time (ms) on the card: the larger of the bytes the call must
+    move (each input read once, each output written once) over HBM
+    bandwidth and its matrix-product operations over the peak for the
+    inputs' type. Forward: QK^T and PV, 4 flops per kept pair, head and
+    head-dim element; backward: five products (S recomputed, dP, dV, dK,
+    dQ), 10 flops. The soft cap's tanh and the softmax are not counted."""
+    q, k = x["q"], x["k"]
+    T, H, D = q.shape
+    es = q.element_size()
+    pairs = flash_pairs(x["seg_np"], kw.get("sliding_window"))
+    io = q.numel() + 2 * k.numel()            # q, k, v
+    if backward:
+        ops = 10 * pairs * H * D
+        # q k v out dO read, lse read, dq dk dv written
+        nbytes = (io + 2 * q.numel() + io) * es + H * T * 4 + T * 4
+    else:
+        ops = 4 * pairs * H * D
+        nbytes = (io + q.numel()) * es + H * T * 4 + T * 4   # + out, lse
+    dt = "float32" if q.dtype == torch.float32 else "bfloat16"
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dt]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_sdpa(torch, x, kw):
+    """The PyTorch library call for the same attention: SDPA with an
+    explicit [T, T] segment-causal (windowed) boolean mask, K/V heads
+    repeated to H beforehand; None with a soft cap (SDPA has none).
+    Returns (forward, backward) callables."""
+    import torch.nn.functional as F
+
+    if kw.get("soft_cap") is not None:
+        return None, None
+    q, k, v, seg = x["q"], x["k"], x["v"], x["seg"]
+    T, H, D = q.shape
+    rep = H // k.shape[1]
+    idx = torch.arange(T, device=q.device)
+    mask = (seg[:, None] == seg[None, :]) & (seg[:, None] > 0)
+    mask &= idx[:, None] >= idx[None, :]
+    if kw.get("sliding_window"):
+        mask &= idx[:, None] - idx[None, :] < kw["sliding_window"]
+    mask = mask[None, None]
+
+    def heads(t):
+        return t.repeat_interleave(rep, 1) if t.shape[1] != H else t
+
+    q4, k4, v4 = (heads(t).transpose(0, 1)[None].detach().requires_grad_(True)
+                  for t in (q, k, v))
+    scale = D ** -0.5
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              scale=scale)
+
+    out = fwd()
+    do4 = x["do"].transpose(0, 1)[None]
+
+    def bwd():
+        return torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+
+    return fwd, bwd
+
+
+def flash_compare(torch, got, want, dtype):
+    """(max abs err, err / limit) under FLASH_TOL; raises past the limit."""
+    mode, a, r = FLASH_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    if mode == "elementwise":
+        over = (diff / (a + r * want.float().abs())).max().item()
+    else:
+        over = max(diff.max().item() / (a * want.float().abs().max().item()),
+                   diff.pow(2).mean().sqrt().item()
+                   / (r * want.float().pow(2).mean().sqrt().item()))
+    return diff.max().item(), over
+
+
+def flash_kernels_phase(torch):
+    from areal_tpu_torch.ops.attention import attention_plain
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+
+    slice_shape = dict(T=8192, H=12, Hkv=2, D=128, lens=SLICE_LENS)
+    small = dict(T=384, H=4, Hkv=2, D=64, lens=[100, 156, 60])
+    cases = [
+        ("slice_bf16", dict(slice_shape, dtype="bfloat16"), {}),
+        ("f32", dict(small, dtype="float32"), {}),
+        ("f32_soft_cap", dict(small, dtype="float32"), dict(soft_cap=5.0)),
+        ("f32_window", dict(small, dtype="float32"), dict(sliding_window=40)),
+        ("f32_rep1", dict(small, H=2, lens=[300], dtype="float32"), {}),
+        ("f32_rep8", dict(small, H=16, lens=[384], dtype="float32"), {}),
+        ("f32_pad_tail", dict(small, lens=[100], dtype="float32"), {}),
+        ("f32_d256", dict(small, T=200, Hkv=1, D=256, lens=[70, 90],
+                          dtype="float32"), {}),
+        ("bf16", dict(small, dtype="bfloat16"), {}),
+        ("bf16_cap_window", dict(small, H=6, lens=[200, 100],
+                                 dtype="bfloat16"),
+         dict(soft_cap=30.0, sliding_window=64)),
+        ("bf16_rep8", dict(small, H=16, lens=[384], dtype="bfloat16"), {}),
+        # bf16 outside the tensor-core kernels' head dims (64, 128)
+        ("bf16_d256", dict(small, T=200, Hkv=1, D=256, lens=[70, 90],
+                           dtype="bfloat16"), {}),
+    ]
+    results = {}
+    for i, (name, spec, kw) in enumerate(cases):
+        x = make_flash_inputs(torch, seed=200 + i, **spec)
+        q, k, v, seg, do = x["q"], x["k"], x["v"], x["seg"], x["do"]
+        out, lse = cuda_flash.flash_forward(q, k, v, seg, **kw)
+        dq, dk, dv = cuda_flash.flash_backward(q, k, v, seg, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        qp, kp, vp = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        pout, plse = attention_plain(qp, kp, vp, seg, spec["D"] ** -0.5,
+                                     kw.get("soft_cap"), kw.get("sliding_window"))
+        pgrads = torch.autograd.grad(pout, (qp, kp, vp), do, retain_graph=True)
+        torch.cuda.synchronize()
+        row = {"atol_or_rel": FLASH_TOL[spec["dtype"]][1],
+               "rtol_or_rms": FLASH_TOL[spec["dtype"]][2],
+               "mode": FLASH_TOL[spec["dtype"]][0]}
+        live = seg > 0
+        checks = [("out", out, pout), ("lse", lse[:, live], plse[:, live]),
+                  ("dq", dq, pgrads[0]), ("dk", dk, pgrads[1]),
+                  ("dv", dv, pgrads[2])]
+        for part, got, want in checks:
+            # lse is f32 on both sides whatever the inputs' type
+            dt = "float32" if part == "lse" else spec["dtype"]
+            err, over = flash_compare(torch, got, want, dt)
+            if not (np.isfinite(over) and over <= 1.0):
+                raise AssertionError(
+                    f"flash {name} {part}: |kernel - plain| reaches {over} x "
+                    f"its limit {FLASH_TOL[dt]}; max abs err {err}"
+                )
+            row[f"{part}_max_abs_err"] = err
+            row[f"{part}_err_over_tol"] = over
+        pad = ~live
+        if not (bool((out[pad] == 0).all())
+                and bool((lse[:, pad] == plse[:, pad]).all())
+                and bool((dq[pad] == 0).all())):
+            raise AssertionError(f"flash {name}: pad rows are not 0 / NEG_INF")
+        row["fwd_max_abs_err"] = max(row["out_max_abs_err"],
+                                     row["lse_max_abs_err"])
+        row["bwd_max_abs_err"] = max(row[f"{p}_max_abs_err"]
+                                     for p in ("dq", "dk", "dv"))
+        slice_case = name == "slice_bf16"
+        it = 10 if slice_case else 20
+        row["fwd_ms"] = cuda_ms(
+            lambda: cuda_flash.flash_forward(q, k, v, seg, **kw), it)
+        row["bwd_ms"] = cuda_ms(
+            lambda: cuda_flash.flash_backward(q, k, v, seg, out, lse, do, **kw),
+            it)
+        row["plain_fwd_ms"] = cuda_ms(
+            lambda: attention_plain(q, k, v, seg, spec["D"] ** -0.5,
+                                    kw.get("soft_cap"),
+                                    kw.get("sliding_window")), 3)
+        row["plain_bwd_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(pout, (qp, kp, vp), do,
+                                        retain_graph=True), 3)
+        del pout, plse, pgrads
+        lib_fwd, lib_bwd = flash_sdpa(torch, x, kw)
+        row["library_fwd_ms"] = cuda_ms(lib_fwd, it) if lib_fwd else None
+        row["library_bwd_ms"] = cuda_ms(lib_bwd, it) if lib_bwd else None
+        del lib_fwd, lib_bwd
+        row["fwd_bound_ms"], row["fwd_bound_by"] = flash_bound(torch, x, kw, False)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bound(torch, x, kw, True)
+        row["pairs"] = flash_pairs(x["seg_np"], kw.get("sliding_window"))
+        results[name] = row
+        del x, q, k, v, seg, do, out, lse, dq, dk, dv, qp, kp, vp
+        torch.cuda.empty_cache()
+    emit(phase="kernels", kernel="flash_attention", cases=results)
+    return results
+
+
 def sweep_phase(torch):
     """Paged-decode time against pages per slot at the serving widths:
     one slot alone (the kernel's critical path) and all 64 slots equal."""
@@ -322,10 +566,11 @@ def get(port, path):
         return json.loads(r.read())
 
 
-def device_profile(prof, wall_s):
+def device_profile(prof, wall_s, kernels):
     """Device time by kernel from a ``torch.profiler`` window: total, the
-    paged-decode kernel's share, the busy share of the wall time, and the
-    top kernels."""
+    busy share of the wall time, each named kernel's time and share
+    (``kernels``: label -> substring of the kernel's name), and the top
+    kernels."""
     rows = []
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
@@ -335,12 +580,13 @@ def device_profile(prof, wall_s):
             rows.append((ev.key, t / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    decode = sum(r[1] for r in rows if "paged_decode_kernel" in r[0])
-    return dict(
-        device_ms=total, busy_share=total / 1e3 / wall_s,
-        paged_decode_ms=decode, paged_decode_share=decode / max(total, 1e-9),
-        top=[[k[:80], ms, n] for k, ms, n in rows[:10]],
-    )
+    out = dict(device_ms=total, busy_share=total / 1e3 / wall_s)
+    for label, needle in kernels.items():
+        ms = sum(r[1] for r in rows if needle in r[0])
+        out[f"{label}_ms"] = ms
+        out[f"{label}_share"] = ms / max(total, 1e-9)
+    out["top"] = [[k[:80], ms, n] for k, ms, n in rows[:10]]
+    return out
 
 
 def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
@@ -438,9 +684,236 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
         kv_pool_bytes=metrics["kv_pool_bytes"],
     )
     if prof is not None:
-        row["profile"] = device_profile(prof, wall)
+        row["profile"] = device_profile(
+            prof, wall, {"paged_decode": "paged_decode_kernel"})
     emit(phase=name, **row)
     del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# training: parity (tiny f32 model, card vs CPU) and the 1.5B GRPO round
+# --------------------------------------------------------------------------- #
+
+# train_parity tolerances. Loss and grad norm: rtol 1e-4 (f32 on both
+# sides with TF32 off; summation order differs between cuBLAS and the CPU
+# and between the flash kernels and the plain version). Weights after two
+# steps: atol of 1% of lr per step, because Adam divides by sqrt(v), so
+# summation-order noise in near-zero gradients grows up to ~lr in the update.
+TRAIN_PARITY_LR = 1e-3
+TRAIN_PARITY_TOL = dict(loss_rtol=1e-4, weight_atol=0.01 * TRAIN_PARITY_LR * 2)
+
+
+def rollout_sample(rng, *, n_prompts, group, prompt_len, resp_lo, resp_hi,
+                   vocab, group_budget=None):
+    """A GRPO rollout batch made from ``rng``: ``n_prompts`` items, each one
+    prompt shared by ``group`` sequences, with prompt masks, token-aligned
+    behaviour logprobs and a 0/1 reward per sequence. ``group_budget``
+    caps an item's tokens: an item (a GRPO group) is never split across
+    micro-batches, so its response lengths, drawn in [resp_lo, resp_hi],
+    shrink in proportion until the group fits."""
+    from areal_tpu_torch.api.data import SequenceSample
+
+    seqlens, ids, pm, lps = [], [], [], []
+    for _ in range(n_prompts):
+        prompt = rng.integers(0, vocab, size=prompt_len)
+        resp = rng.integers(resp_lo, resp_hi + 1, size=group)
+        if group_budget is not None:
+            room = group_budget - group * prompt_len
+            if resp.sum() > room:
+                resp = np.maximum(resp * room // resp.sum(), 1)
+        inner = []
+        for glen in resp.tolist():
+            n = prompt_len + glen
+            inner.append(n)
+            ids.append(np.concatenate([prompt,
+                                       rng.integers(0, vocab, size=glen)]))
+            pm.append(np.r_[np.ones(prompt_len, bool), np.zeros(glen, bool)])
+            lp = np.zeros(n, np.float32)
+            lp[prompt_len - 1:n - 1] = -rng.exponential(1.0, size=glen)
+            lps.append(lp)
+        seqlens.append(inner)
+    n_seqs = n_prompts * group
+    scalar = [[1] * group for _ in range(n_prompts)]
+    return SequenceSample(
+        keys={"packed_input_ids", "prompt_mask", "packed_logprobs", "rewards"},
+        ids=list(range(n_prompts)),
+        seqlens={"packed_input_ids": seqlens, "prompt_mask": seqlens,
+                 "packed_logprobs": seqlens, "rewards": scalar},
+        data={"packed_input_ids": np.concatenate(ids).astype(np.int64),
+              "prompt_mask": np.concatenate(pm),
+              "packed_logprobs": np.concatenate(lps),
+              "rewards": rng.integers(0, 2, size=n_seqs).astype(np.float32)},
+    )
+
+
+def tree_leaves(tfm, tree):
+    out = []
+    tfm.tree_map(out.append, tree)
+    return out
+
+
+def train_parity_phase(torch):
+    """A tiny f32 model trained two SFT steps on the card and on the CPU
+    from the same numpy params and batch."""
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model import make_interface
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.models.config import ModelConfig
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
+    cfg = ModelConfig(n_layers=2, n_q_heads=4, n_kv_heads=2, head_dim=64,
+                      hidden_dim=128, intermediate_dim=256, vocab_size=512,
+                      use_attention_bias=True, dtype="float32",
+                      loss_chunk_size=100)
+    host = tfm.params_to_numpy(tfm.init_params(cfg, seed=5, device="cpu"))
+    sample = rollout_sample(np.random.default_rng(5), n_prompts=4, group=2,
+                            prompt_len=40, resp_lo=20, resp_hi=90, vocab=512)
+    spec = MicroBatchSpec(max_tokens_per_mb=256)
+    sft = make_interface("sft")
+    stats, weights = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = TrainEngine(cfg, optimizer=OptimizerConfig(lr=TRAIN_PARITY_LR),
+                          device=dev).load_params(host).setup_optimizer(100)
+        stats[dev] = [sft.train_step(eng, sample, spec) for _ in range(2)]
+        weights[dev] = tfm.params_to_numpy(eng.params)
+    worst = {}
+    for k in ("loss", "grad_norm"):
+        for step, (a, b) in enumerate(zip(stats["cuda"], stats["cpu"])):
+            rel = abs(a[k] - b[k]) / abs(b[k])
+            worst[k] = max(worst.get(k, 0.0), rel)
+            if not rel <= TRAIN_PARITY_TOL["loss_rtol"]:
+                raise AssertionError(f"train_parity step {step} {k}: cuda "
+                                     f"{a[k]} vs cpu {b[k]}")
+    w_err = 0.0
+    for a, b in zip(tree_leaves(tfm, weights["cuda"]),
+                    tree_leaves(tfm, weights["cpu"])):
+        w_err = max(w_err, float(np.abs(a - b).max()))
+    if not w_err <= TRAIN_PARITY_TOL["weight_atol"]:
+        raise AssertionError(f"train_parity weights differ by {w_err}")
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(
+        tree_leaves(tfm, weights["cpu"]), tree_leaves(tfm, host)))
+    if not moved > 10 * w_err:
+        raise AssertionError(f"train_parity: weights moved only {moved}")
+    emit(phase="train_parity", steps=2, n_mbs=stats["cuda"][0]["n_mbs"],
+         **{f"{k}_{dev}": [s[k] for s in stats[dev]]
+            for k in ("loss", "grad_norm") for dev in ("cuda", "cpu")},
+         loss_rel_err=worst["loss"], grad_norm_rel_err=worst["grad_norm"],
+         weight_max_abs_err=w_err, weight_max_move=moved,
+         tol=TRAIN_PARITY_TOL)
+
+
+def train_phase(torch, profile=False):
+    """Critic-free GRPO rounds of the PPO actor at the 1.5B profile's full
+    width (random f32 master weights from seed 0, bf16 compute, full remat,
+    chunked loss): inference (proximal logprobs), then train_step (two
+    minibatches = two optimizer steps). A first round takes the one-time
+    costs (Adam moments, cuBLAS workspaces, allocator growth); the second,
+    on the same batch, is the measured and counted run. Both go through the
+    flash kernels."""
+    import dataclasses
+
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model import PPOHyperparameters, make_interface
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+    from areal_tpu_torch.train import batching
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
+    cfg = dataclasses.replace(qwen_1p5b_cfg(), remat_policy="full",
+                              loss_chunk_size=2048)
+    spec = MicroBatchSpec(max_tokens_per_mb=8192)
+    hp = PPOHyperparameters(disable_value=True, group_adv_norm=True,
+                            use_decoupled_loss=True, ppo_n_minibatches=2)
+
+    def batch():
+        return rollout_sample(np.random.default_rng(0), n_prompts=2, group=8,
+                              prompt_len=512, resp_lo=256, resp_hi=1024,
+                              vocab=cfg.vocab_size,
+                              group_budget=spec.max_tokens_per_mb)
+
+    sample = batch()
+    tokens = int(sum(sum(inner) for inner in
+                     sample.seqlens["packed_input_ids"]))
+    # micro-batch counts the launch checks expect, from the same splitter
+    n_inf = len(batching.split_into_micro_batches(
+        sample, spec.n_mbs, spec.max_tokens_per_mb, 1))
+    n_train = sum(
+        len(batching.split_into_micro_batches(
+            mb, spec.n_mbs, spec.max_tokens_per_mb, 1))
+        for mb in sample.split(hp.ppo_n_minibatches))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = TrainEngine(cfg, optimizer=OptimizerConfig(lr=1e-5),
+                      device="cuda").init_random(0).setup_optimizer(100)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    actor = make_interface("ppo_actor", hp=hp)
+
+    def grpo_round(sample):
+        t0 = time.perf_counter()
+        sample.update_(actor.inference(eng, sample, spec))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = actor.train_step(eng, sample, spec)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bad = {k: v for k, v in stats.items() if not np.isfinite(v)}
+        if bad or not np.isfinite(sample.data["prox_logp"]).all() or not (
+                np.isfinite(sample.data["advantages"]).all()):
+            raise AssertionError(f"train: non-finite stats or outputs {bad}")
+        if stats["guard/step_ok"] != 1.0:
+            raise AssertionError(f"train: the guard skipped a step: {stats}")
+        return stats, t1 - t0, t2 - t1
+
+    _, first_inf_s, first_train_s = grpo_round(sample)
+    probe = eng.params["layers"][0]["attn"]["wq"].detach().clone()
+    version0, step0 = eng.version, eng._step
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    # the main path's run: every launch counted from here on
+    cuda_flash.reset_launches()
+    stats, inf_s, train_s = grpo_round(batch())
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    fwd, bwd = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+
+    # the reference bumps version once per train_step (one per PPO round),
+    # and takes one optimizer step per minibatch
+    if eng.version != version0 + 1 or eng._step != step0 + 2:
+        raise AssertionError(f"train: version {eng.version} steps {eng._step}")
+    if torch.equal(eng.params["layers"][0]["attn"]["wq"], probe):
+        raise AssertionError("train: weights did not move in two steps")
+    L = cfg.n_layers
+    if fwd != L * (n_inf + 2 * n_train) or bwd != L * n_train:
+        raise AssertionError(
+            f"train: flash launches fwd {fwd} bwd {bwd}; expected "
+            f"{L * (n_inf + 2 * n_train)} and {L * n_train} for {n_inf} "
+            f"inference and {n_train} train micro-batches of {L} layers"
+        )
+    row = dict(
+        tokens=tokens, sequences=16, inference_mbs=n_inf, train_mbs=n_train,
+        init_s=init_s, first_round_inference_s=first_inf_s,
+        first_round_train_step_s=first_train_s,
+        inference_s=inf_s, train_step_s=train_s,
+        s_per_optimizer_step=train_s / 2,
+        trained_tok_per_s=tokens / train_s,
+        inference_tok_per_s=tokens / inf_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        flash_fwd_launches=fwd, flash_bwd_launches=bwd,
+        stats={k: stats[k] for k in ("actor_loss", "grad_norm",
+                                     "importance_weight", "approx_kl", "lr")},
+    )
+    if prof is not None:
+        row["profile"] = device_profile(
+            prof, inf_s + train_s, {"flash_fwd": "flash_fwd",
+                                    "flash_dq": "flash_dq",
+                                    "flash_dkdv": "flash_dkdv"})
+    emit(phase="train", **row)
+    del eng, actor, probe
     torch.cuda.empty_cache()
     return row
 
@@ -461,8 +934,8 @@ def main(argv=None) -> int:
                     help="also time the paged-decode kernel against pages "
                          "per slot")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve phases with torch.profiler and "
-                         "report device time by kernel")
+                    help="trace the serve and train phases with "
+                         "torch.profiler and report device time by kernel")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -472,6 +945,7 @@ def main(argv=None) -> int:
         return 2
     try:
         from areal_tpu_torch.ops.cuda import build
+        from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
         from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
     except ImportError as e:
         print(f"chip_smoke: the areal_tpu_torch package is missing: {e}",
@@ -485,13 +959,17 @@ def main(argv=None) -> int:
 
     if "build" in phases:
         t0 = time.perf_counter()
-        build.load_all(["paged_decode"])
-        log = build.build_log["paged_decode"]
-        emit(phase="build", seconds=time.perf_counter() - t0,
-             nvcc_seconds=log["seconds"],
-             ptxas=[ln for ln in log["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln])
-    kern = kernels_phase(torch) if "kernels" in phases else {}
+        build.load_all(SOURCES)
+        emit(phase="build", seconds=time.perf_counter() - t0, sources={
+            n: dict(nvcc_seconds=build.build_log[n]["seconds"],
+                    ptxas=[ln for ln in build.build_log[n]["ptxas"].splitlines()
+                           if "registers" in ln or "spill" in ln])
+            for n in SOURCES
+        })
+    kern, flash = {}, {}
+    if "kernels" in phases:
+        kern = kernels_phase(torch)
+        flash = flash_kernels_phase(torch)
     if args.sweep:
         sweep_phase(torch)
     if "parity" in phases:
@@ -513,6 +991,11 @@ def main(argv=None) -> int:
                 torch, "serve_int8", params, cfg, kv_dtype="int8",
                 n_prompts=1, group=8, profile=args.profile,
             )
+        del params
+        torch.cuda.empty_cache()
+    if "train_parity" in phases:
+        train_parity_phase(torch)
+    trained = train_phase(torch, args.profile) if "train" in phases else {}
     kernels = []
     for variant, case in (("bfloat16", "slice_bf16"), ("int8", "slice_int8")):
         k = kern.get(case, {})
@@ -528,6 +1011,22 @@ def main(argv=None) -> int:
             "bound_ms": k.get("bound_ms"),
             "bound_by": k.get("bound_by"),
             "library_ms": k.get("library_ms"),
+        })
+    fcase = flash.get("slice_bf16", {})
+    for name, part, replaces in (("flash_fwd", "fwd", cuda_flash.REPLACES_FWD),
+                                 ("flash_bwd", "bwd", cuda_flash.REPLACES_BWD)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": cuda_flash.SOURCE,
+            "replaces": replaces,
+            "launches": trained.get(f"flash_{part}_launches", 0),
+            "max_abs_err": fcase.get(f"{part}_max_abs_err"),
+            "ms": fcase.get(f"{part}_ms"),
+            "plain_ms": fcase.get(f"plain_{part}_ms"),
+            "bound_ms": fcase.get(f"{part}_bound_ms"),
+            "bound_by": fcase.get(f"{part}_bound_by"),
+            "library_ms": fcase.get(f"library_{part}_ms"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -20,6 +20,7 @@ from areal_tpu_torch.gen import engine as pt_engine
 from areal_tpu_torch.models import transformer as pt_tfm
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.ops.cuda import build
+from areal_tpu_torch.train import engine as pt_train
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "areal_tpu_torch"
@@ -76,10 +77,13 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     params = pt_tfm.init_params(CFG, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt_engine.GenerationEngine(CFG, params, max_slots=1, max_seqlen=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_train.TrainEngine(CFG)
     # an explicit CPU device is honoured
     eng = pt_engine.GenerationEngine(CFG, params, max_slots=1, max_seqlen=16,
                                      page_size=8, device="cpu")
     assert eng.state.cache.pages.device.type == "cpu"
+    assert pt_train.TrainEngine(CFG, device="cpu").device.type == "cpu"
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -96,6 +100,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_every_cuda_source_is_named_by_a_wrapper():
     sources = {p.stem for p in (PORT / "csrc").glob("*.cu")}
-    assert sources == {"paged_decode"}
-    wrapper = (PORT / "ops" / "cuda" / "paged_attention.py").read_text()
-    assert 'build.load("paged_decode")' in wrapper
+    assert sources == {"paged_decode", "flash_attention"}
+    for name, wrapper in (("paged_decode", "paged_attention.py"),
+                          ("flash_attention", "flash_attention.py")):
+        text = (PORT / "ops" / "cuda" / wrapper).read_text()
+        assert f'build.load("{name}")' in text
