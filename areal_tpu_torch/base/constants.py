@@ -32,3 +32,28 @@ def kv_dtype() -> Optional[str]:
         "ignoring unknown %s=%r (using the serving dtype)", KV_DTYPE_ENV, raw
     )
     return None
+
+
+# Fused sampling epilogue (docs/performance.md "Fused sampling epilogue").
+FUSED_SAMPLE_ENV = "AREAL_FUSED_SAMPLE"  # streamed LM-head + sampling epilogue
+_OFF_STRINGS = ("", "0", "false", "off", "no", "n")
+
+
+def env_flag(name: str, default: bool = False) -> bool:
+    """Boolean knob: unset -> ``default``; ""/"0"/"false"/"off"/"no"/"n" ->
+    False; anything else -> True."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.strip().lower() not in _OFF_STRINGS
+
+
+def fused_sample_enabled() -> bool:
+    """``AREAL_FUSED_SAMPLE`` (default off): decode chunks sample through
+    the fused LM-head + sampling epilogue (``ops/fused_sample.py``), so the
+    full ``[B, V]`` logits tensor is never materialized for greedy,
+    plain-temperature and top-k slots; top-p rows keep the sorted sampler
+    through the warp-row bucket. Token-exact for greedy slots,
+    distribution-exact for sampled slots. An explicit engine argument
+    overrides this knob."""
+    return env_flag(FUSED_SAMPLE_ENV, False)

@@ -18,9 +18,16 @@
 - Weight update: swap the params between chunks; the prefix cache is
   invalidated (KV from old weights must not seed new generations).
 
+- Sampling: the plain epilogue materializes ``[B, V]`` logits and samples
+  over them (``gen/sampling.py``); with ``fused_sample`` (argument, or
+  ``AREAL_FUSED_SAMPLE``) the decode step hands over final-norm hidden
+  states and ``ops/fused_sample.py`` streams the head (the fused-sample
+  kernel on a GPU). Top-p slots and top-k slots past the online buffer
+  keep the sorted sampler over their own logits rows only.
+
 Left out of this port so far (all off by default in the reference):
-speculative decoding and drafters, the tensor-parallel mesh, the fused
-sampling epilogue and chunk pipelining.
+speculative decoding and drafters, the tensor-parallel mesh and chunk
+pipelining.
 
 Thread-safety: ``submit`` arrives on the server's handler threads while
 ``step`` runs on the server's engine thread. ``_lock`` guards device
@@ -41,6 +48,7 @@ from areal_tpu_torch.gen.pages import OutOfPagesError, PagePool, PrefixRegistry
 from areal_tpu_torch.gen.sampling import SamplingParams, sample_tokens
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.ops import fused_sample as fused_ops
 
 
 @dataclasses.dataclass
@@ -84,6 +92,10 @@ class GenOutput:
 # them (a launcher or config that needs another value brings the option).
 MAX_NEW_TOKENS_CAP = 1024          # output buffer width per slot
 ADMIT_BUCKETS = (1, 2, 4, 8)       # rows per prefill extend call
+# Vocab block of the streamed top-k epilogue (plain PyTorch on the engine's
+# device): every block costs a few dozen small launches, so blocks are wide;
+# the block's f32 copy of the head ([E, block]) bounds the width.
+FUSED_TOPK_BLOCK = 16384
 
 
 def _finish_reason(n_gen, max_gen) -> str:
@@ -141,10 +153,17 @@ class GenerationEngine:
         seed: int = 0,
         page_size: int = 128,
         kv_dtype: Optional[str] = None,
+        fused_sample: Optional[bool] = None,
         device=None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
+        # fused sampling epilogue: explicit argument > AREAL_FUSED_SAMPLE
+        self.fused = (
+            fused_sample
+            if fused_sample is not None
+            else constants.fused_sample_enabled()
+        )
         # explicit argument > cfg.kv_dtype > AREAL_KV_DTYPE > serving dtype
         kd = kv_dtype if kv_dtype is not None else (
             cfg.kv_dtype if cfg.kv_dtype is not None else constants.kv_dtype()
@@ -180,6 +199,13 @@ class GenerationEngine:
         # host mirror of "does this slot warp" (top-p/top-k): when no
         # resident slot warps, the chunk skips the [B, V] sort
         self._warp_host = np.zeros((self.B,), bool)
+        # fused-epilogue routing mirrors: under the fused sampler a slot
+        # needs the sorted fallback only when the online pass cannot serve
+        # it (_fused_warp_host: top-p, or top-k past the buffer); plain
+        # top-k slots up to TOPK_MAX stay fused through the online top-k
+        # buffer (_fused_topk_host)
+        self._fused_warp_host = np.zeros((self.B,), bool)
+        self._fused_topk_host = np.zeros((self.B,), bool)
         self._pending: List[GenRequest] = []
         self._req_meta: Dict[str, GenRequest] = {}
         self._lock = threading.RLock()
@@ -193,6 +219,9 @@ class GenerationEngine:
             "decode_steps": 0,          # decode steps run (one kernel per layer each)
             "prefill_s": 0.0,           # device time of admission (prefill)
             "decode_s": 0.0,            # device time of decode chunks
+            "fused_sample_steps": 0,    # decode steps sampled by the fused epilogue
+            "fused_topk_steps": 0,      # ... of which carried the online top-k buffer
+            "sampler_fallback_rows": 0,  # slot-steps on the sorted fallback
         }
 
     def _make_state(self) -> GenState:
@@ -264,8 +293,11 @@ class GenerationEngine:
         return 1.0 - free_eq / max(self.n_pages, 1)
 
     def prepare_params(self, params):
-        """The port's param dict in the serving dtype on the engine's device."""
-        return tfm.cast_params(self.cfg, params, self.device)
+        """The port's param dict in the serving dtype on the engine's
+        device, cut loose from autograd (a trainer may hand over its own
+        leaves)."""
+        return tfm.tree_map(lambda t: t.detach(),
+                            tfm.cast_params(self.cfg, params, self.device))
 
     def update_params(self, params, version: Optional[int] = None):
         """Hot weight swap between decode chunks. Invalidates the prefix
@@ -510,6 +542,16 @@ class GenerationEngine:
             self._warp_host[slot] = (
                 r.top_p < 1.0 or r.top_k < self.cfg.vocab_size
             ) and not r.greedy and r.temperature > 0.0
+            sampled = not r.greedy and r.temperature > 0.0
+            topk_on = r.top_k < self.cfg.vocab_size
+            self._fused_warp_host[slot] = sampled and (
+                r.top_p < 1.0
+                or (topk_on and r.top_k > fused_ops.TOPK_MAX)
+            )
+            self._fused_topk_host[slot] = (
+                sampled and r.top_p >= 1.0
+                and topk_on and r.top_k <= fused_ops.TOPK_MAX
+            )
             temp[j] = 0.0 if r.greedy else r.temperature
             top_p[j] = r.top_p
             top_k[j] = min(r.top_k, 1 << 30)
@@ -545,8 +587,53 @@ class GenerationEngine:
             w *= 2
         return min(w, self.B)
 
+    def _sample_fused(self, hidden: torch.Tensor,
+                      warp_rows: Optional[torch.Tensor], with_topk: bool):
+        """One step's tokens and logprobs from final-norm hidden states
+        ``[B, E]`` through the fused epilogue. ``with_topk`` carries the
+        online top-k buffer for resident plain-top-k slots. The slots named
+        by ``warp_rows`` (padded with the out-of-range index B) materialize
+        only their own logits rows through the head, take the sorted
+        sampler and overwrite; padding rows land in a spare row past the
+        batch, which is dropped."""
+        cfg, sp, B = self.cfg, self.state.sp, self.B
+        # the step's seed stays on the device: no host sync
+        seed = torch.randint(
+            -(1 << 31), (1 << 31) - 1, (1,), generator=self._gen,
+            device=self.device, dtype=torch.int32,
+        )
+        greedy_rows = sp.temperature <= 0.0
+        topk_arg = None
+        if with_topk:
+            # inactive rows (and rows past the buffer) carry a sentinel
+            # > TOPK_MAX so fused_sample ignores them
+            topk_arg = torch.where(
+                (sp.top_k <= fused_ops.TOPK_MAX) & ~greedy_rows,
+                sp.top_k, 1 << 30,
+            )
+        out = fused_ops.fused_sample(
+            seed, hidden, tfm.head_weight(cfg, self.params),
+            sp.temperature, greedy_rows,
+            soft_cap=cfg.final_logits_soft_cap, topk=topk_arg,
+            block_size=FUSED_TOPK_BLOCK,
+        )
+        tokens, lp = out["tokens"].long(), out["logprobs"]
+        if warp_rows is not None:
+            safe = warp_rows.clamp(0, B - 1)
+            row_logits = tfm.apply_head(cfg, self.params, hidden[safe])
+            w_tok, w_lp = sample_tokens(
+                self._gen, row_logits, sp.rows(safe), warp=True
+            )
+            tokens = torch.cat([tokens, tokens[:1]])
+            lp = torch.cat([lp, lp[:1]])
+            tokens[warp_rows] = w_tok
+            lp[warp_rows] = w_lp
+            tokens, lp = tokens[:B], lp[:B]
+        return tokens, lp
+
     def _decode_chunk(self, n_steps: int, W: int,
-                      warp_rows: Optional[torch.Tensor]) -> torch.Tensor:
+                      warp_rows: Optional[torch.Tensor],
+                      with_topk: bool = False) -> torch.Tensor:
         """Run ``n_steps`` decode steps for every slot on the device and
         return the harvest flags ``[4, B]`` (active, n_gen, max_gen, lens)
         still on the device; the caller's pull is the chunk's one sync."""
@@ -555,14 +642,18 @@ class GenerationEngine:
         rows = torch.arange(self.B, device=self.device)
         last_col = st.out_tokens.shape[1] - 1
         for _ in range(n_steps):
-            logits, _, new_lens = tfm.decode_step_paged(
+            head_out, _, new_lens = tfm.decode_step_paged(
                 self.params, cfg, st.cache, st.last_tokens, table,
-                st.lens, st.active,
+                st.lens, st.active, return_hidden=self.fused,
             )
-            tokens, lp = sample_tokens(
-                self._gen, logits, st.sp, warp=warp_rows is not None,
-                warp_rows=warp_rows,
-            )
+            if self.fused:
+                tokens, lp = self._sample_fused(head_out, warp_rows,
+                                                with_topk)
+            else:
+                tokens, lp = sample_tokens(
+                    self._gen, head_out, st.sp, warp=warp_rows is not None,
+                    warp_rows=warp_rows,
+                )
             tokens = torch.where(st.active, tokens, st.last_tokens)
             idx = st.n_gen.clamp(0, last_col).long()
             st.out_tokens[rows, idx] = torch.where(
@@ -604,6 +695,8 @@ class GenerationEngine:
         self._table_host[b] = 0
         self._lens_host[b] = 0
         self._warp_host[b] = False
+        self._fused_warp_host[b] = False
+        self._fused_topk_host[b] = False
         with self._pending_lock:
             self._req_meta.pop(info.rid, None)
         return info
@@ -631,7 +724,20 @@ class GenerationEngine:
                 return []
             t1 = self._clock.mark()
             running = [b for b, s in enumerate(self._slots) if s is not None]
-            warp_slots = [b for b in running if self._warp_host[b]]
+            # fused routing: the fallback bucket narrows to the slots the
+            # online pass cannot serve; plain top-k slots ride the online
+            # buffer instead of the sort
+            mirror = self._fused_warp_host if self.fused else self._warp_host
+            warp_slots = [b for b in running if mirror[b]]
+            with_topk = self.fused and any(
+                self._fused_topk_host[b] for b in running
+            )
+            if self.fused:
+                self.stats["fused_sample_steps"] += decode_steps
+                self.stats["fused_topk_steps"] += decode_steps * with_topk
+                self.stats["sampler_fallback_rows"] += (
+                    len(warp_slots) * decode_steps
+                )
             wb = self._warp_bucket(len(warp_slots))
             warp_rows = None
             if wb:
@@ -642,7 +748,7 @@ class GenerationEngine:
             W = self._table_width(
                 int(self._lens_host[running].max()) + decode_steps
             )
-            flags = self._decode_chunk(decode_steps, W, warp_rows)
+            flags = self._decode_chunk(decode_steps, W, warp_rows, with_topk)
             t2 = self._clock.mark()
             # the chunk's one host sync
             active, n_gen, max_gen, lens = flags.cpu().numpy()

@@ -9,6 +9,13 @@ Routes (the slice's subset of the reference's route table):
   interruption); answers ``rid``, ``output_ids``, ``output_logprobs``,
   ``finish_reason`` and ``version``.
 - ``POST /pause_generation`` / ``POST /continue_generation``.
+- ``POST /update_weights_from_disk``: reload the weights from an HF
+  checkpoint directory (the trainer's committed export): ``model_path``,
+  ``version``, ``allow_interrupt`` (pause and return running requests as
+  partial outputs, or drain them with admission closed) and
+  ``overlap_load`` (read and stage the weights on the device before taking
+  the lock). A failed load leaves the engine untouched and answers
+  ``success: false``.
 - ``GET /health``, ``GET /metrics_json``.
 
 A malformed ``/generate`` body is answered 400 with the reference's error
@@ -17,6 +24,7 @@ texts. If the engine fails, every waiting and later request is answered
 """
 
 import concurrent.futures
+import contextlib
 import json
 import logging
 import threading
@@ -25,6 +33,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 
 from areal_tpu_torch.gen.engine import GenerationEngine, GenOutput, GenRequest
+from areal_tpu_torch.models import hf as hf_conv
+from areal_tpu_torch.models import transformer as tfm
 
 logger = logging.getLogger("areal_tpu_torch.gen.server")
 
@@ -113,12 +123,21 @@ class GenerationHTTPServer:
         # serializes engine.step against pause (the engine's own lock
         # would let a pause land between two halves of a serving round)
         self._step_lock = threading.Lock()
+        # handlers waiting for _step_lock: the engine loop re-takes its
+        # lock right after each step and a plain Lock hands over to no one
+        # in particular, so a handler could wait out a whole generation;
+        # the loop stands back while this is non-zero
+        self._lock_waiters = 0
+        self._waiters_lock = threading.Lock()
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
         self._served = 0
         self._gen_tokens = 0
         self._n_interrupted = 0
+        self._n_weight_updates = 0
         self._t_step_busy = 0.0
+        self._t_weight = 0.0        # inside the lock: pause/drain + swap
+        self._t_weight_load = 0.0   # overlapped loads, outside the lock
         self._start = time.time()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._threads = []
@@ -156,11 +175,27 @@ class GenerationHTTPServer:
     # engine loop
     # ------------------------------------------------------------------ #
 
+    @contextlib.contextmanager
+    def _between_steps(self):
+        """Hold the step lock from a handler thread: taken after the step
+        in flight ends, before the next one starts."""
+        with self._waiters_lock:
+            self._lock_waiters += 1
+        try:
+            with self._step_lock:
+                yield
+        finally:
+            with self._waiters_lock:
+                self._lock_waiters -= 1
+
     def _run(self):
         eng = self.engine
         while not self._stop.is_set():
             if eng.paused or (not eng.n_pending() and eng.n_running() == 0):
                 time.sleep(0.005)
+                continue
+            if self._lock_waiters:
+                time.sleep(0.001)
                 continue
             try:
                 with self._step_lock:
@@ -229,7 +264,7 @@ class GenerationHTTPServer:
         }
 
     def pause(self, body: bytes):
-        with self._step_lock:
+        with self._between_steps():
             interrupted = self.engine.pause()
             self._n_interrupted += len(interrupted)
             self._resolve(interrupted)
@@ -238,6 +273,92 @@ class GenerationHTTPServer:
     def resume(self, body: bytes):
         self.engine.resume()
         return 200, {"success": True}
+
+    def update_weights(self, body: bytes):
+        try:
+            d = json.loads(body)
+            path = d["model_path"]
+        except (ValueError, TypeError, KeyError) as e:
+            return 400, {"error": f"malformed weight update: {e!r}"}
+        if d.get("draft_model_path"):
+            return 200, {
+                "success": False,
+                "message": "draft_model_path given but the engine has no "
+                           "draft model configured",
+                "num_paused_requests": 0,
+            }
+        allow_interrupt = bool(d.get("allow_interrupt", True))
+        overlap_load = bool(d.get("overlap_load", True))
+        params = None
+        if overlap_load:
+            # read the checkpoint and stage it on the device while the
+            # engine keeps decoding: the lock window then contains only
+            # the pointer swap. Costs a transient 2x param residency; a
+            # caller without that headroom sends overlap_load=false
+            t_load0 = time.monotonic()
+            try:
+                params = self._load_params(path)
+            except Exception as e:  # noqa: BLE001 - reported to the caller
+                logger.exception("weight load failed (engine untouched)")
+                return 200, {
+                    "success": False,
+                    "message": f"weight update failed: {e!r}",
+                    "num_paused_requests": 0,
+                }
+            self._t_weight_load += time.monotonic() - t_load0
+        with self._between_steps():
+            # timer starts INSIDE the lock: waiting out an in-flight decode
+            # chunk is step_busy time, not weight-swap time
+            t_upd0 = time.monotonic()
+            if allow_interrupt:
+                interrupted = self.engine.pause()
+                self._resolve(interrupted)
+                num_paused = len(interrupted)
+            else:
+                # drain: stop admission (new requests queue as pending),
+                # decode the running slots to completion
+                self.engine.accepting = False
+                try:
+                    while self.engine.n_running():
+                        self._resolve(self.engine.step(self.decode_steps))
+                finally:
+                    self.engine.accepting = True
+                self.engine.paused = True
+                num_paused = 0
+            try:
+                if params is None:
+                    params = self._load_params(path)
+                self.engine.update_params(params, version=d.get("version"))
+                ok = True
+                msg = f"loaded weights from {path}"
+            except Exception as e:  # noqa: BLE001 - reported to the caller
+                ok = False
+                msg = f"weight update failed: {e!r}"
+                logger.exception("weight update failed")
+            self.engine.resume()
+            self._t_weight += time.monotonic() - t_upd0
+        self._n_weight_updates += 1
+        self._n_interrupted += num_paused
+        return 200, {"success": ok, "message": msg,
+                     "num_paused_requests": num_paused}
+
+    def _load_params(self, path: str):
+        """The checkpoint at ``path`` as engine params: serving dtype, on
+        the engine's device. Its architecture must be the engine's: the KV
+        pool and every shape were built from the engine's config."""
+        cfg, host_params = hf_conv.load_hf_checkpoint(path)
+        ecfg = self.engine.cfg
+        for f in ("vocab_size", "n_layers", "n_q_heads", "n_kv_heads",
+                  "head_dim", "hidden_dim", "intermediate_dim",
+                  "tied_embedding"):
+            if getattr(cfg, f) != getattr(ecfg, f):
+                raise ValueError(
+                    f"checkpoint {f} ({getattr(cfg, f)}) != the serving "
+                    f"model's ({getattr(ecfg, f)})"
+                )
+        params = tfm.params_from_numpy(host_params, device=self.engine.device,
+                                       dtype=ecfg.dtype)
+        return self.engine.prepare_params(params)
 
     def health(self, body: bytes):
         if self._error is not None:
@@ -269,7 +390,13 @@ class GenerationHTTPServer:
             "prefix_pages": len(eng.prefix),
             "uptime_s": round(time.time() - self._start, 3),
             "step_busy_s": round(self._t_step_busy, 3),
+            "weight_update_s": round(self._t_weight, 3),
+            "weight_load_overlapped_s": round(self._t_weight_load, 3),
+            "n_weight_updates": self._n_weight_updates,
             "n_interrupted": self._n_interrupted,
+            # fused sampling epilogue: streamed LM-head sampling on the
+            # decode chunk
+            "fused_sample": bool(eng.fused),
             **{f"engine_{k}": v for k, v in eng.stats.items()},
         }
 
@@ -282,6 +409,7 @@ def _make_handler(srv: GenerationHTTPServer):
         ("POST", "/generate"): srv.generate,
         ("POST", "/pause_generation"): srv.pause,
         ("POST", "/continue_generation"): srv.resume,
+        ("POST", "/update_weights_from_disk"): srv.update_weights,
         ("GET", "/health"): srv.health,
         ("GET", "/metrics_json"): srv.metrics,
     }

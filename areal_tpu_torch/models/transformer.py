@@ -169,10 +169,15 @@ def params_from_numpy(tree: Dict[str, Any], device=None, dtype=None) -> Params:
 
 def params_to_numpy(params: Params) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy`: float32 numpy arrays in
-    the JAX package's layout (layer leaves stacked ``[L, ...]``)."""
+    the JAX package's layout (layer leaves stacked ``[L, ...]``). The
+    arrays are copies: a later in-place update of ``params`` (an optimizer
+    step) does not reach them."""
 
     def host(t):
-        return t.detach().float().cpu().numpy()
+        h = t.detach().float().cpu()
+        if h.data_ptr() == t.data_ptr():   # f32 on the CPU: no copy so far
+            h = h.clone()
+        return h.numpy()
 
     out: Dict[str, Any] = {}
     for k, v in params.items():
@@ -581,11 +586,16 @@ def decode_step_paged(
     table: torch.Tensor,        # [B, M] i32
     lens: torch.Tensor,         # [B] i32 resident tokens (write position)
     active: torch.Tensor,       # [B] bool
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, PagedKVCache, torch.Tensor]:
     """One decode step over the page pool. Returns (fp32 logits ``[B, V]``,
     cache, new lens incremented where active). Each layer's fresh K/V
     merge into attention as the self token (the paged decode kernel on a
-    GPU) and land in the pool via one scatter after the layer loop."""
+    GPU) and land in the pool via one scatter after the layer loop.
+
+    ``return_hidden=True`` returns the final-norm hidden states ``[B, E]``
+    in place of the logits: the fused sampling epilogue
+    (``ops/fused_sample.py``) streams the head itself."""
     positions = lens
     x = _embed(cfg, params, tokens, positions)        # [B, E]
     rot = _rotary(cfg, positions)
@@ -613,4 +623,4 @@ def decode_step_paged(
         table, positions[:, None], active[:, None],
     )
     x = _norm(cfg, params["final_ln"], x)
-    return _head(cfg, params, x), cache, new_lens
+    return (x if return_hidden else _head(cfg, params, x)), cache, new_lens

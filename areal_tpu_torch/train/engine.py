@@ -14,19 +14,27 @@ norm is not finite, as the reference's on-device guard does.
 What the reference gets from jit, donation and a mesh, the port gets from
 eager PyTorch on one device: no step cache, in-place optimizer updates
 (where JAX donates buffers), and one host sync per optimizer step (the
-finite-ness check decides whether ``step()`` runs). Multi-device training,
-checkpoints and HF export are later slices.
+finite-ness check decides whether ``step()`` runs). ``load_hf`` /
+``save_hf`` read and write HF checkpoints (the export is committed through
+a staging directory and a manifest: the weight-sync leg to the generation
+server). Multi-device training and trainer checkpoints with optimizer
+state are later slices.
 """
 
 import dataclasses
+import json
 import math
+import os
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+from areal_tpu_torch.base import recover
 from areal_tpu_torch.base.device import resolve_device, torch_dtype
+from areal_tpu_torch.models import hf as hf_conv
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.ops import ppo as ppo_ops
@@ -165,6 +173,7 @@ class TrainEngine:
         self.params = None
         self.optimizer: Optional[torch.optim.AdamW] = None
         self._lr_host: Optional[Callable[[int], float]] = None
+        self.hf_family: Optional[str] = None   # set by load_hf
         self._step = 0          # optimizer steps taken (guarded ones too)
         self._n_updates = 0     # updates applied (the schedule's count)
         self.version = 0
@@ -190,6 +199,75 @@ class TrainEngine:
         """Params from a numpy tree in the JAX package's layout."""
         return self._own(tfm.params_from_numpy(host_params, device=self.device,
                                                dtype=self.param_dtype))
+
+    def load_hf(self, path: str, init_critic_head: bool = False):
+        """Load a HF checkpoint. With ``init_critic_head``, a CausalLM's
+        [E, V] lm head is dropped and a random [E, 1] value head inserted
+        HOST-side (seed 0, as the reference draws it). A checkpoint that
+        already carries a TRAINED value head (critic/RM exports:
+        ``score.weight`` + ``is_critic``) keeps it: re-randomizing would
+        silently score rollouts with noise."""
+        _, host_params = hf_conv.load_hf_checkpoint(path)
+        with open(os.path.join(path, "config.json")) as f:
+            model_type = json.load(f)["model_type"]
+        self.hf_family = hf_conv.family_for_model_type(model_type).name
+        if init_critic_head:
+            head = host_params.get("head", {}).get("weight")
+            if head is not None and head.shape == (self.cfg.hidden_dim, 1):
+                pass  # trained critic/RM checkpoint: keep its head
+            else:
+                host_params.pop("head", None)
+                rng = np.random.default_rng(0)
+                host_params["head"] = {
+                    "weight": (
+                        rng.standard_normal((self.cfg.hidden_dim, 1)) * 0.02
+                    ).astype(np.float32)
+                }
+        return self.load_params(host_params)
+
+    def save_hf(self, path: str, family: str, async_write: bool = False,
+                post_write=None):
+        """HF checkpoint export. The params are copied to the host before
+        this returns (the next train step updates them in place); the file
+        write is pure host IO. ``async_write=True`` returns a daemon
+        ``threading.Thread`` doing the write + ``post_write()`` in the
+        background: the weight-publish fast path. A failure inside the
+        thread is stored on ``thread._areal_exc``; the joiner must check
+        and re-raise so a full disk does not silently freeze the fleet's
+        weight version.
+
+        The export is COMMITTED: safetensors land in a staging dir that is
+        atomically renamed over ``path`` with a manifest, so a generation
+        server (or a restarted trainer re-announcing the version) can never
+        observe a half-written snapshot."""
+        host_params = tfm.params_to_numpy(self.params)
+        abs_path = os.path.abspath(path)
+        step, version = self._step, self.version
+
+        def _write():
+            staging = recover.prepare_staging(abs_path, "hf")
+            hf_conv.save_hf_checkpoint(host_params, self.cfg, family, staging)
+            recover.commit_checkpoint(staging, abs_path, {
+                "step": step, "version": version, "format": "hf",
+            })
+            if post_write is not None:
+                post_write()
+
+        if async_write:
+            def _guarded():
+                try:
+                    _write()
+                except BaseException as e:  # noqa: BLE001 - surfaced by the joiner
+                    t._areal_exc = e
+
+            t = threading.Thread(
+                target=_guarded, name=f"save_hf:{path}", daemon=True
+            )
+            t._areal_exc = None
+            t.start()
+            return t
+        _write()
+        return None
 
     # ------------------------------------------------------------------ #
     # Optimizer

@@ -16,6 +16,15 @@ Phases, each printing one JSON line:
      int8, and at small shapes in f32 and bf16 with soft cap, sliding
      window, GQA groups of 1 and 8, a narrowed table and D 48; library:
      SDPA over K/V already gathered dense.
+   - fused LM-head sampler, at the serving path's shape (R 32, E 1536,
+     V 151936, bf16, half the rows greedy, temperatures 0.7 / 1 / 1.3)
+     and at small shapes in f32 and bf16 with soft cap, V 500 / 50257 /
+     5000 (not multiples of the tile), R 1 / 33 / 160, excluded and
+     gathered tokens, E 70 and 200 and a tied (E-contiguous) head; bf16
+     cases run both versions of the product (tensor cores where the layout
+     allows, CUDA cores); 20000 draws at V 16 against softmax(warped) by
+     chi-square; library: the head GEMM (cuBLAS) + sample_tokens over the
+     materialized logits.
    - flash attention forward and backward (dq, dk, dv), at the trainer's
      shape (T 8192, H 12, Hkv 2, D 128, bf16, 8 segments of 512-1536
      tokens plus tail padding) and at small shapes in f32 and bf16 with
@@ -63,9 +72,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-PHASES = ("build", "kernels", "parity", "serve", "serve_int8",
-          "train_parity", "train")
-SOURCES = ("paged_decode", "flash_attention")
+PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
+          "weight_sync", "train_parity", "train")
+SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
 # Tolerances, elementwise: |kernel - plain| <= atol + rtol * |plain|, as
@@ -481,6 +490,249 @@ def flash_kernels_phase(torch):
     return results
 
 
+# --------------------------------------------------------------------------- #
+# kernels: fused LM-head sampling epilogue
+# --------------------------------------------------------------------------- #
+
+# Limits, kernel against plain version (ops/fused_sample.py::
+# fused_sample_plain) on the same CUDA inputs. Both sides accumulate the
+# head product in float32 from the same f32 or bf16 operands (bf16 products
+# are exact in f32), so they differ by summation order only: about 1e-6 of
+# a logit. A row's limit is atol 1e-4 + rtol 1e-5 * |norm| of the plain
+# version: a greedy row divides by the 1e-6 temperature floor, so its
+# warped values, its norm and the two terms of its logprob are ~1e6, where
+# one float32 ulp is 0.06 to 0.5. Within that limit: norm, gathered_lp and
+# logprobs; argmax and sampled tokens must be EQUAL, except on a near tie:
+# where they differ, the plain version's raw logits (perturbed values, for
+# a sampled token) of the two candidates must lie within the row's limit.
+# A sampled row's logprob must also equal warped[token] - norm recomputed
+# from the plain version's full logits.
+FUSED_ATOL, FUSED_RTOL = 1e-4, 1e-5
+FUSED_TEMPS = (0.0, 0.7, 0.0, 1.0, 0.0, 1.3, 0.0, 1.0)   # half greedy
+
+
+def make_fused_inputs(torch, *, R, E, V, dtype, seed, tied=False,
+                      exclude=False, gather=False, soft_cap=None, **_):
+    """Random epilogue operands on the card: final-norm-like hidden states
+    ~N(0, 1) and a head ~N(0, 0.02), so logits have the serving path's
+    scale; a tied head is ``embed.T``, a view with E contiguous."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = torch.randn(R, E, generator=g, device="cuda").to(dt)
+    if tied:
+        w = (torch.randn(V, E, generator=g, device="cuda") * 0.02).to(dt).T
+    else:
+        w = (torch.randn(E, V, generator=g, device="cuda") * 0.02).to(dt)
+    temp = torch.tensor([FUSED_TEMPS[i % len(FUSED_TEMPS)] for i in range(R)],
+                        device="cuda")
+    out = dict(seed=torch.tensor([seed * 7919 - 5], dtype=torch.int32,
+                                 device="cuda"),
+               x=x, w=w, temperature=temp, greedy=temp <= 0.0,
+               exclude=None, gather_ids=None, soft_cap=soft_cap)
+    if exclude:   # the likeliest token, so that the exclusion binds
+        out["exclude"] = (x.float() @ w.float()).argmax(-1).to(torch.int32)
+    if gather:
+        out["gather_ids"] = torch.randint(0, V, (R,), generator=g,
+                                          device="cuda", dtype=torch.int32)
+    return out
+
+
+def fused_bound(torch, a):
+    """Least time (ms) for one call on these inputs: W and x read once
+    (the per-row operands and outputs are a few hundred bytes) over HBM
+    bandwidth, vs the product's 2 R E V flops over the peak for its type."""
+    x, w = a["x"], a["w"]
+    R, E = x.shape
+    V = w.shape[1]
+    nbytes = (E * V + R * E) * w.element_size() + R * (4 + 1 + 4 + 4 + 5 * 4)
+    dt = "float32" if w.dtype == torch.float32 else "bfloat16"
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * R * E * V / PEAK_OPS[dt]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fused_compare(torch, name, a, got, want):
+    """Hold the kernel's outputs against the plain version's under the
+    limits above; returns the row's numbers."""
+    from areal_tpu_torch.ops.fused_sample import _MASK, _gumbel
+
+    x, w = a["x"], a["w"]
+    R, V = x.shape[0], w.shape[1]
+    logits = x.float() @ w.float()
+    if a["soft_cap"]:
+        logits = torch.tanh(logits / a["soft_cap"]) * a["soft_cap"]
+    t = a["temperature"].clamp_min(1e-6)
+    warped = logits / t[:, None]
+    limit = FUSED_ATOL + FUSED_RTOL * want["norm"].abs()
+    rows = torch.arange(R, device="cuda")
+    greedy = a["greedy"]
+
+    def fail(msg):
+        raise AssertionError(f"fused_sample {name}: {msg}")
+
+    over, err = 0.0, 0.0
+    for k in ("norm", "logprobs") + (("gathered_lp",) if "gathered_lp" in want
+                                     else ()):
+        diff = (got[k] - want[k]).abs()
+        if k == "logprobs":       # sampled rows: only where the tokens agree
+            diff = torch.where(greedy | (got["tokens"] == want["tokens"]),
+                               diff, 0.0)
+        ratio = (diff / limit).max().item()
+        if not (np.isfinite(ratio) and ratio <= 1.0):
+            fail(f"{k} differs by {diff.max().item()} ({ratio} x the limit)")
+        over = max(over, ratio)
+        if (~greedy).any():
+            err = max(err, diff[~greedy].max().item())
+    # raw argmax: equal, or a near tie of the plain logits
+    ka, pa = got["argmax"].long(), want["argmax"].long()
+    gap = (logits[rows, ka] - logits[rows, pa]).abs()
+    n_arg = int((ka != pa).sum())
+    if not bool(((ka == pa) | (gap <= limit * t)).all()):
+        fail(f"argmax differs beyond a near tie: gaps {gap[ka != pa].tolist()}")
+    # tokens: greedy rows are the argmax; sampled rows equal or a near tie
+    # of the plain version's perturbed values
+    kt, pt = got["tokens"].long(), want["tokens"].long()
+    if not bool((kt[greedy] == ka[greedy]).all()):
+        fail("a greedy row's token is not its argmax")
+    pert = warped + _gumbel(a["seed"], rows[:, None],
+                            torch.arange(V, device="cuda")[None, :])
+    if a["exclude"] is not None:
+        cols = torch.arange(V, device="cuda")[None, :]
+        pert = torch.where(cols == a["exclude"][:, None].long(), _MASK, pert)
+        if bool((kt[~greedy] == a["exclude"].long()[~greedy]).any()):
+            fail("a sampled row drew its excluded token")
+    pgap = (pert[rows, kt] - pert[rows, pt]).abs()
+    n_tok = int(((kt != pt) & ~greedy).sum())
+    if not bool((greedy | (kt == pt) | (pgap <= limit)).all()):
+        fail(f"sampled tokens differ beyond a near tie: {n_tok} rows")
+    want_lp = warped[rows, kt] - want["norm"]
+    lp_diff = torch.where(greedy, 0.0, (got["logprobs"] - want_lp).abs())
+    if not bool((lp_diff <= limit).all()):
+        fail(f"sampled logprobs differ from warped[token] - norm by "
+             f"{lp_diff.max().item()}")
+    return {"max_abs_err": max(err, lp_diff.max().item()),
+            "err_over_tol": over, "atol": FUSED_ATOL, "rtol": FUSED_RTOL,
+            "argmax_near_ties": n_arg, "token_near_ties": n_tok}
+
+
+def fused_library(torch, a):
+    """The unfused epilogue the port runs without the kernel: the head
+    GEMM in the serving dtype (cuBLAS), the logits widened to f32, then
+    ``sample_tokens(warp=False)`` over them."""
+    from areal_tpu_torch.gen.sampling import SamplingParams, sample_tokens
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    R = a["x"].shape[0]
+    sp = SamplingParams.filled(R, device="cuda")
+    sp.temperature = a["temperature"]
+    cap = a["soft_cap"]
+
+    def call():
+        logits = (a["x"] @ a["w"]).float()
+        if cap:
+            logits = cap * torch.tanh(logits / cap)
+        return sample_tokens(gen, logits, sp, warp=False)
+
+    return call
+
+
+def fused_chi_square(torch, exclude):
+    """20000 independent draws at V 16 in one launch (the row index enters
+    the hash as the seed does) against softmax(warped); chi-square, df 15
+    (14 with a token excluded), limit 45 (p ~ 1e-4)."""
+    from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
+
+    n, V, E = 20000, 16, 8
+    g = torch.Generator(device="cuda")
+    g.manual_seed(77)
+    x1 = torch.randn(1, E, generator=g, device="cuda")
+    w = torch.randn(E, V, generator=g, device="cuda") * 0.5
+    p = torch.softmax((x1 @ w)[0].double(), -1)
+    excl = None
+    if exclude:
+        ex = int(p.argmax())
+        excl = torch.full((n,), ex, dtype=torch.int32, device="cuda")
+        p[ex] = 0.0
+        p = p / p.sum()
+    out = cuda_fused.fused_sample(
+        torch.tensor([4242], dtype=torch.int32, device="cuda"),
+        x1.expand(n, E).contiguous(), w, torch.ones(n, device="cuda"),
+        torch.zeros(n, dtype=torch.bool, device="cuda"), exclude=excl,
+    )
+    counts = torch.bincount(out["tokens"].long(), minlength=V).double()
+    keep = p > 0
+    if bool((counts[~keep] > 0).any()):
+        raise AssertionError("fused_sample: drew an excluded token")
+    chi2 = (((counts[keep] - n * p[keep]) ** 2) / (n * p[keep])).sum().item()
+    if not chi2 < 45.0:
+        raise AssertionError(f"fused_sample: chi-square {chi2} against "
+                             f"softmax(warped), exclude={exclude}")
+    return chi2
+
+
+def fused_kernels_phase(torch):
+    from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
+    from areal_tpu_torch.ops.fused_sample import fused_sample_plain
+
+    cases = [
+        ("slice_bf16", dict(R=32, E=1536, V=151936, dtype="bfloat16"), True),
+        ("f32_v500", dict(R=6, E=32, V=500, dtype="float32"), False),
+        ("f32_cap_excl_gather", dict(R=6, E=64, V=50257, dtype="float32",
+                                     soft_cap=30.0, exclude=True,
+                                     gather=True), False),
+        ("f32_e70", dict(R=5, E=70, V=300, dtype="float32"), False),
+        ("f32_r1", dict(R=1, E=128, V=500, dtype="float32"), False),
+        ("f32_tied", dict(R=6, E=64, V=500, dtype="float32", tied=True,
+                          gather=True), False),
+        ("bf16_v50257_cap", dict(R=8, E=256, V=50257, dtype="bfloat16",
+                                 soft_cap=30.0), False),
+        ("bf16_r160", dict(R=160, E=128, V=5000, dtype="bfloat16",
+                           exclude=True, gather=True), False),
+        ("bf16_e200_cap", dict(R=33, E=200, V=1000, dtype="bfloat16",
+                               soft_cap=20.0, gather=True), False),
+        ("bf16_tied", dict(R=32, E=1536, V=20000, dtype="bfloat16",
+                           tied=True, exclude=True), False),
+    ]
+    results = {}
+    for i, (name, spec, timed) in enumerate(cases):
+        a = make_fused_inputs(torch, seed=300 + i, **spec)
+        args = (a["seed"], a["x"], a["w"], a["temperature"], a["greedy"])
+        kw = dict(exclude=a["exclude"], gather_ids=a["gather_ids"],
+                  soft_cap=a["soft_cap"])
+        got = cuda_fused.fused_sample(*args, **kw)
+        want = fused_sample_plain(*args, **kw)
+        torch.cuda.synchronize()
+        row = fused_compare(torch, name, a, got, want)
+        if spec["dtype"] == "bfloat16":
+            # the same input through the CUDA-core version of the product
+            # (a no-op choice where the tensor-core version cannot run)
+            other = cuda_fused.fused_sample(*args, **kw, cuda_cores=True)
+            torch.cuda.synchronize()
+            row["cuda_core_err_over_tol"] = fused_compare(
+                torch, name + "[cuda cores]", a, other, want)["err_over_tol"]
+        if timed:
+            row["kernel_ms"] = cuda_ms(
+                lambda: cuda_fused.fused_sample(*args, **kw), 20)
+            row["cuda_core_ms"] = cuda_ms(
+                lambda: cuda_fused.fused_sample(*args, **kw,
+                                                cuda_cores=True), 20)
+            row["plain_ms"] = cuda_ms(
+                lambda: fused_sample_plain(*args, **kw), 3)
+            row["library_ms"] = cuda_ms(fused_library(torch, a), 20)
+            row["bound_ms"], row["bound_by"] = fused_bound(torch, a)
+            row["w_bytes"] = a["w"].numel() * a["w"].element_size()
+        results[name] = row
+        del a, args, kw, got, want
+        torch.cuda.empty_cache()
+    results["chi_square"] = {"plain": fused_chi_square(torch, False),
+                             "excluded": fused_chi_square(torch, True),
+                             "draws": 20000, "limit": 45.0}
+    emit(phase="kernels", kernel="fused_sample", cases=results)
+    return results
+
+
 def sweep_phase(torch):
     """Paged-decode time against pages per slot at the serving widths:
     one slot alone (the kernel's critical path) and all 64 slots equal."""
@@ -523,16 +775,25 @@ def parity_phase(torch):
                for n in (1, 5, 17, 30)] + [rng.integers(0, 512, 9).tolist()]
     outs = {}
     for dev in ("cuda", "cpu"):
-        eng = GenerationEngine(cfg, params, max_slots=4, max_seqlen=128,
-                               page_size=16, device=dev)
-        for i, p in enumerate(prompts):
-            eng.submit(GenRequest(rid=str(i), input_ids=p, max_new_tokens=24,
-                                  greedy=True))
-        outs[dev] = {o.rid: o.output_ids for o in eng.run_until_done(8)}
-    if outs["cuda"] != outs["cpu"]:
-        raise AssertionError(f"greedy cuda != cpu: {outs}")
+        for fused in (False, True):
+            eng = GenerationEngine(cfg, params, max_slots=4, max_seqlen=128,
+                                   page_size=16, fused_sample=fused,
+                                   device=dev)
+            for i, p in enumerate(prompts):
+                eng.submit(GenRequest(rid=str(i), input_ids=p,
+                                      max_new_tokens=24, greedy=True))
+            outs[dev, fused] = {o.rid: o.output_ids
+                                for o in eng.run_until_done(8)}
+            if fused and eng.stats["fused_sample_steps"] <= 0:
+                raise AssertionError("parity: the fused engine took no "
+                                     "fused step")
+    # float32: the fused and the unfused epilogue agree on every argmax
+    want = outs["cpu", False]
+    for key, got in outs.items():
+        if got != want:
+            raise AssertionError(f"greedy {key} != cpu unfused: {got} {want}")
     emit(phase="parity", requests=len(prompts), tokens_each=24,
-         token_exact=True)
+         token_exact=True, fused_token_exact=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -589,21 +850,31 @@ def device_profile(prof, wall_s, kernels):
     return out
 
 
+TOPK_NEW_TOKENS = 32   # serve_fused: top-k requests leave early
+
+
 def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
-                group, plen=1024, max_new=128, profile=False):
+                group, plen=1024, max_new=128, profile=False, fused=False):
+    """Serve ``n_prompts`` x ``group`` requests over HTTP. ``fused`` runs
+    the engine with the fused sampling epilogue and turns the group's last
+    member into a top-k 20 request of TOPK_NEW_TOKENS tokens: while it is
+    resident the streamed top-k route runs, afterwards the kernel."""
     from areal_tpu_torch.gen.engine import GenerationEngine
     from areal_tpu_torch.gen.server import serve
+    from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
     from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
 
     eng = GenerationEngine(cfg, params, max_slots=32, max_seqlen=2048,
                            page_size=128, seed=0, kv_dtype=kv_dtype,
-                           device="cuda")
+                           fused_sample=fused, device="cuda")
     srv = serve(eng, "127.0.0.1", 0, decode_steps=16)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=plen).tolist()
                for _ in range(n_prompts)]
     modes = ["greedy"] * (group // 2) + ["temp"] * (group // 4) + (
         ["top_p"] * (group - group // 2 - group // 4))
+    if fused:
+        modes[-1] = "top_k"
     bodies = []
     for g, p in enumerate(prompts):
         for m, mode in enumerate(modes):
@@ -614,11 +885,15 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
                 sp["temperature"] = 1.0
                 if mode == "top_p":
                     sp["top_p"] = 0.9
+                if mode == "top_k":
+                    sp["top_k"] = 20
+                    sp["max_new_tokens"] = TOPK_NEW_TOKENS
             bodies.append({"rid": f"g{g}m{m}", "input_ids": p,
                            "sampling_params": sp})
     try:
         # the main path's run: every launch counted from here on
         cuda_paged.reset_launches()
+        cuda_fused.reset_launches()
         steps0 = eng.stats["decode_steps"]
         prof = None
         if profile:
@@ -634,6 +909,7 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
         if prof is not None:
             prof.__exit__(None, None, None)
         launches = cuda_paged.launches
+        fused_launches = cuda_fused.launches
         steps = eng.stats["decode_steps"] - steps0
         metrics = get(srv.port, "/metrics_json")
     finally:
@@ -645,7 +921,8 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
             status == 200 and ans.get("rid") == body["rid"]
             and isinstance(ids, list) and isinstance(lps, list)
             and len(ids) == len(lps)
-            and (len(ids) == max_new or ans.get("finish_reason") == "stop")
+            and (len(ids) == body["sampling_params"]["max_new_tokens"]
+                 or ans.get("finish_reason") == "stop")
             and all(0 <= t < cfg.vocab_size for t in ids)
             and bool(np.all(np.isfinite(lps)))
         )
@@ -660,6 +937,27 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
             f"{name}: paged_decode launched {launches} times over {steps} "
             f"decode steps of {cfg.n_layers} layers"
         )
+    stats = eng.stats
+    if fused:
+        # every step sampled by the fused epilogue; the kernel in exactly
+        # those steps in which no plain-top-k slot was resident (the
+        # engine counts the steps it routed through the top-k buffer)
+        kernel_steps = stats["fused_sample_steps"] - stats["fused_topk_steps"]
+        if stats["fused_sample_steps"] != steps or fused_launches <= 0 or (
+                fused_launches != kernel_steps):
+            raise AssertionError(
+                f"{name}: fused_sample launched {fused_launches} times; "
+                f"{steps} decode steps, {stats['fused_sample_steps']} fused, "
+                f"{stats['fused_topk_steps']} on the top-k route"
+            )
+        if stats["fused_topk_steps"] <= 0 or stats["sampler_fallback_rows"] <= 0:
+            raise AssertionError(f"{name}: the top-k route or the sorted "
+                                 f"fallback never ran: {stats}")
+        if not metrics["fused_sample"]:
+            raise AssertionError(f"{name}: /metrics_json: {metrics}")
+    elif fused_launches or stats["fused_sample_steps"]:
+        raise AssertionError(f"{name}: the unfused engine launched the "
+                             f"fused kernel {fused_launches} times")
     # informational: borrowers prefill their tail in another batch shape
     # than the group's first member, so bf16 may differ slightly
     agree = []
@@ -669,7 +967,6 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
             other = by_rid[f"g{g}m{m}"]
             agree.append(float(np.mean(np.asarray(first) == np.asarray(other))))
     gen_tokens = sum(len(v) for v in by_rid.values())
-    stats = eng.stats
     row = dict(
         requests=len(bodies), answered=len(by_rid), max_new_tokens=max_new,
         prompt_tokens=plen, kv_dtype=eng.kv_dtype, wall_s=wall,
@@ -680,16 +977,206 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
         decode_tok_per_s=gen_tokens / max(stats["decode_s"], 1e-9),
         prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
         decode_steps=steps, paged_decode_launches=launches,
+        fused_sample=fused, fused_sample_launches=fused_launches,
+        fused_sample_steps=stats["fused_sample_steps"],
+        fused_topk_steps=stats["fused_topk_steps"],
+        sampler_fallback_rows=stats["sampler_fallback_rows"],
+        greedy_tokens={r: t for r, t in by_rid.items()
+                       if modes[int(r.split("m")[1])] == "greedy"},
         greedy_group_agreement=agree,
         kv_pool_bytes=metrics["kv_pool_bytes"],
     )
     if prof is not None:
         row["profile"] = device_profile(
-            prof, wall, {"paged_decode": "paged_decode_kernel"})
-    emit(phase=name, **row)
+            prof, wall, {"paged_decode": "paged_decode_kernel",
+                         "fused_sample": "fused_sample_"})
+    emit(phase=name, **{k: v for k, v in row.items() if k != "greedy_tokens"})
     del eng
     torch.cuda.empty_cache()
     return row
+
+
+def fused_determinism(torch, params, cfg):
+    """Two fresh fused engines, the same 8 requests submitted in the same
+    order: the per-step seeds come from the engine's seeded generator and
+    the uniforms are a function of (seed, row, column), so every token,
+    sampled ones included, must come out the same twice."""
+    from areal_tpu_torch.gen.engine import GenerationEngine, GenRequest
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=256).tolist()
+               for _ in range(2)]
+    runs = []
+    for _ in range(2):
+        eng = GenerationEngine(cfg, params, max_slots=8, max_seqlen=512,
+                               page_size=128, seed=0, fused_sample=True,
+                               device="cuda")
+        for g, p in enumerate(prompts):
+            eng.submit(GenRequest(rid=f"g{g}", input_ids=p, max_new_tokens=24,
+                                  greedy=True))
+            eng.submit(GenRequest(rid=f"t{g}", input_ids=p, max_new_tokens=24,
+                                  temperature=1.0))
+            eng.submit(GenRequest(rid=f"p{g}", input_ids=p, max_new_tokens=24,
+                                  top_p=0.9))
+            eng.submit(GenRequest(rid=f"k{g}", input_ids=p, max_new_tokens=8,
+                                  top_k=20))
+        runs.append({o.rid: o.output_ids for o in eng.run_until_done(8)})
+        del eng
+    torch.cuda.empty_cache()
+    if runs[0] != runs[1] or len(runs[0]) != 8:
+        diff = [r for r in runs[0] if runs[0][r] != runs[1].get(r)]
+        raise AssertionError(f"serve_fused: two fused runs differ on {diff}")
+    return len(runs[0])
+
+
+# --------------------------------------------------------------------------- #
+# weight sync: trainer -> committed HF export -> running server
+# --------------------------------------------------------------------------- #
+
+
+def weight_sync_phase(torch):
+    """The third leg of the main path at the 1.5B profile's widths with the
+    depth cut to 2 layers (0.56 B parameters, 2.2 GB of f32 on disk; the
+    full 28 layers would write 7 GB per export). A trainer takes two SFT
+    steps (the schedule's first step has lr 0, so the second is the one
+    that moves the weights), exports with ``save_hf``, and a running
+    server with requests in flight reloads the export through
+    ``POST /update_weights_from_disk``."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model import make_interface
+    from areal_tpu_torch.base import recover
+    from areal_tpu_torch.gen.engine import GenerationEngine, GenRequest
+    from areal_tpu_torch.gen.server import serve
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
+    cfg = dataclasses.replace(qwen_1p5b_cfg(), n_layers=2)
+    train_cfg = dataclasses.replace(cfg, remat_policy="full",
+                                    loss_chunk_size=2048)
+    trainer = TrainEngine(train_cfg, optimizer=OptimizerConfig(lr=1e-4),
+                          device="cuda").init_random(0).setup_optimizer(10)
+    probe = trainer.params["layers"][1]["mlp"]["w_up"].detach().clone()
+    sample = rollout_sample(np.random.default_rng(3), n_prompts=2, group=2,
+                            prompt_len=64, resp_lo=32, resp_hi=96,
+                            vocab=cfg.vocab_size)
+    sft = make_interface("sft")
+    for _ in range(2):
+        st = sft.train_step(trainer, sample, MicroBatchSpec(max_tokens_per_mb=1024))
+        if st["guard/step_ok"] != 1.0 or not np.isfinite(st["loss"]):
+            raise AssertionError(f"weight_sync: bad SFT step {st}")
+    if torch.equal(trainer.params["layers"][1]["mlp"]["w_up"], probe):
+        raise AssertionError("weight_sync: the SFT steps moved no weight")
+    del probe
+    trainer.version = 1
+
+    root = tempfile.mkdtemp(prefix="areal_weight_sync_")
+    srv = None
+    try:
+        path = os.path.join(root, "export")
+        t0 = time.perf_counter()
+        trainer.save_hf(path, "qwen2")
+        export_s = time.perf_counter() - t0
+        manifest = recover.read_manifest(path)
+        if manifest != {"step": 2, "version": 1, "format": "hf"} or (
+                sorted(os.listdir(root)) != ["export"]):
+            raise AssertionError(f"weight_sync: export not committed: "
+                                 f"{manifest} {os.listdir(root)}")
+        nbytes = os.path.getsize(os.path.join(path, "model.safetensors"))
+
+        # the server starts on OTHER weights (seed 1)
+        eng = GenerationEngine(
+            cfg, tfm.init_params(cfg, seed=1, device="cuda",
+                                 dtype=torch.bfloat16),
+            max_slots=8, max_seqlen=2048, page_size=128, seed=0,
+            device="cuda")
+        srv = serve(eng, "127.0.0.1", 0, decode_steps=16)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, size=256).tolist()
+                   for _ in range(4)]
+        bodies = [{"rid": f"inflight{i}", "input_ids": p,
+                   "sampling_params": {"max_new_tokens": 1000, "greedy": True}}
+                  for i, p in enumerate(prompts)]
+        with ThreadPoolExecutor(len(bodies)) as ex:
+            futs = [ex.submit(post, srv.port, "/generate", b) for b in bodies]
+            deadline = time.time() + 120
+            while eng.stats["decode_steps"] < 32:
+                if time.time() > deadline:
+                    raise AssertionError("weight_sync: decode did not start")
+                time.sleep(0.01)
+            before = get(srv.port, "/metrics_json")
+            t0 = time.perf_counter()
+            status, ans = post(srv.port, "/update_weights_from_disk", {
+                "model_path": path, "version": trainer.version,
+                "allow_interrupt": True})
+            reload_s = time.perf_counter() - t0
+            partials = [f.result() for f in futs]
+        after = get(srv.port, "/metrics_json")
+        if status != 200 or not ans.get("success") or (
+                ans.get("num_paused_requests", 0) <= 0):
+            raise AssertionError(f"weight_sync: update answered {status} {ans}")
+        n_partial = 0
+        for body, (st_code, a) in zip(bodies, partials):
+            ok = st_code == 200 and a.get("rid") == body["rid"] and (
+                0 < len(a["output_ids"]) <= 1000)
+            if a.get("finish_reason") == "interrupted":
+                n_partial += 1
+                ok = ok and a.get("version") == 0 and len(a["output_ids"]) < 1000
+            if not ok:
+                raise AssertionError(f"weight_sync: bad partial {str(a)[:300]}")
+        if n_partial != ans["num_paused_requests"]:
+            raise AssertionError(f"weight_sync: {n_partial} partial answers "
+                                 f"for {ans['num_paused_requests']} paused")
+        if before["prefix_pages"] <= 0 or after["prefix_pages"] != 0 or (
+                after["version"] != 1 or after["paused"]
+                or after["n_weight_updates"] != 1):
+            raise AssertionError(f"weight_sync: metrics after the update: "
+                                 f"{after}")
+        # greedy decode after the reload == a fresh engine built from the
+        # trainer's parameters directly (one request at a time on both, so
+        # every batch has the same shape)
+        fresh = GenerationEngine(cfg, trainer.params, max_slots=8,
+                                 max_seqlen=2048, page_size=128, seed=0,
+                                 device="cuda")
+        n_checked = 0
+        for i, p in enumerate(prompts[:2]):
+            _, got = post(srv.port, "/generate", {
+                "rid": f"after{i}", "input_ids": p,
+                "sampling_params": {"max_new_tokens": 32, "greedy": True}})
+            fresh.submit(GenRequest(rid="f", input_ids=p, max_new_tokens=32,
+                                    greedy=True))
+            (want,) = fresh.run_until_done(16)
+            if got["output_ids"] != want.output_ids or got["version"] != 1:
+                raise AssertionError(
+                    f"weight_sync: after the reload {got['output_ids']} != "
+                    f"{want.output_ids} from the trainer's params")
+            n_checked += len(want.output_ids)
+        status, bad = post(srv.port, "/update_weights_from_disk", {
+            "model_path": os.path.join(root, "missing"), "version": 7})
+        final = get(srv.port, "/metrics_json")
+        if bad.get("success") is not False or final["version"] != 1 or (
+                final["paused"]):
+            raise AssertionError(f"weight_sync: a missing path answered "
+                                 f"{bad}; metrics {final}")
+    finally:
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="weight_sync", layers=cfg.n_layers,
+         params=sum(t.numel() for t in tree_leaves(tfm, trainer.params)),
+         export_bytes=nbytes, export_s=export_s, reload_s=reload_s,
+         export_gb_per_s=nbytes / export_s / 1e9,
+         reload_gb_per_s=nbytes / reload_s / 1e9,
+         num_paused_requests=ans["num_paused_requests"],
+         weight_update_s=final["weight_update_s"],
+         weight_load_overlapped_s=final["weight_load_overlapped_s"],
+         greedy_tokens_checked=n_checked, version=final["version"])
+    del trainer, eng, fresh
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -936,8 +1423,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve and train phases with "
                          "torch.profiler and report device time by kernel")
+    ap.add_argument("--kernels", default=",".join(SOURCES),
+                    help="the kernels the build and kernels phases cover "
+                         "(a subset gives no result line)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    args.kernels = tuple(args.kernels.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -946,6 +1437,7 @@ def main(argv=None) -> int:
     try:
         from areal_tpu_torch.ops.cuda import build
         from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+        from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
         from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
     except ImportError as e:
         print(f"chip_smoke: the areal_tpu_torch package is missing: {e}",
@@ -959,23 +1451,27 @@ def main(argv=None) -> int:
 
     if "build" in phases:
         t0 = time.perf_counter()
-        build.load_all(SOURCES)
+        build.load_all(args.kernels)
         emit(phase="build", seconds=time.perf_counter() - t0, sources={
             n: dict(nvcc_seconds=build.build_log[n]["seconds"],
                     ptxas=[ln for ln in build.build_log[n]["ptxas"].splitlines()
                            if "registers" in ln or "spill" in ln])
-            for n in SOURCES
+            for n in args.kernels
         })
-    kern, flash = {}, {}
+    kern, flash, fused = {}, {}, {}
     if "kernels" in phases:
-        kern = kernels_phase(torch)
-        flash = flash_kernels_phase(torch)
+        if "fused_sample" in args.kernels:
+            fused = fused_kernels_phase(torch)
+        if "paged_decode" in args.kernels:
+            kern = kernels_phase(torch)
+        if "flash_attention" in args.kernels:
+            flash = flash_kernels_phase(torch)
     if args.sweep:
         sweep_phase(torch)
     if "parity" in phases:
         parity_phase(torch)
     served = {}
-    if "serve" in phases or "serve_int8" in phases:
+    if any(p in phases for p in ("serve", "serve_fused", "serve_int8")):
         from areal_tpu_torch.models import transformer as tfm
 
         cfg = qwen_1p5b_cfg()
@@ -986,6 +1482,16 @@ def main(argv=None) -> int:
                 torch, "serve", params, cfg, kv_dtype=None, n_prompts=4,
                 group=8, profile=args.profile,
             )
+        if "serve_fused" in phases:
+            n_same = fused_determinism(torch, params, cfg)
+            served["fused"] = serve_phase(
+                torch, "serve_fused", params, cfg, kv_dtype=None, n_prompts=4,
+                group=8, profile=args.profile, fused=True,
+            )
+            emit(phase="serve_fused_summary", deterministic_requests=n_same,
+                 decode_tok_per_s=served["fused"]["decode_tok_per_s"],
+                 unfused_decode_tok_per_s=served.get("bfloat16", {}).get(
+                     "decode_tok_per_s"))
         if "serve_int8" in phases:
             served["int8"] = serve_phase(
                 torch, "serve_int8", params, cfg, kv_dtype="int8",
@@ -993,6 +1499,8 @@ def main(argv=None) -> int:
             )
         del params
         torch.cuda.empty_cache()
+    if "weight_sync" in phases:
+        weight_sync_phase(torch)
     if "train_parity" in phases:
         train_parity_phase(torch)
     trained = train_phase(torch, args.profile) if "train" in phases else {}
@@ -1028,9 +1536,23 @@ def main(argv=None) -> int:
             "bound_by": fcase.get(f"{part}_bound_by"),
             "library_ms": fcase.get(f"library_{part}_ms"),
         })
+    fs = fused.get("slice_bf16", {})
+    kernels.append({
+        "name": "fused_sample",
+        "route": "cuda",
+        "source": cuda_fused.SOURCE,
+        "replaces": cuda_fused.REPLACES,
+        "launches": served.get("fused", {}).get("fused_sample_launches", 0),
+        "max_abs_err": fs.get("max_abs_err"),
+        "ms": fs.get("kernel_ms"),
+        "plain_ms": fs.get("plain_ms"),
+        "bound_ms": fs.get("bound_ms"),
+        "bound_by": fs.get("bound_by"),
+        "library_ms": fs.get("library_ms"),
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
-    if sorted(phases) != sorted(PHASES):
+    if sorted(phases) != sorted(PHASES) or sorted(args.kernels) != sorted(SOURCES):
         print(f"chip_smoke: ran only {phases}; no result", file=sys.stderr)
         return 0
     print(json.dumps({"ok": True, "device": {

@@ -279,3 +279,130 @@ def jsp_row(jsp, i):
         temperature=jsp.temperature[i : i + 1], top_p=jsp.top_p[i : i + 1],
         top_k=jsp.top_k[i : i + 1],
     )
+
+
+# --------------------------------------------------------------------------- #
+# fused sampling epilogue
+# --------------------------------------------------------------------------- #
+
+
+def test_fused_greedy_token_exact_vs_jax_fused_engine(tree, workload,
+                                                      jax_outputs):
+    """Both engines with ``fused_sample=True``: the same greedy tokens,
+    and the unfused engines' tokens too (float32)."""
+    jeng = _jax_engine(tree, fused_sample=True)
+    want = _run(jeng, jax_engine, workload)
+    eng = _pt_engine(tree, fused_sample=True)
+    got = _run(eng, pt_engine, workload)
+    assert eng.fused and jeng.fused
+    for rid, w in want.items():
+        assert got[rid].output_ids == w.output_ids, rid
+        assert got[rid].finish_reason == w.finish_reason, rid
+        np.testing.assert_allclose(got[rid].output_logprobs,
+                                   w.output_logprobs, atol=1e-4)
+        assert got[rid].output_ids == jax_outputs["raw"][0][rid].output_ids
+    assert eng.stats["fused_sample_steps"] == eng.stats["decode_steps"] > 0
+    assert eng.stats["fused_topk_steps"] == 0
+    assert eng.stats["sampler_fallback_rows"] == 0
+
+
+@pytest.mark.parametrize("raw,on", [("1", True), ("true", True), ("on", True),
+                                    ("0", False), ("no", False), ("n", False),
+                                    ("false", False), ("", False)])
+def test_fused_sample_knob(tree, monkeypatch, raw, on):
+    monkeypatch.setenv("AREAL_FUSED_SAMPLE", raw)
+    assert _pt_engine(tree).fused is on
+    assert _jax_engine(tree).fused is on
+    # the explicit argument wins over the knob
+    assert _pt_engine(tree, fused_sample=not on).fused is (not on)
+
+
+def test_fused_sample_knob_default_off(tree, monkeypatch):
+    monkeypatch.delenv("AREAL_FUSED_SAMPLE", raising=False)
+    assert _pt_engine(tree).fused is False
+
+
+def test_fused_mixed_batch_routes_rows_as_the_reference(tree):
+    """greedy / temperature / top-p / top-k 20 / top-k 100 in one batch:
+    the host mirrors match the JAX engine's, top-p and top-k 100 rows count
+    as fallback rows, top-k 20 rides the online buffer, and the greedy
+    request is exact whatever shares its batch."""
+    reqs = [
+        dict(rid="greedy", input_ids=[1, 2, 3, 4], max_new_tokens=8, greedy=True),
+        dict(rid="temp", input_ids=[5, 2, 3, 4], max_new_tokens=8,
+             temperature=0.8),
+        dict(rid="top_p", input_ids=[6, 2, 3, 4], max_new_tokens=8, top_p=0.9),
+        dict(rid="top_k20", input_ids=[7, 2, 3, 4], max_new_tokens=8, top_k=20),
+        dict(rid="top_k100", input_ids=[8, 2, 3, 4], max_new_tokens=8,
+             top_k=100),
+    ]
+    engines = {}
+    for name, mod, make in (("pt", pt_engine, _pt_engine),
+                            ("jax", jax_engine, _jax_engine)):
+        eng = make(tree, max_slots=8, fused_sample=True)
+        for r in reqs:
+            eng.submit(mod.GenRequest(**r))
+        eng.step(decode_steps=STEPS)
+        engines[name] = eng
+    pt, jx = engines["pt"], engines["jax"]
+    for mirror in ("_warp_host", "_fused_warp_host", "_fused_topk_host"):
+        np.testing.assert_array_equal(getattr(pt, mirror),
+                                      getattr(jx, mirror), mirror)
+    by_rid = {s.rid: b for b, s in enumerate(pt._slots) if s is not None}
+    assert [bool(pt._fused_warp_host[by_rid[r["rid"]]]) for r in reqs] == [
+        False, False, True, False, True]
+    assert [bool(pt._fused_topk_host[by_rid[r["rid"]]]) for r in reqs] == [
+        False, False, False, True, False]
+    assert pt.stats["fused_sample_steps"] == STEPS
+    assert pt.stats["fused_topk_steps"] == STEPS
+    assert pt.stats["sampler_fallback_rows"] == 2 * STEPS
+    outs = {o.rid: o for o in pt.run_until_done(decode_steps=STEPS)}
+    assert pt.stats["sampler_fallback_rows"] == 2 * 8
+    assert not pt._fused_warp_host.any() and not pt._fused_topk_host.any()
+    alone = _run(_pt_engine(tree), pt_engine, reqs[:1])
+    assert outs["greedy"].output_ids == alone["greedy"].output_ids
+    for o in outs.values():
+        assert len(o.output_ids) == 8
+        assert np.isfinite(o.output_logprobs).all()
+        assert (np.asarray(o.output_logprobs) <= 1e-6).all()
+    # the same seed draws the same tokens again
+    again = _pt_engine(tree, max_slots=8, fused_sample=True)
+    outs2 = _run(again, pt_engine, reqs)
+    assert {k: v.output_ids for k, v in outs2.items()} == {
+        k: v.output_ids for k, v in outs.items()}
+
+
+def test_fused_top_k_rows_stay_in_their_top_k(tree):
+    """A top-k 2 request under the fused epilogue only ever emits one of
+    the two likeliest tokens of the unfused logits at its position."""
+    eng = _pt_engine(tree, fused_sample=True)
+    out = _run(eng, pt_engine, [dict(rid="k", input_ids=[9, 8, 7, 6, 5],
+                                     max_new_tokens=12, top_k=2)])["k"]
+    cfg = PtConfig(**CFG_KW)
+    params = pt_tfm.params_from_numpy(tree, device="cpu")
+    ids = [9, 8, 7, 6, 5] + out.output_ids
+    t = torch.tensor(ids)
+    logits = pt_tfm.forward_packed(
+        params, cfg, t, torch.ones(len(ids), dtype=torch.int32),
+        torch.arange(len(ids), dtype=torch.int32), remat=False)
+    for i, tok in enumerate(out.output_ids):
+        top2 = torch.topk(logits[4 + i], 2).indices.tolist()
+        assert tok in top2, (i, tok, top2)
+
+
+def test_fused_pause_resume_keeps_the_prefix(tree, workload, jax_outputs):
+    req = next(r for r in workload if r["rid"] == "plain")
+    ref = jax_outputs["raw"][0]["plain"].output_ids
+    eng = _pt_engine(tree, fused_sample=True)
+    eng.submit(pt_engine.GenRequest(**req))
+    eng.step(decode_steps=STEPS)
+    (part,) = eng.pause()
+    got = part.output_ids
+    assert part.finish_reason == "interrupted" and got == ref[: len(got)]
+    eng.resume()
+    eng.submit(pt_engine.GenRequest(
+        rid="plain2", input_ids=req["input_ids"] + got,
+        max_new_tokens=req["max_new_tokens"] - len(got), greedy=True,
+    ))
+    rest = eng.run_until_done(decode_steps=STEPS)
+    assert got + rest[0].output_ids == ref

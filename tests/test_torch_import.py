@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``areal_tpu_torch`` module (and
-``chip_smoke.py``) loads neither ``jax`` nor ``areal_tpu``; no source line
+``chip_smoke.py``) loads neither ``jax`` nor ``areal_tpu`` (nor
+``safetensors`` or ``triton``, which the card's machine need not have); no source line
 imports them; entry points refuse to fall back to the CPU; the kernel
 build raises when the toolchain is missing.
 
@@ -37,9 +38,15 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "areal_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "areal_tpu",
+                                    "safetensors", "triton"))
 print(len(names), bad)
 assert not bad, bad
+for n in ("areal_tpu_torch.ops.fused_sample",
+          "areal_tpu_torch.ops.cuda.fused_sample",
+          "areal_tpu_torch.base.safetensors_io",
+          "areal_tpu_torch.base.recover", "areal_tpu_torch.models.hf"):
+    assert n in names, n
 """
 
 
@@ -50,7 +57,7 @@ def test_importing_the_port_loads_no_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 15, r.stdout
+    assert n_modules >= 20, r.stdout
 
 
 _FORBIDDEN = re.compile(
@@ -98,10 +105,18 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_chip_smoke_builds_every_cuda_source():
+    import chip_smoke
+
+    sources = {p.stem for p in (PORT / "csrc").glob("*.cu")}
+    assert set(chip_smoke.SOURCES) == sources and len(sources) == 3
+
+
 def test_every_cuda_source_is_named_by_a_wrapper():
     sources = {p.stem for p in (PORT / "csrc").glob("*.cu")}
-    assert sources == {"paged_decode", "flash_attention"}
+    assert sources == {"paged_decode", "flash_attention", "fused_sample"}
     for name, wrapper in (("paged_decode", "paged_attention.py"),
-                          ("flash_attention", "flash_attention.py")):
+                          ("flash_attention", "flash_attention.py"),
+                          ("fused_sample", "fused_sample.py")):
         text = (PORT / "ops" / "cuda" / wrapper).read_text()
         assert f'build.load("{name}")' in text

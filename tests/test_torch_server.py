@@ -104,7 +104,34 @@ def test_concurrent_requests_health_and_metrics(server):
     assert m["max_slots"] == 2 and m["slot_capacity"] == 128
     assert m["kv_dtype"] == "float32" and m["engine_admitted"] == 5
     assert m["pages_free"] + m["prefix_pages"] == m["pages_total"]
+    assert m["fused_sample"] is False and m["engine_fused_sample_steps"] == 0
+    assert m["n_weight_updates"] == 0
     assert _call(server.port, "/nope")[0] == 404
+
+
+def test_metrics_show_the_fused_sampler(monkeypatch):
+    monkeypatch.setenv("AREAL_FUSED_SAMPLE", "1")
+    srv = pt_server.serve(_engine(), "127.0.0.1", 0, decode_steps=4)
+    try:
+        bodies = [
+            {"rid": "g", "input_ids": [3, 1, 4, 1, 5],
+             "sampling_params": {"max_new_tokens": 6, "greedy": True}},
+            {"rid": "p", "input_ids": [2, 7, 1, 8],
+             "sampling_params": {"max_new_tokens": 6, "top_p": 0.8}},
+        ]
+        answers = [_call(srv.port, "/generate", b) for b in bodies]
+        status, m = _call(srv.port, "/metrics_json")
+    finally:
+        srv.stop()
+    assert all(s == 200 and len(a["output_ids"]) == 6 for s, a in answers)
+    assert m["fused_sample"] is True
+    assert m["engine_fused_sample_steps"] == m["engine_decode_steps"] > 0
+    assert m["engine_sampler_fallback_rows"] > 0
+    monkeypatch.delenv("AREAL_FUSED_SAMPLE")
+    eng = _engine()
+    eng.submit(pt_engine.GenRequest(rid="g", input_ids=[3, 1, 4, 1, 5],
+                                    max_new_tokens=6, greedy=True))
+    assert answers[0][1]["output_ids"] == eng.run_until_done(4)[0].output_ids
 
 
 @pytest.fixture
