@@ -9,12 +9,20 @@ decode_plain``; ``paged_decode_attention`` there picks one of the two by
 the tensors' device. Nothing falls back from the kernel to the plain
 version.
 
-``launches`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+The kernel splits each slot's table into runs of ``pages_per_split``
+pages (``plan``: the grid follows from the table width alone, never from
+``lens``, so a launch needs no host sync), writes one f32 partial per
+split into a workspace this wrapper allocates, and merges the splits in
+the same launch through a per-(slot, kv head) arrival counter. The
+counters live in a zeroed int32 buffer kept per device (``counters``);
+every launch leaves them at 0.
+
+``launches`` counts wrapper calls that launched the kernel, so a run can
+show that its main path went through it.
 """
 
 import ctypes
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -24,10 +32,44 @@ SOURCE = "areal_tpu_torch/csrc/paged_decode.cu"
 REPLACES = "areal_tpu/ops/pallas/paged_attention.py:291"
 MAX_REP = 16   # query heads per kv head the kernel holds (kMaxRep)
 MAX_D = 256    # largest head dim (kMaxD)
+SPLIT_TOKENS = 256   # default split: this many positions' worth of pages
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 launches = 0
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+class SplitPlan(NamedTuple):
+    pages_per_split: int
+    n_splits: int
+
+
+def plan(width: int, page: int,
+         pages_per_split: Optional[int] = None) -> SplitPlan:
+    """How the kernel (and ``decode_plain``'s split mirror) cuts a table of
+    ``width`` columns: split ``s`` takes columns ``[s * pages_per_split,
+    min((s + 1) * pages_per_split, width))``. The default puts
+    ``SPLIT_TOKENS`` positions in a split (two pages at page 128); a split
+    never holds more columns than the table has. Depends on host integers
+    only."""
+    if pages_per_split is None:
+        pages_per_split = max(1, SPLIT_TOKENS // page)
+    if pages_per_split < 1 or width < 1 or page < 1:
+        raise ValueError(f"paged decode: no split plan for width {width}, "
+                         f"page {page}, {pages_per_split} pages per split")
+    pages_per_split = min(int(pages_per_split), width)
+    return SplitPlan(pages_per_split, -(-width // pages_per_split))
+
+
+def counters(device: torch.device, n: int = 0) -> torch.Tensor:
+    """The device's arrival counters (int32 zeros), grown to hold ``n``."""
+    device = torch.device(device)
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def reset_launches() -> None:
@@ -41,7 +83,7 @@ def _kernel():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.restype = i32
         fn.argtypes = (
-            [i32, i32] + [ptr] * 8 + [i32] * 9
+            [i32, i32] + [ptr] * 10 + [i32] * 11
             + [ctypes.c_float, ctypes.c_float, i32, ptr]
         )
     return fn
@@ -91,8 +133,9 @@ def _check(q, k_self, v_self, pages, layer, table, lens, scales):
         raise ValueError(f"paged decode: a pool row of {D} x "
                          f"{pages.dtype} is not a whole number of 16-byte "
                          "chunks (int8 pools need D % 16 == 0)")
-    if pages.data_ptr() % 16:
-        raise ValueError("paged decode: the pool must be 16-byte aligned")
+    if pages.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("paged decode: q and the pool must be 16-byte "
+                         "aligned")
     if Hq % Hkv or Hq // Hkv > MAX_REP:
         raise ValueError(f"paged decode: {Hq} query heads over {Hkv} kv "
                          f"heads (need a multiple, at most {MAX_REP} each)")
@@ -123,6 +166,7 @@ def decode(
     soft_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     scales: Optional[torch.Tensor] = None,  # [L, P, 2, Hkv, page] f32
+    pages_per_split: Optional[int] = None,  # see ``plan``
 ) -> torch.Tensor:
     """Attention of one new token per slot over its pages plus itself, on
     the card. Returns ``[B, Hq, D]`` in q's dtype."""
@@ -135,13 +179,21 @@ def decode(
     _, P, _, Hkv, page, _ = pages.shape
     if softmax_scale is None:
         softmax_scale = D ** -0.5
+    width = table.shape[1]
+    sp = plan(width, page, pages_per_split)
     out = torch.empty_like(q)
+    # split partials: acc [B, Hkv, n_splits, n_rep, D], then (m, l)
+    work = torch.empty(B * Hq * sp.n_splits * (D + 2), dtype=torch.float32,
+                       device=q.device)
+    arrivals = counters(q.device, B * Hkv)
     rc = _kernel()(
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[pages.dtype],
         q.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
         pages.data_ptr(), scales.data_ptr() if scales is not None else None,
-        table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        layer, B, Hq, Hkv, D, P, page, table.shape[1], table.stride(0),
+        table.data_ptr(), lens.data_ptr(), out.data_ptr(), work.data_ptr(),
+        arrivals.data_ptr(),
+        layer, B, Hq, Hkv, D, P, page, width, table.stride(0),
+        sp.pages_per_split, sp.n_splits,
         float(softmax_scale), float(soft_cap or 0.0),
         int(sliding_window or 0),
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -93,14 +93,22 @@ def decode_plain(
     soft_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     scales: Optional[torch.Tensor] = None,
+    pages_per_split: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of the paged-decode kernel
     (``ops/cuda/paged_attention.py::decode``), as the JAX package's XLA
     branch (``areal_tpu/ops/paged_attention.py:188-218``): gather the slots'
     pages into contiguous views (dequantized for an int8 pool), masked
-    softmax over ``[0, lens)`` merged with the always-attended self token."""
+    softmax over ``[0, lens)`` merged with the always-attended self token.
+
+    ``pages_per_split`` mirrors the kernel's arithmetic instead of one
+    pass: per-split partials ``(m, l, acc)`` under the kernel's split plan
+    (``cuda_paged.plan``); the splits with a visible position are rescaled
+    to their common max and summed in split order (an empty split, with
+    its sentinel max and zero sum, takes no part), then the self token
+    folds in with the kernel's sentinel guard."""
     B, H, D = q.shape
-    Hkv = pages.shape[3]
+    Hkv, page = pages.shape[3], pages.shape[4]
     n_rep = H // Hkv
     if softmax_scale is None:
         softmax_scale = D ** -0.5
@@ -121,15 +129,42 @@ def decode_plain(
         mask &= pos > lens[:, None] - sliding_window
     mask = mask[:, None, None]
     s_pool = torch.where(mask, s_pool, NEG_INF)
-    m = torch.maximum(s_pool.amax(-1), s_self)           # [B, Hkv, r]
-    p_pool = torch.where(mask, torch.exp(s_pool - m[..., None]), 0.0)
-    p_self = torch.exp(s_self - m)
-    denom = p_pool.sum(-1) + p_self
-    acc = torch.einsum(
-        "bgrs,bsgd->bgrd", p_pool.to(v.dtype).float(), v.float()
-    ) + p_self[..., None] * v_self[:, :, None].float()
-    out = acc / denom[..., None]
-    return out.reshape(B, H, D).to(q.dtype)
+    if pages_per_split is None:
+        m = torch.maximum(s_pool.amax(-1), s_self)       # [B, Hkv, r]
+        p_pool = torch.where(mask, torch.exp(s_pool - m[..., None]), 0.0)
+        p_self = torch.exp(s_self - m)
+        denom = p_pool.sum(-1) + p_self
+        acc = torch.einsum(
+            "bgrs,bsgd->bgrd", p_pool.to(v.dtype).float(), v.float()
+        ) + p_self[..., None] * v_self[:, :, None].float()
+        return (acc / denom[..., None]).reshape(B, H, D).to(q.dtype)
+
+    plan = cuda_paged.plan(table.shape[1], page, pages_per_split)
+    step = plan.pages_per_split * page
+    parts = []                                           # (live, m, l, acc)
+    for lo in range(0, S, step):
+        s_sp, mk = s_pool[..., lo:lo + step], mask[..., lo:lo + step]
+        m_sp = s_sp.amax(-1)                             # NEG_INF if empty
+        p = torch.where(mk, torch.exp(s_sp - m_sp[..., None]), 0.0)
+        acc_sp = torch.einsum("bgrs,bsgd->bgrd", p.to(v.dtype).float(),
+                              v[:, lo:lo + step].float())
+        parts.append((mk.any(-1), m_sp, p.sum(-1), acc_sp))
+    # live splits against their common max, summed in split order
+    m = torch.full_like(s_self, NEG_INF)
+    for live, m_sp, _, _ in parts:
+        m = torch.where(live, torch.maximum(m, m_sp), m)
+    l = torch.zeros_like(s_self)
+    acc = torch.zeros(B, Hkv, n_rep, D, device=q.device)
+    for live, m_sp, l_sp, acc_sp in parts:
+        w = torch.where(live, torch.exp(m_sp - m), 0.0)
+        l = l + l_sp * w
+        acc = acc + acc_sp * w[..., None]
+    m_new = torch.maximum(m, s_self)
+    corr = torch.exp(torch.where(m > NEG_INF / 2, m - m_new, 0.0))
+    p_self = torch.exp(s_self - m_new)
+    l = l * corr + p_self
+    acc = acc * corr[..., None] + p_self[..., None] * v_self[:, :, None].float()
+    return (acc / l[..., None]).reshape(B, H, D).to(q.dtype)
 
 
 def paged_extend_attention(

@@ -11,11 +11,21 @@ Phases, each printing one JSON line:
    against its plain PyTorch version on the same inputs, timing the
    kernel, the plain version and one PyTorch library call with CUDA
    events beside the least time the card could take.
-   - paged decode, at the serving path's shape (B 64, Hq 12, Hkv 2, D 128,
-     page 128, table width 16, L 28, lens over [0, 2047]) in bf16 and
-     int8, and at small shapes in f32 and bf16 with soft cap, sliding
-     window, GQA groups of 1 and 8, a narrowed table and D 48; library:
-     SDPA over K/V already gathered dense.
+   - paged decode, at the slice shape (B 64, Hq 12, Hkv 2, D 128, page
+     128, table width 16, L 28, lens over [0, 2047]) and at the serve
+     phase's own shape (B 32, lens 1024-1151 in four groups of 8) in bf16
+     and int8 (timed), one 2047-token slot among 63 empty ones, splits of
+     3 pages, and at small shapes in f32 and bf16 with soft cap, sliding
+     window, GQA groups of 1, 6 and 8, a narrowed table, D 40 and 48 and
+     splits of 2 and 3 pages, D 256 (f32: one staging buffer), and V
+     scales of ~1e-5 over long slots; each case is held against the plain
+     version and against its mirror of the kernel's split arithmetic
+     (``decode_plain(pages_per_split=)``), launched twice (the results
+     must be bit-identical), and the merge's arrival counters must read 0
+     afterwards; timed as CUDA-event time of eager calls (the kernel rows'
+     yardstick) and as device time in a CUDA graph, beside the wrapper's
+     host time; library: SDPA over K/V already gathered dense (the gather
+     is not timed), both ways.
    - fused LM-head sampler, at the serving path's shape (R 32, E 1536,
      V 151936, bf16, half the rows greedy, temperatures 0.7 / 1 / 1.3)
      and at small shapes in f32 and bf16 with soft cap, V 500 / 50257 /
@@ -82,9 +92,13 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
 # and differ only in summation order. bf16 queries (bf16 or int8 pool):
 # both sides round the output to bf16, so they may differ by one bf16 ulp
 # of the larger of the two (rtol 2^-7; atol covers the step where the two
-# straddle a power of two); the plain version also rounds P to bf16
-# before PV, as the reference does, where the kernel keeps P in f32 (atol
-# 2e-3 for outputs near zero). Output scale at the slice shape: q and K ~
+# straddle a power of two, and outputs near zero). Inside, both round P to
+# bf16 before PV over a bf16 pool, as the reference does; over an int8
+# pool the plain version keeps P times the V scale in f32 and the kernel
+# rounds it to f16 after a power-of-two rescale (11 significant bits).
+# Cases with small V scales compare outputs divided by the power of two
+# the scales and v_self were multiplied by (exact), so atol keeps its
+# meaning. Output scale at the slice shape: q and K ~
 # N(0, 1) give N(0, 1) scores, so a slot with n resident tokens outputs
 # values of about sqrt(e / n), ~0.04 at the long slots and O(1) only at
 # the short ones; the limit there is ~2.3e-3. On an H100 every difference
@@ -114,16 +128,65 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters):
+    """Host time (ms) per eager call, without waiting for the device: what
+    a caller that only enqueues pays for the wrapper."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
+def graph_ms(fns, reps=3):
+    """Device time (ms) per call of a sequence of calls, captured once in a
+    CUDA graph and replayed ``reps`` times: the host's enqueue cost (the
+    wrapper's checks, ctypes) is left out, which event timing of eager
+    calls cannot do once a kernel is faster than its wrapper."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns[:3]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * len(fns))
+    del graph
+    return ms
+
+
 # --------------------------------------------------------------------------- #
 # kernels
 # --------------------------------------------------------------------------- #
 
 
 def make_decode_inputs(torch, *, B, Hq, Hkv, D, page, W, L, dtype, quant,
-                       lens, seed, table_pad=0, soft_cap=None, window=None):
+                       lens, seed, table_pad=0, soft_cap=None, window=None,
+                       v_unit=1.0):
     """Random decode operands on the card: pages in permuted order, each
     slot owning W pages; ``table_pad`` extra columns make the table a
-    narrowed view with a wider row stride, as the engine passes it."""
+    narrowed view with a wider row stride, as the engine passes it. An
+    int8 pool's V scales and ``v_self`` are multiplied by ``v_unit`` (a
+    power of two), which multiplies the output by it exactly."""
     dev = "cuda"
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -138,6 +201,8 @@ def make_decode_inputs(torch, *, B, Hq, Hkv, D, page, W, L, dtype, quant,
                               dtype=torch.int8)
         scales = 0.002 + 0.02 * torch.rand(shape[:-1], generator=g,
                                            device=dev)
+        scales[:, :, 1] *= v_unit
+        v_self = v_self * v_unit
     else:
         pages = torch.randn(shape, generator=g, device=dev).to(qdt)
         scales = None
@@ -198,6 +263,55 @@ def sdpa_call(torch, x):
                                                   **kw)
 
 
+# the paged-decode kernel's timed shapes: the slice (64 slots, lens over
+# [0, 2047], lens[0] == 0) and the serve phase's own (32 slots, 4 GRPO
+# groups of 8 equal lens)
+DECODE_SLICE = dict(B=64, Hq=12, Hkv=2, D=128, page=128, W=16, L=28,
+                    lens=np.linspace(0, 2047, 64).astype(np.int64))
+DECODE_SERVE = dict(DECODE_SLICE, B=32, lens=np.repeat(
+    np.linspace(1024, 1151, 4).astype(np.int64), 8))
+
+
+def decode_calls(torch, cuda_paged, x, pps, n):
+    """``n`` kernel calls on ``x``'s operands, layer by layer through the
+    pool (wrapping around)."""
+    a = (x["q"], x["k_self"], x["v_self"], x["pages"])
+    kw = dict(soft_cap=x["soft_cap"], sliding_window=x["sliding_window"],
+              scales=x["scales"])
+    if pps is not None:
+        kw["pages_per_split"] = pps
+    n_layers = x["pages"].shape[0]
+    return [lambda i=i: cuda_paged.decode(*a, i % n_layers, x["table"],
+                                           x["lens"], **kw)
+            for i in range(n)]
+
+
+def time_decode(torch, x, launch, calls):
+    """The timed paged-decode numbers on ``x``: ``kernel_ms``, CUDA events
+    around 50 eager calls on the same inputs (the yardstick of every
+    kernel row; the wrapper's host time is inside it once the kernel is
+    the shorter of the two); ``device_ms``, the device time of
+    ``calls`` (calls walking the pool's layers) captured in a CUDA graph;
+    ``host_ms``, the wrapper's host time alone; the library call (SDPA over
+    K/V gathered before timing) both ways, ``library_device_ms`` over four
+    layers' K/V in turn so that each call, like the kernel's, finds its
+    K/V cold in L2; and the bound."""
+    row = {"kernel_ms": cuda_ms(launch, 50),
+           "device_ms": graph_ms(calls),
+           "host_ms": host_ms(launch, 50),
+           "library_ms": cuda_ms(sdpa_call(torch, x), 20)}
+    n_layers = min(4, x["pages"].shape[0])
+    sdpa = [sdpa_call(torch, dict(x, layer=x["layer"] - i))
+            for i in range(n_layers)]
+    row["library_device_ms"] = graph_ms(sdpa * (20 // n_layers))
+    del sdpa
+    row["bound_ms"], row["bound_by"] = decode_bound(torch, x)
+    pages = x["pages"]
+    row["kv_bytes"] = int(x["lens"].long().sum()) * pages.shape[3] \
+        * pages.shape[5] * 2 * pages.element_size()
+    return row
+
+
 def kernels_phase(torch):
     from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
     from areal_tpu_torch.ops.paged_attention import decode_plain
@@ -210,64 +324,164 @@ def kernels_phase(torch):
         return (x["q"], x["k_self"], x["v_self"], x["pages"], x["layer"],
                 x["table"], x["lens"])
 
-    B = 64
-    slice_lens = np.linspace(0, 2047, B).astype(np.int64)  # lens[0] == 0
-    slice_shape = dict(B=B, Hq=12, Hkv=2, D=128, page=128, W=16, L=28,
-                       lens=slice_lens)
+    slice_shape, serve_shape = DECODE_SLICE, DECODE_SERVE
+    one_long = dict(slice_shape, lens=[0] * 31 + [2047] + [0] * 32)
     small = dict(B=8, Hq=4, Hkv=2, D=64, page=16, W=8, L=2,
                  lens=[0, 1, 15, 16, 17, 64, 100, 127])
+    # V scales of ~1e-5: P times the scale far below f16's normal range
+    small_v = 2.0 ** -10
+    # (name, inputs, timed, pages per split: None = the wrapper's default)
     cases = [
-        ("slice_bf16", dict(slice_shape, dtype="bfloat16", quant=False), True),
-        ("slice_int8", dict(slice_shape, dtype="bfloat16", quant=True), True),
-        ("f32", dict(small, dtype="float32", quant=False), False),
+        ("slice_bf16", dict(slice_shape, dtype="bfloat16", quant=False), True,
+         None),
+        ("slice_int8", dict(slice_shape, dtype="bfloat16", quant=True), True,
+         None),
+        ("serve_bf16", dict(serve_shape, dtype="bfloat16", quant=False), True,
+         None),
+        ("serve_int8", dict(serve_shape, dtype="bfloat16", quant=True), True,
+         None),
+        ("one_long_bf16", dict(one_long, dtype="bfloat16", quant=False),
+         False, None),
+        ("one_long_int8", dict(one_long, dtype="bfloat16", quant=True),
+         False, None),
+        ("slice_bf16_split3", dict(slice_shape, dtype="bfloat16",
+                                   quant=False), False, 3),
+        ("f32", dict(small, dtype="float32", quant=False), False, None),
         ("f32_soft_cap", dict(small, dtype="float32", quant=False,
-                              soft_cap=5.0), False),
+                              soft_cap=5.0), False, None),
         ("f32_window", dict(small, dtype="float32", quant=False,
-                            window=20), False),
-        ("f32_rep1", dict(small, Hq=2, dtype="float32", quant=False), False),
-        ("f32_rep8", dict(small, Hq=16, dtype="float32", quant=False), False),
+                            window=20), False, None),
+        ("f32_rep1", dict(small, Hq=2, dtype="float32", quant=False), False,
+         None),
+        ("f32_rep8", dict(small, Hq=16, dtype="float32", quant=False), False,
+         None),
         ("f32_narrow_table", dict(small, dtype="float32", quant=False,
-                                  table_pad=5), False),
+                                  table_pad=5), False, None),
         ("f32_int8_d48", dict(small, D=48, dtype="float32", quant=True),
-         False),
+         False, None),
+        ("f32_split3_window", dict(small, dtype="float32", quant=False,
+                                   window=40), False, 3),
         ("bf16_cap_window", dict(small, dtype="bfloat16", quant=False,
-                                 soft_cap=30.0, window=40), False),
+                                 soft_cap=30.0, window=40), False, None),
         ("bf16_int8_window", dict(small, dtype="bfloat16", quant=True,
-                                  window=33), False),
+                                  window=33), False, None),
+        ("bf16_int8_split2_d64", dict(small, dtype="bfloat16", quant=True,
+                                      table_pad=3), False, 2),
+        ("bf16_d40_rep6", dict(small, Hq=12, D=40, dtype="bfloat16",
+                               quant=False), False, None),
+        ("slice_int8_small_v", dict(slice_shape, dtype="bfloat16",
+                                    quant=True, v_unit=small_v), False, None),
+        # D 256 (the kernels' widest instantiation); f32 stages one buffer
+        ("bf16_d256_rep6", dict(small, Hq=12, D=256, dtype="bfloat16",
+                                quant=False, window=40), False, None),
+        ("bf16_int8_d256_rep4", dict(small, Hq=8, D=256, dtype="bfloat16",
+                                     quant=True), False, 3),
+        ("f32_d256_rep4", dict(small, Hq=8, D=256, dtype="float32",
+                               quant=False), False, None),
+        ("f32_d256_split3_cap", dict(small, Hq=8, D=256, dtype="float32",
+                                     quant=False, soft_cap=5.0), False, 3),
     ]
     results = {}
-    for i, (name, spec, timed) in enumerate(cases):
+    for i, (name, spec, timed, pps) in enumerate(cases):
         x = make_decode_inputs(torch, seed=100 + i, **spec)
-        got = cuda_paged.decode(*args(x), **kw(x))
-        want = decode_plain(*args(x), **kw(x))
+        unit = spec.get("v_unit", 1.0)
+        sp = cuda_paged.plan(x["table"].shape[1], x["pages"].shape[4], pps)
+
+        def launch():
+            return cuda_paged.decode(*args(x), **kw(x), pages_per_split=pps)
+
+        got = launch()
+        # the plain version in one pass, and its mirror of the kernel's
+        # split arithmetic under the same plan
+        wants = {"plain": decode_plain(*args(x), **kw(x)),
+                 "split_mirror": decode_plain(
+                     *args(x), **kw(x), pages_per_split=sp.pages_per_split)}
         torch.cuda.synchronize()
         atol, rtol = TOL[spec["dtype"]]
-        diff = (got.float() - want.float()).abs()
-        over = (diff / (atol + rtol * want.float().abs())).max().item()
-        err = diff.max().item()
-        if not (np.isfinite(over) and over <= 1.0):
-            raise AssertionError(
-                f"paged_decode {name}: |kernel - plain| reaches {over} x "
-                f"(atol {atol} + rtol {rtol} |plain|); max abs err {err}"
-            )
-        row = {"max_abs_err": err, "atol": atol, "rtol": rtol,
-               "err_over_tol": over,
-               "plain_rms": want.float().pow(2).mean().sqrt().item()}
+        row = {}
+        for ref, want in wants.items():
+            diff = (got.float() - want.float()).abs() / unit
+            over = (diff / (atol + rtol * want.float().abs() / unit)).max()
+            over, err = over.item(), diff.max().item()
+            if not (np.isfinite(over) and over <= 1.0):
+                raise AssertionError(
+                    f"paged_decode {name}: |kernel - {ref}| reaches {over} x "
+                    f"(atol {atol} + rtol {rtol} |{ref}|); max abs err {err}"
+                )
+            key = "" if ref == "plain" else ref + "_"
+            row[key + "max_abs_err"] = err
+            row[key + "err_over_tol"] = over
+        want = wants["plain"]
+        # the merge is deterministic and leaves its arrival counters at 0
+        again = launch()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"paged_decode {name}: two launches on the "
+                                 "same inputs differ")
+        n_live = x["q"].shape[0] * x["pages"].shape[3]
+        if int(cuda_paged.counters(got.device)[:n_live].abs().sum()) != 0:
+            raise AssertionError(f"paged_decode {name}: arrival counters "
+                                 "not 0 after a launch")
+        row.update({"atol": atol, "rtol": rtol, "bit_identical_rerun": True,
+                    "counters_zero": True, "pages_per_split":
+                    sp.pages_per_split, "plain_rms":
+                    (want.float() / unit).pow(2).mean().sqrt().item()})
+        if unit != 1.0:
+            row["compared_in_units_of"] = unit
         if timed:
-            row["kernel_ms"] = cuda_ms(lambda: cuda_paged.decode(*args(x), **kw(x)), 50)
+            row.update(time_decode(torch, x, launch, decode_calls(
+                torch, cuda_paged, x, pps, 56)))
             row["plain_ms"] = cuda_ms(
                 lambda: decode_plain(*args(x), **kw(x)), 10
             )
-            row["library_ms"] = cuda_ms(sdpa_call(torch, x), 20)
-            row["bound_ms"], row["bound_by"] = decode_bound(torch, x)
-            pages = x["pages"]
-            row["kv_bytes"] = int(x["lens"].long().sum()) * pages.shape[3] \
-                * pages.shape[5] * 2 * pages.element_size()
         results[name] = row
         del x
     torch.cuda.empty_cache()
     emit(phase="kernels", kernel="paged_decode", cases=results)
     return results
+
+
+def decode_time_phase(torch):
+    """The timed paged-decode cases alone, through the wrapper's public
+    signature only, so that the same script times any version of the
+    package (``--package``): two versions compare in one call, on one
+    yardstick. Each case is checked against the package's plain version
+    first."""
+    import hashlib
+    import pathlib
+
+    from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
+    from areal_tpu_torch.ops.paged_attention import decode_plain
+
+    src = pathlib.Path(cuda_paged.__file__).parents[2] / "csrc" / \
+        "paged_decode.cu"
+    rows = {}
+    for i, (name, shape, quant) in enumerate((
+            ("slice_bf16", DECODE_SLICE, False),
+            ("slice_int8", DECODE_SLICE, True),
+            ("serve_bf16", DECODE_SERVE, False),
+            ("serve_int8", DECODE_SERVE, True))):
+        x = make_decode_inputs(torch, seed=100 + i, dtype="bfloat16",
+                               quant=quant, **shape)
+        a = (x["q"], x["k_self"], x["v_self"], x["pages"], x["layer"],
+             x["table"], x["lens"])
+
+        def launch():
+            return cuda_paged.decode(*a, scales=x["scales"])
+
+        got, want = launch(), decode_plain(*a, scales=x["scales"])
+        atol, rtol = TOL["bfloat16"]
+        diff = (got.float() - want.float()).abs()
+        over = (diff / (atol + rtol * want.float().abs())).max().item()
+        if not (np.isfinite(over) and over <= 1.0):
+            raise AssertionError(f"paged_decode {name}: {over} x its limit")
+        rows[name] = dict(err_over_tol=over, **time_decode(
+            torch, x, launch, decode_calls(torch, cuda_paged, x, None, 56)))
+        del x
+    torch.cuda.empty_cache()
+    emit(phase="decode_time", package=str(src.parents[2]),
+         source_sha256=hashlib.sha256(src.read_bytes()).hexdigest()[:16],
+         cases=rows)
 
 
 # --------------------------------------------------------------------------- #
@@ -734,8 +948,11 @@ def fused_kernels_phase(torch):
 
 
 def sweep_phase(torch):
-    """Paged-decode time against pages per slot at the serving widths:
-    one slot alone (the kernel's critical path) and all 64 slots equal."""
+    """Paged-decode time against pages per slot at the serving widths: one
+    slot alone (the kernel's critical path) and all 64 slots equal, as
+    CUDA-event time of eager calls (``kernel_ms``, the kernel rows'
+    yardstick) and as device time (``device_ms``, see ``time_decode``);
+    then device time against pages per split."""
     from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
 
     rows = []
@@ -745,11 +962,22 @@ def sweep_phase(torch):
             x = make_decode_inputs(torch, B=64, Hq=12, Hkv=2, D=128,
                                    page=128, W=16, L=28, dtype="bfloat16",
                                    quant=False, lens=lens, seed=7)
-            args = (x["q"], x["k_self"], x["v_self"], x["pages"], x["layer"],
-                    x["table"], x["lens"])
+            calls = decode_calls(torch, cuda_paged, x, None, 56)
             rows.append({"pages_per_slot": pages, "slots": label,
-                         "kernel_ms": cuda_ms(lambda: cuda_paged.decode(*args),
-                                              30)})
+                         "kernel_ms": cuda_ms(calls[-1], 30),
+                         "device_ms": graph_ms(calls)})
+            del x
+    # pages per split (the wrapper's default is 2 at page 128) at the slice
+    # shape and the serve phase's shape, both pools
+    for label, shape in (("slice", DECODE_SLICE), ("serve", DECODE_SERVE)):
+        for quant in (False, True):
+            x = make_decode_inputs(torch, dtype="bfloat16", quant=quant,
+                                   seed=7, **shape)
+            for pps in (1, 2, 4):
+                rows.append({"shape": label, "pool": "int8" if quant else
+                             "bfloat16", "pages_per_split": pps,
+                             "device_ms": graph_ms(decode_calls(
+                                 torch, cuda_paged, x, pps, 56))})
             del x
     torch.cuda.empty_cache()
     emit(phase="sweep", kernel="paged_decode", rows=rows)
@@ -988,7 +1216,7 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
     )
     if prof is not None:
         row["profile"] = device_profile(
-            prof, wall, {"paged_decode": "paged_decode_kernel",
+            prof, wall, {"paged_decode": "paged_decode_split_kernel",
                          "fused_sample": "fused_sample_"})
     emit(phase=name, **{k: v for k, v in row.items() if k != "greedy_tokens"})
     del eng
@@ -1426,9 +1654,17 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default=",".join(SOURCES),
                     help="the kernels the build and kernels phases cover "
                          "(a subset gives no result line)")
+    ap.add_argument("--package", default=None,
+                    help="import areal_tpu_torch from this directory (e.g. "
+                         "an unpacked earlier commit) instead of the "
+                         "script's; with the extra phase decode_time, two "
+                         "versions of the paged-decode kernel are timed "
+                         "alike")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     args.kernels = tuple(args.kernels.split(","))
+    if args.package:
+        sys.path.insert(0, args.package)
     import torch
 
     if not torch.cuda.is_available():
@@ -1454,8 +1690,10 @@ def main(argv=None) -> int:
         build.load_all(args.kernels)
         emit(phase="build", seconds=time.perf_counter() - t0, sources={
             n: dict(nvcc_seconds=build.build_log[n]["seconds"],
-                    ptxas=[ln for ln in build.build_log[n]["ptxas"].splitlines()
-                           if "registers" in ln or "spill" in ln])
+                    ptxas=[ln.strip() for ln in
+                           build.build_log[n]["ptxas"].splitlines()
+                           if "registers" in ln or "spill" in ln
+                           or "Function properties" in ln])
             for n in args.kernels
         })
     kern, flash, fused = {}, {}, {}
@@ -1466,6 +1704,8 @@ def main(argv=None) -> int:
             kern = kernels_phase(torch)
         if "flash_attention" in args.kernels:
             flash = flash_kernels_phase(torch)
+    if "decode_time" in phases:
+        decode_time_phase(torch)
     if args.sweep:
         sweep_phase(torch)
     if "parity" in phases:
