@@ -24,49 +24,90 @@
 // with a large VMEM; here every block finds its range and runs alone.
 //
 // Bound. At the trainer's shape (T 8192, H 12, Hkv 2, D 128, eight
-// segments of ~1k tokens) one forward does ~26 GFLOP of QK and PV work and
-// moves ~55 MB, so it is bound by operations: ~26 us at the card's bf16
-// tensor-core peak; the backward (five products) ~65 us.
+// segments of 512-1536 tokens and 384 pad) the mask keeps ~4.2M pairs: one
+// forward does ~26 GFLOP of QK and PV work and moves ~55 MB, so it is bound
+// by operations, 0.0262 ms at the card's 989 TFLOP/s bf16 peak; the
+// backward's bound counts five products (S recomputed, dP, dV, dK, dQ),
+// 0.0656 ms. The kernels below do seven: dq recomputes S and dP beside the
+// dk/dv kernel's, so that dq needs no float atomics.
 //
-// Design. Two families of kernels share the ranges, masks and rounding
-// below; the C entry points pick one by dtype and head dim.
-//  - Tensor cores (bf16 with D 64 or 128, the trainer's case): warp-level
-//    mma.sync m16n8k16 on bf16 with f32 accumulation, 4 warps of 16 rows
-//    per block. Scores and probabilities stay in registers: the score
-//    accumulator's layout is the A-operand layout of the next product
-//    (FA2), so P (and dS) feed PV (and dS K, P^T dO, dS^T Q) without
-//    touching shared memory. Tiles are staged in shared memory as bf16,
-//    row-major, by cp.async 16-byte copies, double-buffered: the next
-//    tile's copies are in flight while this tile's products run, instead
-//    of each thread waiting out one global load after another. An
-//    operand a product reads along its rows (V
-//    for PV; K, Q and dO in the backward) is read transposed by
-//    ldmatrix.trans. No TMA, wgmma or warp specialisation yet (the next
-//    step).
-//  - CUDA cores (f32, and other head dims up to 256): f32 FMAs on tiles
-//    staged in shared memory as f32, 256 threads as a 16 x 16 grid, each
-//    thread owning a small register tile of scores and of the output.
-// In both:
-//  - forward: one block per (q tile, kv head). The block holds the whole
-//    GQA group's query rows (n_rep heads x bq tokens folded into one row
-//    tile), so each K/V tile is read once for the group. Keys run from the
-//    segment (or window) start of the tile's first real token to the
-//    causal diagonal, 64 at a time; online softmax in f32 in the log2
-//    domain; P rounds to V's dtype before PV, as the reference.
-//  - dq: one block per (64-token q tile, q head), keys as the forward; it
-//    recomputes P from lse and accumulates dS K in registers.
-//  - dk/dv: one block per (k tile, kv head). It walks the group's query
-//    heads and the q tiles from the diagonal to the segment (or window)
-//    end, and sums over the group in registers: no atomics, so results
-//    are deterministic.
-// D up to 256 (D % 8 == 0); the CUDA-core kernels halve their tiles above
-// D 128 to stay within shared memory.
+// Design, v4 (tensor cores: bf16 with D 64 or 128, the trainer's case).
+// Each block is one producer warpgroup and two consumer warpgroups of 64
+// rows (FA3's structure). One producer thread keeps TMA loads in flight
+// through a ring of stages with full/empty mbarriers, so no consumer
+// spends an instruction or a register on a copy; `setmaxnreg` hands the
+// producer's registers to the consumers, whose accumulators need them
+// (dk and dv at D 128 hold 128 f32 each). The products are wgmma on
+// 128-byte-swizzled tiles straight from TMA; a score tile leaves the
+// accumulators only as bf16 A fragments in registers (P for PV, dS for dS
+// K, P^T and dS^T for dV and dK), and V, K, Q and dO serve as B operands
+// of those products read MN-major through the transpose bit, so nothing
+// is transposed or staged by hand. Masks are key ranges (each row sees
+// keys [its segment or window start, itself]; each key is seen by queries
+// [itself, its segment or window end)), two compares an element, and only
+// the tiles that cross a segment start, the window edge or the diagonal
+// are masked at all (the reference's _block_needs_mask); the exponentials
+// are ex2.approx on log2-domain scores.
+//  - forward and dq: items of (2 bq tokens, kv head). Rows fold
+//    token-major (row r: token t0 + r / n_rep, head g n_rep + r % n_rep),
+//    so a warpgroup's Q (and dO) tile is one TMA box [bq, n_rep, 64] of
+//    [T, H, D] (bq = 64 / n_rep: 10 tokens at n_rep 6), both warpgroups
+//    share each K/V tile of the group, and the output tile leaves through
+//    the same box by a TMA store. Keys run in tiles of 64 from the item's
+//    key start `lo` (TMA needs no alignment and zero-fills past T) to its
+//    last real token; a warpgroup skips tiles outside its own range. One
+//    persistent block per SM walks the items, last q tiles first (within a
+//    segment those walk the most keys); the producer loads the next item's
+//    Q into a second slot while the consumers finish the current one, so
+//    a block's set-up and epilogue no longer stall it (v4.0, a block per
+//    item, spent ~0.1 ms of its 0.25 there on an H100). Forward: online
+//    softmax in f32,
+//    P rounded to bf16 before PV as the reference; dq: P from lse,
+//    dS = P (dP - delta).
+//  - dk/dv: one block per (128 keys, kv head, part of the GQA group): keys
+//    are the rows (64 per consumer), query tiles (64; 48 at D 128, so that
+//    dk, dv and both score tiles fit the registers) stream per head of
+//    the part from the block's first key to the segment (or window) end of
+//    its last real key. v3 summed the whole group in one block, so the
+//    block at a 1536-token segment's start walked 6 x 48 tiles in series
+//    while the card had 256 blocks for 132 SMs; splitting the group into
+//    `parts` (the wrapper's plan: the smallest divisor of n_rep that gives
+//    two blocks per SM, 3 at the slice shape) cuts that path. Each part
+//    writes an f32 partial into a workspace and the last block of a (key
+//    tile, kv head) to arrive at its int32 counter (__threadfence, then
+//    atomicAdd) sums the parts in part order and resets the counter: no
+//    float atomics, bit-identical reruns. A thread-block cluster summing
+//    through distributed shared memory would save the workspace's L2
+//    round trip, but ties the parts to co-scheduled SMs; the counter keeps
+//    the grid free and mirrors the paged-decode kernel's merge.
+//  - delta = rowsum(dO O) is a small kernel of its own (8 lanes a row),
+//    where v3's wrapper spent ~0.15 ms of PyTorch casts and reductions.
+//  - TMA descriptors are encoded on the host per call with
+//    cuTensorMapEncodeTiled, fetched from the driver the runtime already
+//    loaded (cudaGetDriverEntryPoint), so the library links no -lcuda. A
+//    1-D box must start 16-byte aligned: lse and delta tiles load from the
+//    aligned index below and are read from the offset.
+// v3, replaced here: 4 warps of mma.sync m16n8k16 over 64 folded
+// rows, cp.async double buffering and ldmatrix, each warp re-reading the
+// whole K/V tile; 0.431 ms forward, 1.804 ms backward at the slice shape
+// on an H100 (16x and 28x the bounds).
+//
+// CUDA cores (f32, and bf16 with other head dims up to 256; not on the
+// trainer's path): f32 FMAs on tiles staged in shared memory as f32, 256
+// threads as a 16 x 16 grid, each thread owning a small register tile of
+// scores and of the output. Forward: one block per (q tile, kv head) with
+// the GQA group's rows folded into one tile; dq: one block per (64-token q
+// tile, q head); dk/dv: one block per (k tile, kv head), summing over the
+// group in registers. D up to 256 (D % 8 == 0); they halve their tiles
+// above D 128 to stay within shared memory.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver call is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -95,11 +136,14 @@ struct Params {
   void* dq;              // [T, H, D]
   void* dk;              // [T, Hkv, D]
   void* dv;              // [T, Hkv, D]
+  float* ws;             // v4 dk/dv: [parts][dk | dv][T][Hkv][D] f32 partials
+  int* counters;         // v4 dk/dv: [key tiles * Hkv], 0 between launches
   int T, H, Hkv, D, n_rep;
   float scale;           // softmax scale
   float soft_cap;        // <= 0: none
   int window;            // <= 0: none
-  int bq;                // forward: tokens per q tile
+  int bq;                // forward: tokens per q tile (v4: per warpgroup)
+  int parts;             // v4 dk/dv: blocks sharing one GQA group
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -662,124 +706,50 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
 }
 
 // --------------------------------------------------------------------------
-// tensor-core kernels (bf16, D 64 or 128)
+// v4: tensor-core kernels for Hopper (bf16, D 64 or 128)
 // --------------------------------------------------------------------------
 //
-// Fragment layout of mma.sync m16n8k16 (bf16 in, f32 out), per lane with
-// gid = lane / 4 and tig = lane % 4:
-//   A (16 x 16, rows x k): a0 = (gid, 2tig..2tig+1), a1 = (gid+8, same),
-//                          a2 = (gid, 2tig+8..+9),   a3 = (gid+8, same)
-//   B (16 x 8, k x cols):  b0 = (2tig..2tig+1, gid), b1 = (2tig+8..+9, gid)
-//   C (16 x 8, f32):       c0, c1 = (gid, 2tig..+1), c2, c3 = (gid+8, same)
-// so the C fragments of two adjacent 8-column tiles are, packed to bf16,
-// the A fragment of a product over those 16 columns.
+// Every block is three warpgroups: warpgroup 0 is the producer (one thread
+// issues every TMA load; registers cut to kProducerRegs), warpgroups 1 and 2
+// are consumers (kConsumerRegs registers) that run wgmma on 64 rows each.
+// Tiles land in shared memory in TMA's 128-byte swizzle: a tile is a stack
+// of 128-byte lines (64 bf16 of one row), and a D 128 row is two such tiles
+// ("chunks"). The wgmma descriptors below read that layout: K-major (the
+// product's depth runs along the line) for Q, K, V and dO as operands
+// whose rows are the product's M or N, and MN-major (depth across lines,
+// the transpose bit) for V, K, Q and dO as the B operand of PV, dS K,
+// P^T dO and dS^T Q.
+//
+// Accumulator layout of wgmma m64nNk16 (f32), per thread with warp w of the
+// warpgroup, gid = lane / 4 and tig = lane % 4: d[4j + e] is row
+// 16w + gid + 8 (e / 2), column 8j + 2 tig + (e % 2). A 64 x 16 A operand
+// from registers has the mma.sync m16n8k16 A layout per warp, so the
+// accumulators of column tiles 2kk and 2kk + 1, packed to bf16, are the A
+// operand of a product over those 16 columns (c_to_a).
 
 using bf16 = __nv_bfloat16;
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kWg = 128;                  // threads per warpgroup
+constexpr int kV4Threads = 3 * kWg;       // producer + two consumers
+constexpr int kRows = 64;                 // rows per consumer (wgmma M)
+constexpr int kChunk = 64;                // bf16 per 128-byte line
+constexpr int kLine = 128;
+// Register split between the producer warpgroup and the two consumers.
+// setmaxnreg moves registers within the block's launch allocation (384
+// threads x kLaunchRegs = 64512), so 128 P + 256 C must stay within it: a
+// larger request waits forever. dk/dv, whose consumers hold dk and dv, takes
+// 24 / 240; the forward and dq 40 / 232.
+constexpr int kLaunchRegs = 65536 / kV4Threads / 8 * 8;  // 168 under the bounds
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kKvProducerRegs = 24, kKvConsumerRegs = 240;
+static_assert(kWg * kProducerRegs + 2 * kWg * kConsumerRegs <= kV4Threads * kLaunchRegs &&
+                  kWg * kKvProducerRegs + 2 * kWg * kKvConsumerRegs <=
+                      kV4Threads * kLaunchRegs,
+              "setmaxnreg beyond the launch allocation");
+constexpr int kSms = 132;                 // H100 SXM
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 16) of a row-major
-// bf16 tile with row stride ld
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t, int ld,
-                                       int r0, int c0, int gid, int tig) {
-  const bf16* p = t + (r0 + gid) * ld + c0 + 2 * tig;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragments of a product over rows [r0, r0 + 16) (its k) of a row-major
-// bf16 tile, for the two 8-column tiles at columns c0 and c0 + 8 (its n):
-// the tile read transposed by ldmatrix. b[0], b[1] serve columns c0..c0+7,
-// b[2], b[3] columns c0+8..c0+15.
-__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* t, int ld,
-                                        int r0, int c0, int lane) {
-  const bf16* p = t + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(s));
-}
-
-// the C fragments of column tiles 2kk and 2kk + 1 as the A fragment of a
-// product over their 16 columns (rounded to bf16)
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying `rows` rows of D bf16 into a row-major shared tile with row
-// stride ld (16-byte cp.async copies, all in flight at once). Rows whose
-// row_ptr is null are zeroed with plain stores.
-template <int D, typename RowPtr>
-__device__ __forceinline__ void stage_async(bf16* dst, int ld, int rows,
-                                            RowPtr row_ptr) {
-  constexpr int kVpr = D / 8;
-  for (int i = threadIdx.x; i < rows * kVpr; i += blockDim.x) {
-    const int r = i / kVpr;
-    const int c = (i - r * kVpr) * 8;
-    const bf16* src = row_ptr(r);
-    if (src != nullptr) {
-      cp_async16(dst + r * ld + c, src + c);
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
-// Start copying n 32-bit values (n <= count) into dst; the rest get `fill`.
-template <typename T>
-__device__ __forceinline__ void stage_words_async(T* dst, const T* src, int n,
-                                                  int count, T fill) {
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
-    if (j < n) {
-      cp_async4(dst + j, src + j);
-    } else {
-      dst[j] = fill;
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -792,493 +762,997 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(const Params p) {
-  constexpr int R = 16 * kMmaWarps;  // folded rows: n_rep heads x bq tokens
-  constexpr int BK = 64;
-  constexpr int LD = D + 8;          // padded bf16 row stride (bank spread)
-  constexpr int NT = BK / 8;         // score column tiles
-  constexpr int DT = D / 8;          // output column tiles
-  const int g = blockIdx.y;
-  const int bq = p.bq;
-  const int q0 = blockIdx.x * bq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nt = p.T, n_rep = p.n_rep;
-  const int nq = min(bq, nt - q0);
-  const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* k = static_cast<const bf16*>(p.k);
-  const bf16* v = static_cast<const bf16*>(p.v);
+// the accumulators of column tiles 2kk, 2kk + 1 (s[8kk .. 8kk + 7]) as the
+// A operand of a product over those 16 columns, rounded to bf16
+template <int N>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&s)[N], int kk) {
+  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [R][LD]
-  bf16* KV = Qs + R * LD;                         // [2 buffers][K | V][BK][LD]
-  int* kseg = reinterpret_cast<int*>(KV + 4 * BK * LD);  // [2][BK]
-  __shared__ int s_lo, s_hi;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  key_range(p, q0, nq, &s_lo, &s_hi);
-  const int lo = s_lo, hi = s_hi;
-  const int n_tiles = lo < hi ? (hi - lo + BK - 1) / BK : 0;
-  stage_async<D>(Qs, LD, R, [&](int r) -> const bf16* {
-    const int rep = r / bq, i = r - rep * bq;
-    if (rep >= n_rep || i >= nq) return nullptr;
-    return q + (size_t(q0 + i) * p.H + g * n_rep + rep) * D;
-  });
-  auto fetch = [&](int it, int buf) {
-    const int k0 = lo + it * BK;
-    const int n = min(BK, hi - k0);
-    bf16* Kb = KV + buf * 2 * BK * LD;
-    stage_async<D>(Kb, LD, BK, [&](int r) -> const bf16* {
-      return r < n ? k + (size_t(k0 + r) * p.Hkv + g) * D : nullptr;
-    });
-    stage_async<D>(Kb + BK * LD, LD, BK, [&](int r) -> const bf16* {
-      return r < n ? v + (size_t(k0 + r) * p.Hkv + g) * D : nullptr;
-    });
-    stage_words_async(kseg + buf * BK, p.seg + k0, n, BK, -1);
-  };
-  if (n_tiles > 0) fetch(0, 0);
-  cp_async_commit();
+// --- mbarriers and TMA ------------------------------------------------------
 
-  // this lane's two rows: gid and gid + 8 of the warp's 16
-  int row_t[2], row_seg[2], row_h[2];
+// Barrier and TMA helpers take 32-bit shared-memory addresses (the
+// producer's registers are few), with pointer forms for the consumers.
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+// one arrival that also announces `bytes` of TMA traffic on this phase
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  bar_expect_tx(smem_u32(bar), bytes);
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  bar_wait(smem_u32(bar), parity);
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                       int c0, int c1, int c2) {
+  tma_3d(smem_u32(dst), map, smem_u32(bar), c0, c1, c2);
+}
+
+__device__ __forceinline__ void tma_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// A 1-D box must start 16-byte aligned in global memory: vectors of 32-bit
+// values are loaded from the aligned index below the one wanted, kVecPad
+// values longer, and read from vec_skip(i) on.
+constexpr int kVecPad = 4;
+__device__ __forceinline__ int vec_start(int i) { return i & ~(kVecPad - 1); }
+__device__ __forceinline__ int vec_skip(int i) { return i & (kVecPad - 1); }
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// the two consumer warpgroups only
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kWg) : "memory");
+}
+
+// --- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile at `addr`
+// (1024-byte aligned atoms of 8 lines): SBO = 1024 bytes between 8-line
+// groups; LBO = the distance between 64-element chunks along the lines
+// (read by MN-major operands wider than one chunk; K-major ones ignore it).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// K-major operand: k-step kk (16 elements of depth) of a tile whose lines
+// are its rows; depth past 64 is the next chunk, `chunk` bytes on
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk, uint32_t chunk) {
+  return desc_sw128(base + (kk >> 2) * chunk + (kk & 3) * 32, 16);
+}
+
+// MN-major B operand: k-step kk (16 lines of depth) of chunk c
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int kk, int c, uint32_t chunk) {
+  return desc_sw128(base + c * chunk + kk * 16 * kLine, chunk);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from touching accumulators across an async product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gid + 8 * i;
-    const int rep = r / bq, ii = r - rep * bq;
-    const bool ok = rep < n_rep && ii < nq;
-    row_t[i] = ok ? q0 + ii : -1;
-    row_seg[i] = ok ? p.seg[q0 + ii] : 0;
-    row_h[i] = g * n_rep + rep;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 64] = A[64 x 16] * B[16 x 64], A and B in shared memory: the first
+// k-step, which writes D without reading it (so D is dead between tiles)
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A and B in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 48] = / += A[64 x 16] * B[16 x 48], as the two above (the dk/dv
+// kernel's query tiles at D 128)
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[24], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers, B in shared
+// memory read MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// --- block set-up shared by the three kernels ---------------------------------
+
+// The kernels' tensor maps (the ones a kernel does not read stay unset).
+struct Maps {
+  CUtensorMap q;      // [T, H, D] bf16, boxes {64, box heads, box tokens}
+  CUtensorMap k;      // [T, Hkv, D]
+  CUtensorMap v;
+  CUtensorMap dout;   // as q
+  CUtensorMap out;    // forward: out, dq: dq; as q
+  CUtensorMap lse;    // [H * T] f32 (dk/dv)
+  CUtensorMap delta;  // [H * T] f32 (dk/dv)
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// zero lines [rows, 64) of n consecutive 64-line tiles: the rows a Q or dO
+// box leaves out when n_rep does not divide 64 (never stored; zero so that
+// the products on them stay finite)
+__device__ __forceinline__ void zero_tail(unsigned char* tiles, int n, int rows) {
+  const int per = (kRows - rows) * kLine / 16;
+  for (int i = threadIdx.x; i < n * per; i += blockDim.x) {
+    const int t = i / per, j = i - t * per;
+    reinterpret_cast<uint4*>(tiles + t * kRows * kLine + rows * kLine)[j] =
+        make_uint4(0, 0, 0, 0);
   }
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    const int k0 = lo + it * BK;
-    const int n = min(BK, hi - k0);
-    if (it + 1 < n_tiles) fetch(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and Q) have landed
-    __syncthreads();
-    const bf16* Ks = KV + buf * 2 * BK * LD;
-    const bf16* Vs = Ks + BK * LD;
-    const int* ks = kseg + buf * BK;
+// [full x n_full] (one producer arrival), [empty x n_full] (every consumer
+// thread), then n_once barriers of one arrival
+__device__ __forceinline__ void init_barriers(uint64_t* bars, int n_full, int n_once) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n_full; ++i) {
+      bar_init(bars + i, 1);
+      bar_init(bars + n_full + i, 2 * kWg);
+    }
+    for (int i = 0; i < n_once; ++i) bar_init(bars + 2 * n_full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
 
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, Qs, LD, warp * 16, kk * 16, gid, tig);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const bf16* b = Ks + (j * 8 + gid) * LD + kk * 16 + 2 * tig;
-        mma_bf16(s[j], a, ld32(b), ld32(b + 8));
+// Key range [lo, hi) of the real tokens among [t0, t0 + n): from the
+// segment (or window) start of the first to one past the last; lo == hi
+// when there is none. Padding sits at the tail, and a pad token's seg_start
+// is the first pad index. (ops/cuda/flash_attention.py::q_range mirrors it.)
+__device__ __forceinline__ void q_range(const Params& p, int t0, int n, int& lo,
+                                        int& hi) {
+  lo = hi = 0;
+  if (t0 >= p.T || p.seg[t0] <= 0) return;
+  const int tl = min(t0 + n, p.T) - 1;
+  const int last = p.seg[tl] > 0 ? tl : p.seg_start[tl] - 1;
+  lo = p.seg_start[t0];
+  if (p.window > 0) lo = max(lo, t0 - p.window + 1);
+  hi = last + 1;
+}
+
+// One past the last query that sees a real key among [k0, k0 + n): the
+// segment (or window) end of the last real key; 0 when there is none.
+// (ops/cuda/flash_attention.py::k_range mirrors it.)
+__device__ __forceinline__ int k_range(const Params& p, int k0, int n) {
+  if (k0 >= p.T || p.seg[k0] <= 0) return 0;
+  const int tl = min(k0 + n, p.T) - 1;
+  const int last = p.seg[tl] > 0 ? tl : p.seg_start[tl] - 1;
+  int hi = p.seg_end[last];
+  if (p.window > 0) hi = min(hi, last + p.window);
+  return hi;
+}
+
+// --- forward and dq: persistent blocks over (2 bq tokens, kv head) items ------
+//
+// Rows are folded token-major: row r of a consumer is token t0 + r / n_rep
+// of query head g n_rep + r % n_rep, so its Q (and dO) tile is one TMA box
+// [bq tokens][n_rep heads][64] of the [T, H, D] tensor, and so is its
+// output tile, which leaves through the same box by a TMA store. One block
+// per SM walks the items blockIdx.x, + gridDim.x, ...; items run last q
+// tiles first (within a segment those walk the most keys). The producer
+// streams K and V from each item's key start `lo` in tiles of BK keys (no
+// alignment: TMA zero-fills past T) through a ring of STAGES that runs on
+// across items, and loads the next item's Q (and dO) into the other of two
+// slots while the consumers finish the current one, so an item's start and
+// its epilogue overlap its neighbours' work.
+
+template <int D, int BK, int STAGES, bool kBwd>
+struct QSide {
+  static constexpr int DC = D / kChunk;
+  static constexpr int kQTile = kRows * kLine;                  // one chunk, 64 rows
+  static constexpr int kRowSet = (kBwd ? 2 : 1) * DC * kQTile;  // a consumer's Q (| dO)
+  static constexpr int kQ = 0;                                  // [slot][consumer]
+  static constexpr int kKV = kQ + 4 * kRowSet;
+  static constexpr int kKVTile = BK * kLine;                    // one chunk of K or V
+  static constexpr int kStage = 2 * DC * kKVTile;               // [K | V][DC]
+  static constexpr int kBar = kKV + STAGES * kStage;
+  // full[STAGES], empty[STAGES], qfull[slot][consumer], qempty[slot][consumer]
+  static constexpr int kBytes = kBar + (2 * STAGES + 8) * 8 + 1024;  // + alignment
+};
+
+// the item's tokens and kv head; rows of consumer w start at q0 + w bq
+__device__ __forceinline__ void q_item(const Params& p, int idx, int& g, int& q0) {
+  const int n_blk = (p.T + 2 * p.bq - 1) / (2 * p.bq);
+  g = idx % p.Hkv;
+  q0 = (n_blk - 1 - idx / p.Hkv) * 2 * p.bq;
+}
+
+// key ranges of both consumers' tokens, and the block's [lo, hi)
+__device__ __forceinline__ void q_item_keys(const Params& p, int q0, int (&wlo)[2],
+                                            int (&whi)[2], int& lo, int& hi) {
+  q_range(p, q0, p.bq, wlo[0], whi[0]);
+  q_range(p, q0 + p.bq, p.bq, wlo[1], whi[1]);
+  lo = hi = 0;
+  if (wlo[0] < whi[0] || wlo[1] < whi[1]) {
+    lo = wlo[0] < whi[0] ? wlo[0] : wlo[1];
+    if (wlo[1] < whi[1]) lo = min(lo, wlo[1]);
+    hi = max(whi[0], whi[1]);
+  }
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// the stores issued so far have read their shared memory
+__device__ __forceinline__ void tma_store_read_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// one consumer warpgroup (named barriers 2 and 3)
+__device__ __forceinline__ void consumer_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(kWg) : "memory");
+}
+
+// (lo, hi) as bf16 into row r, columns col and col + 1 (col even) of a
+// 64-line tile in TMA's 128-byte swizzle (16-byte granule index XOR row % 8)
+__device__ __forceinline__ void st_swizzled(unsigned char* tile, int r, int col, float lo,
+                                            float hi) {
+  const int off = r * kLine + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1));
+  *reinterpret_cast<uint32_t*>(tile + off) = pack_bf16(lo, hi);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D, int BK, int STAGES, bool kBwd>
+__device__ __forceinline__ void q_side(const Maps& maps, const Params& p) {
+  using L = QSide<D, BK, STAGES, kBwd>;
+  constexpr int DC = L::DC;
+  constexpr int NT = BK / 8;  // score column tiles
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;  // [slot * 2 + consumer]
+  uint64_t* qempty = qfull + 4;
+  const int T = p.T, n_rep = p.n_rep, bq = p.bq;
+  const int n_items = (T + 2 * bq - 1) / (2 * bq) * p.Hkv;
+
+  init_barriers(full, STAGES, 8);
+  // rows no Q box covers stay zero (n_rep not dividing 64; never stored)
+  zero_tail(smem + L::kQ, 4 * L::kRowSet / L::kQTile, bq * n_rep);
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const uint32_t qbytes = (kBwd ? 2 : 1) * DC * kChunk * n_rep * bq * 2;
+      int it = 0;
+      int n = 0;
+      for (int idx = blockIdx.x; idx < n_items; idx += gridDim.x, ++n) {
+        int g, q0, wlo[2], whi[2], lo, hi;
+        q_item(p, idx, g, q0);
+        q_item_keys(p, q0, wlo, whi, lo, hi);
+        const int slot = n & 1;
+        const uint32_t use = n >> 1;
+        for (int w = 0; w < 2; ++w) {
+          uint64_t* qf = qfull + slot * 2 + w;
+          bar_wait(qempty + slot * 2 + w, (use & 1) ^ 1);
+          bar_expect_tx(qf, qbytes);
+          unsigned char* rs = smem + L::kQ + (slot * 2 + w) * L::kRowSet;
+          for (int c = 0; c < DC; ++c) {
+            tma_3d(rs + c * L::kQTile, &maps.q, qf, c * kChunk, g * n_rep, q0 + w * bq);
+            if (kBwd)
+              tma_3d(rs + (DC + c) * L::kQTile, &maps.dout, qf, c * kChunk, g * n_rep,
+                     q0 + w * bq);
+          }
+        }
+        const int n_tiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+        for (int t = 0; t < n_tiles; ++t, ++it) {
+          const int s = it % STAGES;
+          const int k0 = lo + t * BK;
+          bar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          bar_expect_tx(&full[s], 2 * DC * L::kKVTile);
+          unsigned char* st = smem + L::kKV + s * L::kStage;
+          for (int c = 0; c < DC; ++c) {
+            tma_3d(st + c * L::kKVTile, &maps.k, &full[s], c * kChunk, g, k0);
+            tma_3d(st + (DC + c) * L::kKVTile, &maps.v, &full[s], c * kChunk, g, k0);
+          }
+        }
       }
     }
+    return;
+  }
 
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int c = j * 8 + 2 * tig + (e & 1);
-        float tt;
-        const float x = score(s[j][e], p, tt) * kLog2e;
-        const bool ok = row_seg[i] > 0 && c < n &&
-                        visible(row_t[i], row_seg[i], k0 + c, ks[c], p.window);
-        s[j][e] = ok ? x : kNegInf;
-        mx[i] = fmaxf(mx[i], s[j][e]);
-      }
-    }
-    float corr[2];
+  // consumers
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / kWg - 1;
+  const int tid = threadIdx.x % kWg;
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const float scale_log2 = p.scale * kLog2e;
+  const bool cap = p.soft_cap > 0.f;
+  const float cap_log2 = p.soft_cap * kLog2e, cap_in = p.scale / p.soft_cap;
+  int it = 0;
+  int n = 0;
+  for (int idx = blockIdx.x; idx < n_items; idx += gridDim.x, ++n) {
+    int g, q0, wlo[2], whi[2], lo, hi;
+    q_item(p, idx, g, q0);
+    q_item_keys(p, q0, wlo, whi, lo, hi);
+    const int n_tiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+    const int t0 = q0 + wg * bq;
+    const int my_lo = wlo[wg], my_hi = whi[wg];
+    const int slot = n & 1;
+    unsigned char* rs = smem + L::kQ + (slot * 2 + wg) * L::kRowSet;
+    const uint32_t q_base = smem_u32(rs);
+    const uint32_t o_base = q_base + DC * L::kQTile;
+    // every row a real token of one segment: tiles inside it and the
+    // window, and wholly before the diagonal, need no mask
+    const int t_last = min(t0 + bq, T) - 1;
+    const bool one_seg =
+        t0 < T && p.seg[t0] > 0 && p.seg_start[t_last] == p.seg_start[t0];
+    const int seg0 = one_seg ? p.seg_start[t0] : 0;
+    // row i sees keys [row_lo, row_t] (none for padding)
+    int row_t[2], row_h[2], row_lo[2];
+    bool row_ok[2];
+    float row_lse2[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      corr[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float pr = s[j][e] == kNegInf ? 0.f : exp2f(s[j][e] - m[i]);
-        sum[i] += pr;
-        s[j][e] = pr;
+      const int r = warp * 16 + gid + 8 * i;
+      row_t[i] = t0 + r / n_rep;
+      row_h[i] = g * n_rep + r % n_rep;
+      row_ok[i] = r < bq * n_rep && row_t[i] < T;
+      row_lo[i] = INT_MAX;
+      if (row_ok[i] && p.seg[row_t[i]] > 0) {
+        row_lo[i] = p.seg_start[row_t[i]];
+        if (p.window > 0) row_lo[i] = max(row_lo[i], row_t[i] - p.window + 1);
+      }
+      if (kBwd && row_ok[i]) {
+        // pad rows carry the sentinel; clamp its log2 form so it stays finite
+        row_lse2[i] =
+            fmaxf(p.lse[size_t(row_h[i]) * T + row_t[i]] * kLog2e, kNegInf);
+        row_delta[i] = p.delta[size_t(row_h[i]) * T + row_t[i]];
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t b[4];
-        load_bt(b, Vs, LD, kk * 16, j * 8, lane);
-        mma_bf16(o[j], a, b[0], b[1]);
-        mma_bf16(o[j + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the buffer is free for the tile after next
-  }
 
-  cp_async_wait<0>();  // nothing left in flight (a block may have no tiles)
-  bf16* out = static_cast<bf16*>(p.out);
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float acc[DC][32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = row_t[i];
-    if (t < 0) continue;
-    const bool live = l[i] > 0.f;
-    const float inv = live ? 1.f / l[i] : 0.f;
-    bf16* orow = out + (size_t(t) * p.H + row_h[i]) * D + 2 * tig;
+    for (int c = 0; c < DC; ++c)
 #pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
-    if (tig == 0)
-      p.lse[size_t(row_h[i]) * nt + t] = live ? m[i] * kLn2 + logf(l[i]) : kNegInf;
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+    float sc[BK / 2], dp[BK / 2];  // each tile's first k-step writes them
+    bar_wait(qfull + slot * 2 + wg, (n >> 1) & 1);
+
+    for (int t = 0; t < n_tiles; ++t, ++it) {
+      const int s = it % STAGES;
+      const int k0 = lo + t * BK;
+      bar_wait(&full[s], (it / STAGES) & 1);
+      if (k0 < my_hi && k0 + BK > my_lo) {
+        const uint32_t k_base = smem_u32(smem + L::kKV + s * L::kStage);
+        const uint32_t v_base = k_base + DC * L::kKVTile;
+        wgmma_fence();
+        wgmma_ss_first(sc, desc_k(q_base, 0, L::kQTile), desc_k(k_base, 0, L::kKVTile));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss(sc, desc_k(q_base, kk, L::kQTile), desc_k(k_base, kk, L::kKVTile));
+        if (kBwd) {
+          wgmma_ss_first(dp, desc_k(o_base, 0, L::kQTile), desc_k(v_base, 0, L::kKVTile));
+#pragma unroll
+          for (int kk = 1; kk < D / 16; ++kk)
+            wgmma_ss(dp, desc_k(o_base, kk, L::kQTile), desc_k(v_base, kk, L::kKVTile));
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(sc);
+        if (kBwd) fence_regs(dp);
+
+        const bool unmasked = one_seg && k0 >= seg0 && k0 + BK - 1 <= t0 &&
+                              (p.window <= 0 || t_last - k0 < p.window);
+        float mx[2] = {kNegInf, kNegInf};
+        // scores in the log2 domain, masked to the sentinel (forward) or P
+        // and dS (dq), with the mask and the cap resolved outside the loop
+        auto scores = [&](auto masked, auto capped) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              const int kt = k0 + 8 * j + 2 * tig + (e & 1);
+              float x, tt = 0.f;
+              if (decltype(capped)::value) {
+                tt = tanhf(sc[4 * j + e] * cap_in);
+                x = cap_log2 * tt;
+              } else {
+                x = sc[4 * j + e] * scale_log2;
+              }
+              const bool ok = !decltype(masked)::value ||
+                              (kt >= row_lo[i] && kt <= row_t[i]);
+              if (kBwd) {
+                const float pr = ok ? ex2(x - row_lse2[i]) : 0.f;
+                float ds = pr * (dp[4 * j + e] - row_delta[i]);
+                if (decltype(capped)::value) ds *= 1.f - tt * tt;
+                sc[4 * j + e] = ds;
+              } else {
+                x = ok ? x : kNegInf;
+                sc[4 * j + e] = x;
+                mx[i] = fmaxf(mx[i], x);
+              }
+            }
+          }
+        };
+        if (cap) {
+          if (unmasked) scores(std::false_type{}, std::true_type{});
+          else scores(std::true_type{}, std::true_type{});
+        } else {
+          if (unmasked) scores(std::false_type{}, std::false_type{});
+          else scores(std::true_type{}, std::false_type{});
+        }
+        if (!kBwd) {
+          float corr[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float m_new = fmaxf(m[i], quad_max(mx[i]));
+            corr[i] = ex2(m[i] - m_new);
+            m[i] = m_new;
+          }
+          float sum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              // masked entries are exactly the sentinel; they contribute 0
+              const float pr = unmasked || sc[4 * j + e] != kNegInf
+                                   ? ex2(sc[4 * j + e] - m[i])
+                                   : 0.f;
+              sum[i] += pr;
+              sc[4 * j + e] = pr;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(sum[i]);
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              acc[c][4 * j + 0] *= corr[0];
+              acc[c][4 * j + 1] *= corr[0];
+              acc[c][4 * j + 2] *= corr[1];
+              acc[c][4 * j + 3] *= corr[1];
+            }
+        }
+        // P V (forward) or dS K (dq): P / dS rounded to bf16 in registers,
+        // V or K read MN-major
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) c_to_a(pa[kk], sc, kk);
+        const uint32_t b_base = kBwd ? k_base : v_base;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < DC; ++c)
+            wgmma_rs(acc[c], pa[kk], desc_mn(b_base, kk, c, L::kKVTile));
+        wgmma_commit();
+        wgmma_wait0();
+#pragma unroll
+        for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+      }
+      bar_arrive(&empty[s]);
+    }
+
+    // epilogue: the tile (bf16) into this consumer's Q slot, which its
+    // products no longer read, then out to global by the Q box's TMA store
+    // (rows past T are clipped; pad rows hold exactly 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mul = p.scale;
+      if (!kBwd) {
+        const bool live = l[i] > 0.f;
+        mul = live ? 1.f / l[i] : 0.f;
+        if (row_ok[i] && tig == 0)
+          p.lse[size_t(row_h[i]) * T + row_t[i]] =
+              live ? m[i] * kLn2 + logf(l[i]) : kNegInf;
+      }
+      const int r = warp * 16 + gid + 8 * i;
+      if (r >= bq * n_rep) continue;  // keep the zero tail
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          st_swizzled(rs + c * L::kQTile, r, 8 * j + 2 * tig, acc[c][4 * j + 2 * i] * mul,
+                      acc[c][4 * j + 2 * i + 1] * mul);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumer_sync(wg);
+    if (tid == 0) {
+      for (int c = 0; c < DC; ++c)
+        tma_store_3d(&maps.out, rs + c * L::kQTile, c * kChunk, g * n_rep, t0);
+      tma_store_read_wait();
+      bar_arrive(qempty + slot * 2 + wg);  // the slot is free for item n + 2
+    }
   }
+  if (tid == 0) tma_store_wait();
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_dq_mma_kernel(const Params p) {
-  constexpr int R = 16 * kMmaWarps;  // q tokens per block
-  constexpr int BK = 64;
-  constexpr int LD = D + 8;
-  constexpr int NT = BK / 8;
-  constexpr int DT = D / 8;
-  const int h = blockIdx.y;
-  const int g = h / p.n_rep;
-  const int q0 = blockIdx.x * R;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nt = p.T;
-  const int nq = min(R, nt - q0);
-  const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* k = static_cast<const bf16*>(p.k);
-  const bf16* v = static_cast<const bf16*>(p.v);
-  const bf16* dout = static_cast<const bf16*>(p.dout);
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [R][LD]
-  bf16* dOs = Qs + R * LD;                        // [R][LD]
-  bf16* KV = dOs + R * LD;                        // [2 buffers][K | V][BK][LD]
-  int* kseg = reinterpret_cast<int*>(KV + 4 * BK * LD);  // [2][BK]
-  __shared__ int s_lo, s_hi;
-
-  key_range(p, q0, nq, &s_lo, &s_hi);
-  const int lo = s_lo, hi = s_hi;
-  const int n_tiles = lo < hi ? (hi - lo + BK - 1) / BK : 0;
-  stage_async<D>(Qs, LD, R, [&](int r) -> const bf16* {
-    return r < nq ? q + (size_t(q0 + r) * p.H + h) * D : nullptr;
-  });
-  stage_async<D>(dOs, LD, R, [&](int r) -> const bf16* {
-    return r < nq ? dout + (size_t(q0 + r) * p.H + h) * D : nullptr;
-  });
-  auto fetch = [&](int it, int buf) {
-    const int k0 = lo + it * BK;
-    const int n = min(BK, hi - k0);
-    bf16* Kb = KV + buf * 2 * BK * LD;
-    stage_async<D>(Kb, LD, BK, [&](int r) -> const bf16* {
-      return r < n ? k + (size_t(k0 + r) * p.Hkv + g) * D : nullptr;
-    });
-    stage_async<D>(Kb + BK * LD, LD, BK, [&](int r) -> const bf16* {
-      return r < n ? v + (size_t(k0 + r) * p.Hkv + g) * D : nullptr;
-    });
-    stage_words_async(kseg + buf * BK, p.seg + k0, n, BK, -1);
-  };
-  if (n_tiles > 0) fetch(0, 0);
-  cp_async_commit();
-
-  int row_t[2], row_seg[2];
-  float row_lse2[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gid + 8 * i;
-    const bool ok = r < nq;
-    row_t[i] = ok ? q0 + r : -1;
-    row_seg[i] = ok ? p.seg[q0 + r] : 0;
-    // pad rows carry the sentinel; clamp its log2 form so it stays finite
-    row_lse2[i] = ok ? fmaxf(p.lse[size_t(h) * nt + q0 + r] * kLog2e, kNegInf) : 0.f;
-    row_delta[i] = ok ? p.delta[size_t(h) * nt + q0 + r] : 0.f;
-  }
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    const int k0 = lo + it * BK;
-    const int n = min(BK, hi - k0);
-    if (it + 1 < n_tiles) fetch(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Ks = KV + buf * 2 * BK * LD;
-    const bf16* Vs = Ks + BK * LD;
-    const int* ks = kseg + buf * BK;
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = 0.f;
-        dp[j][e] = 0.f;
-      }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, Qs, LD, warp * 16, kk * 16, gid, tig);
-      load_a(ao, dOs, LD, warp * 16, kk * 16, gid, tig);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const bf16* bk = Ks + (j * 8 + gid) * LD + kk * 16 + 2 * tig;
-        const bf16* bv = Vs + (j * 8 + gid) * LD + kk * 16 + 2 * tig;
-        mma_bf16(s[j], aq, ld32(bk), ld32(bk + 8));
-        mma_bf16(dp[j], ao, ld32(bv), ld32(bv + 8));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int c = j * 8 + 2 * tig + (e & 1);
-        float tt;
-        const float x = score(s[j][e], p, tt) * kLog2e;
-        const bool ok = row_seg[i] > 0 && c < n &&
-                        visible(row_t[i], row_seg[i], k0 + c, ks[c], p.window);
-        const float pr = ok ? exp2f(x - row_lse2[i]) : 0.f;
-        float ds = pr * (dp[j][e] - row_delta[i]);
-        if (p.soft_cap > 0.f) ds *= 1.f - tt * tt;
-        s[j][e] = ds;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t b[4];
-        load_bt(b, Ks, LD, kk * 16, j * 8, lane);
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  cp_async_wait<0>();  // nothing left in flight (a block may have no tiles)
-  bf16* dq = static_cast<bf16*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = row_t[i];
-    if (t < 0) continue;
-    bf16* row = dq + (size_t(t) * p.H + h) * D + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8) = __floats2bfloat162_rn(
-          acc[j][2 * i] * p.scale, acc[j][2 * i + 1] * p.scale);
-  }
+template <int D, int BK, int STAGES>
+__global__ void __launch_bounds__(kV4Threads, 1)
+    flash_fwd_v4_kernel(const __grid_constant__ Maps maps, const Params p) {
+  q_side<D, BK, STAGES, false>(maps, p);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_dkdv_mma_kernel(const Params p) {
-  constexpr int B = 16 * kMmaWarps;  // keys per block
-  constexpr int BQ = 32;             // queries per tile
-  constexpr int LD = D + 8;
-  constexpr int NQ = BQ / 8;         // score column (query) tiles
-  constexpr int DT = D / 8;
-  const int g = blockIdx.y;
-  const int k0 = blockIdx.x * B;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nt = p.T, n_rep = p.n_rep;
-  const int nk = min(B, nt - k0);
-  const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* k = static_cast<const bf16*>(p.k);
-  const bf16* v = static_cast<const bf16*>(p.v);
-  const bf16* dout = static_cast<const bf16*>(p.dout);
+template <int D, int BK, int STAGES>
+__global__ void __launch_bounds__(kV4Threads, 1)
+    flash_dq_v4_kernel(const __grid_constant__ Maps maps, const Params p) {
+  q_side<D, BK, STAGES, true>(maps, p);
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [B][LD]
-  bf16* Vs = Ks + B * LD;                         // [B][LD]
-  bf16* QO = Vs + B * LD;                         // [2 buffers][Q | dO][BQ][LD]
-  float* lse_s = reinterpret_cast<float*>(QO + 4 * BQ * LD);  // [2][BQ]
-  float* delta_s = lse_s + 2 * BQ;                            // [2][BQ]
-  int* qseg = reinterpret_cast<int*>(delta_s + 2 * BQ);       // [2][BQ]
-  __shared__ int s_hi;
+// --- dk, dv: one block per (128 keys, kv head, part of the GQA group) ---------
+//
+// Keys are the rows: consumer w owns keys k0 + 64 w .. + 63 and computes
+// S^T = K Q^T and dP^T = V dO^T against query tiles of BQ, which the
+// producer streams for each head of the block's part of the group, from
+// the block's first key to the segment (or window) end of its last real
+// key. P^T and dS^T stay in registers as the A operands of dV += P^T dO and
+// dK += dS^T Q (dO and Q read MN-major). With parts > 1 each block writes
+// its f32 partial into the workspace and the last block of a (key tile, kv
+// head) to arrive at its counter sums the parts in part order: no float
+// atomics, and reruns are bit-identical.
 
-  // queries [k0, hi): causal from the tile's first key to the segment (or
-  // window) end of its last real key
-  if (threadIdx.x == 0) s_hi = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < nk; i += blockDim.x) {
-    const int t = k0 + i;
-    if (p.seg[t] > 0) {
-      int end = p.seg_end[t];
-      if (p.window > 0) end = min(end, t + p.window);
-      atomicMax(&s_hi, end);
-    }
-  }
-  stage_async<D>(Ks, LD, B, [&](int r) -> const bf16* {
-    return r < nk ? k + (size_t(k0 + r) * p.Hkv + g) * D : nullptr;
-  });
-  stage_async<D>(Vs, LD, B, [&](int r) -> const bf16* {
-    return r < nk ? v + (size_t(k0 + r) * p.Hkv + g) * D : nullptr;
-  });
-  __syncthreads();
-  const int hi = s_hi;
-  // one iteration per (query head of the group, q tile)
+template <int D, int BQ, int STAGES>
+struct KSide {
+  static constexpr int DC = D / kChunk;
+  static constexpr int kKTile = 2 * kRows * kLine;        // one chunk, 128 keys
+  static constexpr int kK = 0;                            // [DC] tiles
+  static constexpr int kV = kK + DC * kKTile;
+  static constexpr int kQO = kV + DC * kKTile;
+  static constexpr int kQTile = BQ * kLine;               // one chunk of Q or dO
+  static constexpr int kStage = 2 * DC * kQTile;          // [Q | dO][DC]
+  static constexpr int kVec = kQO + STAGES * kStage;      // [STAGES][lse | delta]
+  static constexpr int kVecBytes = (BQ + kVecPad) * 4 + 128 - (BQ + kVecPad) * 4 % 128;
+  static constexpr int kBar = kVec + STAGES * 2 * kVecBytes;
+  static constexpr int kFlag = kBar + (2 * STAGES + 1) * 8;
+  static constexpr int kBytes = kFlag + 16 + 1024;
+};
+
+template <int D, int BQ, int STAGES>
+__global__ void __launch_bounds__(kV4Threads, 1)
+    flash_dkdv_v4_kernel(const __grid_constant__ Maps maps, const Params p) {
+  using L = KSide<D, BQ, STAGES>;
+  constexpr int DC = L::DC;
+  constexpr int NT = BQ / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+  int* s_last = reinterpret_cast<int*>(smem + L::kFlag);
+  const int T = p.T, parts = p.parts, hp = p.n_rep / parts;
+  const int part = blockIdx.x % parts;
+  const int g = (blockIdx.x / parts) % p.Hkv;
+  const int kb = blockIdx.x / (parts * p.Hkv);
+  const int k0 = kb * 2 * kRows;
+  const int hi = max(k_range(p, k0, kRows), k_range(p, k0 + kRows, kRows));
   const int n_qt = hi > k0 ? (hi - k0 + BQ - 1) / BQ : 0;
-  const int n_it = n_rep * n_qt;
-  auto fetch = [&](int it, int buf) {
-    const int h = g * n_rep + it / n_qt;
-    const int qq = k0 + (it % n_qt) * BQ;
-    const int n = min(BQ, hi - qq);
-    bf16* Qb = QO + buf * 2 * BQ * LD;
-    stage_async<D>(Qb, LD, BQ, [&](int r) -> const bf16* {
-      return r < n ? q + (size_t(qq + r) * p.H + h) * D : nullptr;
-    });
-    stage_async<D>(Qb + BQ * LD, LD, BQ, [&](int r) -> const bf16* {
-      return r < n ? dout + (size_t(qq + r) * p.H + h) * D : nullptr;
-    });
-    stage_words_async(lse_s + buf * BQ, p.lse + size_t(h) * nt + qq, n, BQ, 0.f);
-    stage_words_async(delta_s + buf * BQ, p.delta + size_t(h) * nt + qq, n, BQ, 0.f);
-    stage_words_async(qseg + buf * BQ, p.seg + qq, n, BQ, 0);
-  };
-  if (n_it > 0) fetch(0, 0);
-  cp_async_commit();
+  const int n_it = hp * n_qt;
 
-  int key_t[2], key_seg[2];
+  init_barriers(full, STAGES, 1);
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {  // producer
+    setmaxnreg_dec<kKvProducerRegs>();
+    if (threadIdx.x == 0) {
+      const uint32_t base = smem_u32(smem);
+      const uint32_t kv = smem_u32(kvbar);
+      bar_expect_tx(kv, 2 * DC * L::kKTile);
+      for (int c = 0; c < DC; ++c) {
+        tma_3d(base + L::kK + c * L::kKTile, &maps.k, kv, c * kChunk, g, k0);
+        tma_3d(base + L::kV + c * L::kKTile, &maps.v, kv, c * kChunk, g, k0);
+      }
+      const int h0 = g * p.n_rep + part * hp;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        const int h = h0 + it / n_qt;
+        const int qq = k0 + (it % n_qt) * BQ;
+        const uint32_t fb = base + L::kBar + s * 8;  // full[s]
+        bar_wait(fb + STAGES * 8, ((it / STAGES) & 1) ^ 1);
+        bar_expect_tx(fb, 2 * DC * L::kQTile + 2 * (BQ + kVecPad) * 4);
+        const uint32_t st = base + L::kQO + s * L::kStage;
+        for (int c = 0; c < DC; ++c) {
+          tma_3d(st + c * L::kQTile, &maps.q, fb, c * kChunk, h, qq);
+          tma_3d(st + (DC + c) * L::kQTile, &maps.dout, fb, c * kChunk, h, qq);
+        }
+        const uint32_t vec = base + L::kVec + s * 2 * L::kVecBytes;
+        tma_1d(vec, &maps.lse, fb, vec_start(h * T + qq));
+        tma_1d(vec + L::kVecBytes, &maps.delta, fb, vec_start(h * T + qq));
+      }
+    }
+    return;
+  }
+
+  // consumers
+  setmaxnreg_inc<kKvConsumerRegs>();
+  const int wg = threadIdx.x / kWg - 1;
+  const int tid = threadIdx.x % kWg;
+  const int ctid = threadIdx.x - kWg;
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int kw0 = k0 + wg * kRows;
+  const int my_hi = k_range(p, kw0, kRows);
+  // all 64 keys real and of one segment: query tiles inside it and the
+  // window, and wholly after the diagonal, need no mask
+  const bool one_seg = kw0 + kRows <= T && p.seg[kw0] > 0 &&
+                       p.seg_start[kw0 + kRows - 1] == p.seg_start[kw0];
+  const int seg_end0 = one_seg ? p.seg_end[kw0] : 0;
+  // key i is seen by queries [key_t, key_hi) (none for padding)
+  int key_t[2], key_hi[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gid + 8 * i;
-    key_t[i] = k0 + r;
-    key_seg[i] = r < nk ? p.seg[k0 + r] : 0;
-  }
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk[j][e] = 0.f;
-      dv[j][e] = 0.f;
+    key_t[i] = kw0 + warp * 16 + gid + 8 * i;
+    key_hi[i] = key_t[i];
+    if (key_t[i] < T && p.seg[key_t[i]] > 0) {
+      key_hi[i] = p.seg_end[key_t[i]];
+      if (p.window > 0) key_hi[i] = min(key_hi[i], key_t[i] + p.window);
     }
+  }
+  const float scale_log2 = p.scale * kLog2e;
+  const bool cap = p.soft_cap > 0.f;
+  const float cap_log2 = p.soft_cap * kLog2e, cap_in = p.scale / p.soft_cap;
+  const uint32_t k_base = smem_u32(smem + L::kK) + wg * kRows * kLine;
+  const uint32_t v_base = smem_u32(smem + L::kV) + wg * kRows * kLine;
+  bar_wait(kvbar, 0);
+
+  float dk[DC][32], dv[DC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[c][e] = dv[c][e] = 0.f;
+  float st[BQ / 2], dpt[BQ / 2];  // each tile's first k-step writes them
 
   for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
+    const int s = it % STAGES;
     const int qq = k0 + (it % n_qt) * BQ;
-    const int n = min(BQ, hi - qq);
-    if (it + 1 < n_it) fetch(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qs = QO + buf * 2 * BQ * LD;
-    const bf16* dOs = Qs + BQ * LD;
-    const float* ls = lse_s + buf * BQ;
-    const float* dl = delta_s + buf * BQ;
-    const int* qs = qseg + buf * BQ;
+    bar_wait(&full[s], (it / STAGES) & 1);
+    if (qq < my_hi && qq + BQ > kw0) {
+      const uint32_t q_base = smem_u32(smem + L::kQO + s * L::kStage);
+      const uint32_t o_base = q_base + DC * L::kQTile;
+      // recompute the K and V descriptors each tile: hoisted out of the
+      // loop they would hold 32 registers beside dk and dv
+      uint32_t kb = k_base, vb = v_base;
+      asm volatile("" : "+r"(kb), "+r"(vb));
+      const unsigned char* vec = smem + L::kVec + s * 2 * L::kVecBytes;
+      const int hq = g * p.n_rep + part * hp + it / n_qt;
+      const float* ls = reinterpret_cast<const float*>(vec) + vec_skip(hq * T + qq);
+      const float* dl = reinterpret_cast<const float*>(vec + L::kVecBytes) +
+                        vec_skip(hq * T + qq);
+      wgmma_fence();
+      wgmma_ss_first(st, desc_k(kb, 0, L::kKTile), desc_k(q_base, 0, L::kQTile));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss(st, desc_k(kb, kk, L::kKTile), desc_k(q_base, kk, L::kQTile));
+      wgmma_ss_first(dpt, desc_k(vb, 0, L::kKTile), desc_k(o_base, 0, L::kQTile));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss(dpt, desc_k(vb, kk, L::kKTile), desc_k(o_base, kk, L::kQTile));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(st);
+      fence_regs(dpt);
 
-    // S^T and dP^T: this warp's 16 keys x BQ queries
-    float s[NQ][4], dp[NQ][4];
+      const bool unmasked = one_seg && qq >= kw0 + kRows - 1 && qq + BQ <= seg_end0 &&
+                            (p.window <= 0 || qq + BQ - 1 - kw0 < p.window);
+      // P^T and dS^T, with the mask and the cap resolved outside the loop
+      auto scores = [&](auto masked, auto capped) {
 #pragma unroll
-    for (int j = 0; j < NQ; ++j)
+        for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = 0.f;
-        dp[j][e] = 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int c = 8 * j + 2 * tig + (e & 1);  // query within the tile
+            float x, tt = 0.f;
+            if (decltype(capped)::value) {
+              tt = tanhf(st[4 * j + e] * cap_in);
+              x = cap_log2 * tt;
+            } else {
+              x = st[4 * j + e] * scale_log2;
+            }
+            const bool ok = !decltype(masked)::value ||
+                            (qq + c >= key_t[i] && qq + c < key_hi[i]);
+            // pad queries carry the sentinel; clamp its log2 form so it
+            // stays finite
+            const float pr = ok ? ex2(x - fmaxf(ls[c] * kLog2e, kNegInf)) : 0.f;
+            float ds = pr * (dpt[4 * j + e] - dl[c]);
+            if (decltype(capped)::value) ds *= 1.f - tt * tt;
+            st[4 * j + e] = pr;
+            dpt[4 * j + e] = ds;
+          }
+          // read each column's lse and delta where it is used, not all up
+          // front (that would hold 32 more registers beside dk and dv)
+          asm volatile("" ::: "memory");
+        }
+      };
+      if (cap) {
+        if (unmasked) scores(std::false_type{}, std::true_type{});
+        else scores(std::true_type{}, std::true_type{});
+      } else {
+        if (unmasked) scores(std::false_type{}, std::false_type{});
+        else scores(std::true_type{}, std::false_type{});
       }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a(ak, Ks, LD, warp * 16, kk * 16, gid, tig);
-      load_a(av, Vs, LD, warp * 16, kk * 16, gid, tig);
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        c_to_a(pa[kk], st, kk);
+        c_to_a(da[kk], dpt, kk);
+      }
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const bf16* bq = Qs + (j * 8 + gid) * LD + kk * 16 + 2 * tig;
-        const bf16* bo = dOs + (j * 8 + gid) * LD + kk * 16 + 2 * tig;
-        mma_bf16(s[j], ak, ld32(bq), ld32(bq + 8));
-        mma_bf16(dp[j], av, ld32(bo), ld32(bo + 8));
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          wgmma_rs(dv[c], pa[kk], desc_mn(o_base, kk, c, L::kQTile));
+          wgmma_rs(dk[c], da[kk], desc_mn(q_base, kk, c, L::kQTile));
+        }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        fence_regs(dk[c]);
+        fence_regs(dv[c]);
       }
     }
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int c = j * 8 + 2 * tig + (e & 1);  // query within the tile
-        float tt;
-        const float x = score(s[j][e], p, tt) * kLog2e;
-        const bool ok = key_seg[i] > 0 && c < n &&
-                        visible(qq + c, qs[c], key_t[i], key_seg[i], p.window);
-        // pad rows carry the sentinel; clamp its log2 form so it stays finite
-        const float pr = ok ? exp2f(x - fmaxf(ls[c] * kLog2e, kNegInf)) : 0.f;
-        float ds = pr * (dp[j][e] - dl[c]);
-        if (p.soft_cap > 0.f) ds *= 1.f - tt * tt;
-        s[j][e] = pr;
-        dp[j][e] = ds;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < NQ / 2; ++kk) {
-      uint32_t ap[4], ads[4];
-      c_to_a(ap, s[2 * kk], s[2 * kk + 1]);
-      c_to_a(ads, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t bo[4], bq[4];
-        load_bt(bo, dOs, LD, kk * 16, j * 8, lane);
-        load_bt(bq, Qs, LD, kk * 16, j * 8, lane);
-        mma_bf16(dv[j], ap, bo[0], bo[1]);
-        mma_bf16(dv[j + 1], ap, bo[2], bo[3]);
-        mma_bf16(dk[j], ads, bq[0], bq[1]);
-        mma_bf16(dk[j + 1], ads, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();
+    bar_arrive(&empty[s]);
   }
 
-  cp_async_wait<0>();  // nothing left in flight (a block may have no tiles)
+  const size_t plane = size_t(T) * p.Hkv * D;
   bf16* dk_out = static_cast<bf16*>(p.dk);
   bf16* dv_out = static_cast<bf16*>(p.dv);
+  if (parts == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key_t[i] >= T) continue;
+      const size_t base = (size_t(key_t[i]) * p.Hkv + g) * D + 2 * tig;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = c * kChunk + 8 * j;
+          *reinterpret_cast<__nv_bfloat162*>(dk_out + base + d) = __floats2bfloat162_rn(
+              dk[c][4 * j + 2 * i] * p.scale, dk[c][4 * j + 2 * i + 1] * p.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv_out + base + d) =
+              __floats2bfloat162_rn(dv[c][4 * j + 2 * i], dv[c][4 * j + 2 * i + 1]);
+        }
+    }
+    return;
+  }
+  // this part's f32 partial, [part][dk | dv][T][Hkv][D]
+  float* wk = p.ws + size_t(part) * 2 * plane;
+  float* wv = wk + plane;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gid + 8 * i;
-    if (r >= nk) continue;
-    const size_t base = (size_t(k0 + r) * p.Hkv + g) * D + 2 * tig;
+    if (key_t[i] >= T) continue;
+    const size_t base = (size_t(key_t[i]) * p.Hkv + g) * D + 2 * tig;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_out + base + j * 8) =
-          __floats2bfloat162_rn(dk[j][2 * i] * p.scale, dk[j][2 * i + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv_out + base + j * 8) =
-          __floats2bfloat162_rn(dv[j][2 * i], dv[j][2 * i + 1]);
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = c * kChunk + 8 * j;
+        *reinterpret_cast<float2*>(wk + base + d) =
+            make_float2(dk[c][4 * j + 2 * i], dk[c][4 * j + 2 * i + 1]);
+        *reinterpret_cast<float2*>(wv + base + d) =
+            make_float2(dv[c][4 * j + 2 * i], dv[c][4 * j + 2 * i + 1]);
+      }
+  }
+  __threadfence();
+  consumers_sync();
+  int* counter = p.counters + kb * p.Hkv + g;
+  if (ctid == 0) *s_last = atomicAdd(counter, 1) == parts - 1;
+  consumers_sync();
+  if (!*s_last) return;
+  __threadfence();
+  // the last block sums the parts in part order
+  constexpr int kVecs = D / 4;
+  for (int idx = ctid; idx < 2 * kRows * kVecs; idx += 2 * kWg) {
+    const int key = k0 + idx / kVecs;
+    if (key >= T) continue;
+    const size_t off = (size_t(key) * p.Hkv + g) * D + (idx % kVecs) * 4;
+    float4 sk = __ldcg(reinterpret_cast<const float4*>(p.ws + off));
+    float4 sv = __ldcg(reinterpret_cast<const float4*>(p.ws + plane + off));
+    for (int q = 1; q < parts; ++q) {
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(p.ws + q * 2 * plane + off));
+      const float4 b =
+          __ldcg(reinterpret_cast<const float4*>(p.ws + q * 2 * plane + plane + off));
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += b.x; sv.y += b.y; sv.z += b.z; sv.w += b.w;
+    }
+    __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(dk_out + off);
+    __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(dv_out + off);
+    ok[0] = __floats2bfloat162_rn(sk.x * p.scale, sk.y * p.scale);
+    ok[1] = __floats2bfloat162_rn(sk.z * p.scale, sk.w * p.scale);
+    ov[0] = __floats2bfloat162_rn(sv.x, sv.y);
+    ov[1] = __floats2bfloat162_rn(sv.z, sv.w);
+  }
+  if (ctid == 0) *counter = 0;
+}
+
+// --------------------------------------------------------------------------
+// backward preprocessing: delta = rowsum(dO * O)
+// --------------------------------------------------------------------------
+
+// delta[h, t] = sum over d of dO[t, h, d] O[t, h, d] in f32 (the reference
+// leaves it to XLA): 8 lanes per (t, h) row, 16-byte loads, 32 rows per block
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_delta_kernel(const T* dout, const T* out, float* delta, int nt, int H,
+                       int D) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int row = blockIdx.x * 32 + threadIdx.x / 8;  // t * H + h
+  const int lane = threadIdx.x % 8;
+  float sum = 0.f;
+  if (row < nt * H) {
+    const T* a = dout + size_t(row) * D;
+    const T* b = out + size_t(row) * D;
+    for (int c = lane * kVec; c < D; c += 8 * kVec) {
+      const uint4 ra = *reinterpret_cast<const uint4*>(a + c);
+      const uint4 rb = *reinterpret_cast<const uint4*>(b + c);
+      const T* ea = reinterpret_cast<const T*>(&ra);
+      const T* eb = reinterpret_cast<const T*>(&rb);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) sum = fmaf(to_f(ea[j]), to_f(eb[j]), sum);
     }
   }
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  if (lane == 0 && row < nt * H) delta[size_t(row % H) * nt + row / H] = sum;
 }
 
 // --------------------------------------------------------------------------
@@ -1329,38 +1803,132 @@ cudaError_t launch_bwd(Params p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// --- v4 host side ------------------------------------------------------------
+
+// the v4 kernels' tiles (ops/cuda/flash_attention.py::plan reads them back
+// through flash_tiles and refuses to launch if its own differ)
+constexpr int kKeyTile = 64;  // forward and dq: keys per K/V tile
+// dk/dv: queries per Q/dO tile; 48 at D 128 keeps the score tiles (24
+// registers each) beside dk and dv (128) within the consumers' 240
+constexpr int query_tile(int D) { return D > 64 ? 48 : 64; }
+constexpr int kFwdStages = 3, kDqStages = 2, kKvStages = 2;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library links no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// [T, heads, D] bf16 in boxes of {64, box_h heads, box_t tokens}, 128-byte
+// swizzle (the wgmma descriptors' layout); zero fill past the edges
+bool map_rows(CUtensorMap* map, const void* ptr, int T, int heads, int D, int box_h,
+              int box_t) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(T)};
+  const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(heads) * D * 2};
+  const cuuint32_t box[3] = {cuuint32_t(kChunk), cuuint32_t(box_h), cuuint32_t(box_t)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// n f32 values in boxes of `box`; zero fill past the end
+bool map_vec(CUtensorMap* map, const float* ptr, size_t n, int box) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[1] = {cuuint64_t(n)};
+  const cuuint64_t strides[1] = {0};  // rank 1: none is read
+  const cuuint32_t boxd[1] = {cuuint32_t(box)};
+  const cuuint32_t unit[1] = {1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims,
+             strides, boxd, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// forward and dq: one persistent block per SM, or one per item if fewer
+int q_grid(const Params& p) {
+  const int n_items = (p.T + 2 * p.bq - 1) / (2 * p.bq) * p.Hkv;
+  return n_items < kSms ? n_items : kSms;
+}
+
 template <int D>
-cudaError_t launch_fwd_mma(Params p, cudaStream_t stream) {
-  constexpr int R = 16 * kMmaWarps, BK = 64;
-  if (p.n_rep > R) return cudaErrorInvalidValue;
-  p.bq = R / p.n_rep;
-  // Q tile, two buffers of K and V tiles, two buffers of key segment ids
-  const size_t bytes = size_t(R + 4 * BK) * (D + 8) * 2 + 2 * BK * 4;
-  auto kernel = flash_fwd_mma_kernel<D>;
-  cudaError_t err = set_smem(kernel, bytes);
+cudaError_t launch_fwd_v4(Params p, cudaStream_t stream) {
+  using L = QSide<D, kKeyTile, kFwdStages, false>;
+  p.bq = kRows / p.n_rep;
+  Maps maps = {};
+  if (!map_rows(&maps.q, p.q, p.T, p.H, D, p.n_rep, p.bq) ||
+      !map_rows(&maps.out, p.out, p.T, p.H, D, p.n_rep, p.bq) ||
+      !map_rows(&maps.k, p.k, p.T, p.Hkv, D, 1, kKeyTile) ||
+      !map_rows(&maps.v, p.v, p.T, p.Hkv, D, 1, kKeyTile))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_v4_kernel<D, kKeyTile, kFwdStages>;
+  const cudaError_t err = set_smem(kernel, L::kBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.T + p.bq - 1) / p.bq, p.Hkv);
-  kernel<<<grid, kMmaThreads, bytes, stream>>>(p);
+  kernel<<<q_grid(p), kV4Threads, L::kBytes, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_bwd_mma(Params p, cudaStream_t stream) {
-  constexpr int R = 16 * kMmaWarps, BK = 64, B = 16 * kMmaWarps, BQ = 32;
-  // Q and dO tiles, two buffers of K and V tiles and key segment ids
-  const size_t dq_bytes = size_t(2 * R + 4 * BK) * (D + 8) * 2 + 2 * BK * 4;
-  auto dq_kernel = flash_dq_mma_kernel<D>;
-  cudaError_t err = set_smem(dq_kernel, dq_bytes);
+cudaError_t launch_bwd_v4(Params p, cudaStream_t stream) {
+  if (p.parts < 1 || p.n_rep % p.parts != 0 ||
+      (p.parts > 1 && (p.ws == nullptr || p.counters == nullptr)))
+    return cudaErrorInvalidValue;
+  p.bq = kRows / p.n_rep;
+  Maps dq_maps = {};
+  if (!map_rows(&dq_maps.q, p.q, p.T, p.H, D, p.n_rep, p.bq) ||
+      !map_rows(&dq_maps.dout, p.dout, p.T, p.H, D, p.n_rep, p.bq) ||
+      !map_rows(&dq_maps.out, p.dq, p.T, p.H, D, p.n_rep, p.bq) ||
+      !map_rows(&dq_maps.k, p.k, p.T, p.Hkv, D, 1, kKeyTile) ||
+      !map_rows(&dq_maps.v, p.v, p.T, p.Hkv, D, 1, kKeyTile))
+    return cudaErrorInvalidValue;
+  using LQ = QSide<D, kKeyTile, kDqStages, true>;
+  auto dq_kernel = flash_dq_v4_kernel<D, kKeyTile, kDqStages>;
+  cudaError_t err = set_smem(dq_kernel, LQ::kBytes);
   if (err != cudaSuccess) return err;
-  dq_kernel<<<dim3((p.T + R - 1) / R, p.H), kMmaThreads, dq_bytes, stream>>>(p);
+  dq_kernel<<<q_grid(p), kV4Threads, LQ::kBytes, stream>>>(dq_maps, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // K and V tiles, two buffers of Q and dO tiles and of lse, delta, ids
-  const size_t kv_bytes = size_t(2 * B + 4 * BQ) * (D + 8) * 2 + 3 * 2 * BQ * 4;
-  auto kv_kernel = flash_dkdv_mma_kernel<D>;
-  err = set_smem(kv_kernel, kv_bytes);
+
+  Maps kv_maps = {};
+  const size_t ht = size_t(p.H) * p.T;
+  if (!map_rows(&kv_maps.q, p.q, p.T, p.H, D, 1, query_tile(D)) ||
+      !map_rows(&kv_maps.dout, p.dout, p.T, p.H, D, 1, query_tile(D)) ||
+      !map_rows(&kv_maps.k, p.k, p.T, p.Hkv, D, 1, 2 * kRows) ||
+      !map_rows(&kv_maps.v, p.v, p.T, p.Hkv, D, 1, 2 * kRows) ||
+      !map_vec(&kv_maps.lse, p.lse, ht, query_tile(D) + kVecPad) ||
+      !map_vec(&kv_maps.delta, p.delta, ht, query_tile(D) + kVecPad))
+    return cudaErrorInvalidValue;
+  using LK = KSide<D, query_tile(D), kKvStages>;
+  auto kv_kernel = flash_dkdv_v4_kernel<D, query_tile(D), kKvStages>;
+  err = set_smem(kv_kernel, LK::kBytes);
   if (err != cudaSuccess) return err;
-  kv_kernel<<<dim3((p.T + B - 1) / B, p.Hkv), kMmaThreads, kv_bytes, stream>>>(p);
+  const int n_kb = (p.T + 2 * kRows - 1) / (2 * kRows);
+  kv_kernel<<<n_kb * p.Hkv * p.parts, kV4Threads, LK::kBytes, stream>>>(kv_maps, p);
   return cudaGetLastError();
 }
 
@@ -1410,13 +1978,13 @@ cudaError_t dispatch(int dtype, const Params& p, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
-// CPT > 0: the CUDA-core kernels' bucket; CPT = -D: the tensor-core
+// CPT > 0: the CUDA-core kernels' bucket; CPT = -D: the v4 tensor-core
 // kernels for head dim D (bf16 only)
 template <typename T, int CPT>
 struct Fwd {
   static cudaError_t run(const Params& p, cudaStream_t s) {
     if constexpr (CPT < 0) {
-      return launch_fwd_mma<-CPT>(p, s);
+      return launch_fwd_v4<-CPT>(p, s);
     } else {
       return launch_fwd<T, CPT>(p, s);
     }
@@ -1427,7 +1995,7 @@ template <typename T, int CPT>
 struct Bwd {
   static cudaError_t run(const Params& p, cudaStream_t s) {
     if constexpr (CPT < 0) {
-      return launch_bwd_mma<-CPT>(p, s);
+      return launch_bwd_v4<-CPT>(p, s);
     } else {
       return launch_bwd<T, CPT>(p, s);
     }
@@ -1456,13 +2024,26 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
 
 extern "C" int flash_bwd(int dtype, const void* q, const void* k, const void* v,
                          const int* seg, const int* seg_start,
-                         const int* seg_end, const float* lse,
-                         const void* dout, const float* delta, void* dq,
-                         void* dk, void* dv, int T, int H, int Hkv, int D,
-                         float scale, float soft_cap, int window,
-                         void* stream) {
+                         const int* seg_end, const float* lse, const void* out,
+                         const void* dout, float* delta, void* dq, void* dk,
+                         void* dv, float* workspace, int* counters, int T, int H,
+                         int Hkv, int D, float scale, float soft_cap,
+                         int window, int parts, void* stream) {
   if (!valid_shape(T, H, Hkv, D)) return cudaErrorInvalidValue;
   if (T == 0 || H == 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int delta_blocks = (T * H + 31) / 32;
+  if (dtype == kBF16) {
+    flash_delta_kernel<bf16><<<delta_blocks, 256, 0, st>>>(
+        static_cast<const bf16*>(dout), static_cast<const bf16*>(out), delta, T, H, D);
+  } else if (dtype == kF32) {
+    flash_delta_kernel<float><<<delta_blocks, 256, 0, st>>>(
+        static_cast<const float*>(dout), static_cast<const float*>(out), delta, T, H, D);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   Params p = make_params(q, k, v, seg, seg_start, seg_end, T, H, Hkv, D, scale,
                          soft_cap, window);
   p.lse = const_cast<float*>(lse);
@@ -1471,6 +2052,18 @@ extern "C" int flash_bwd(int dtype, const void* q, const void* k, const void* v,
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
-  return static_cast<int>(
-      dispatch<Bwd>(dtype, p, static_cast<cudaStream_t>(stream)));
+  p.ws = workspace;
+  p.counters = counters;
+  p.parts = parts;
+  return static_cast<int>(dispatch<Bwd>(dtype, p, st));
+}
+
+// The v4 kernels' tiles at head dim D: rows per consumer warpgroup, keys
+// per K/V tile (forward, dq), keys per dk/dv block, queries per Q/dO tile
+// (dk/dv).
+extern "C" void flash_tiles(int D, int* out) {
+  out[0] = kRows;
+  out[1] = kKeyTile;
+  out[2] = 2 * kRows;
+  out[3] = query_tile(D);
 }

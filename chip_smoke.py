@@ -38,10 +38,18 @@ Phases, each printing one JSON line:
    - flash attention forward and backward (dq, dk, dv), at the trainer's
      shape (T 8192, H 12, Hkv 2, D 128, bf16, 8 segments of 512-1536
      tokens plus tail padding) and at small shapes in f32 and bf16 with
-     soft cap, sliding window, GQA groups of 1 and 8, D 64 and 256 (bf16
-     with D 64 or 128 runs the tensor-core kernels, the rest the CUDA-core
-     ones), one segment and all-padding tail rows; library: SDPA with an explicit
-     [T, T] segment-causal boolean mask, forward and backward.
+     soft cap, sliding window, GQA groups of 1, 6, 8 and 16, D 64 and 256
+     (bf16 with D 64 or 128 runs the v4 tensor-core kernels, the rest the
+     CUDA-core ones), one segment of 4096 tokens (the dk/dv kernel's
+     longest walk), single-token segments, T that is a multiple of no tile
+     and all-padding tail rows; every case is launched twice (bit-identical
+     results) and the dk/dv merge's arrival counters must read 0
+     afterwards; library: PyTorch's varlen flash attention over the real
+     tokens (FA2; ``torch.nn.attention.varlen.varlen_attn`` where the
+     installed torch has it, else ``aten._flash_attention_forward``) and
+     SDPA with an explicit [T, T] segment-causal boolean mask (which does
+     every pair of the [T, T] square, ~16x the pairs the mask keeps at the
+     trainer's shape), forward and backward.
 3. ``parity``: a tiny float32 model served by the engine on the card and
    on the CPU must give the same greedy tokens.
 4. ``serve``: the engine at the full width of the R1-Distill-Qwen-1.5B
@@ -65,6 +73,11 @@ Phases, each printing one JSON line:
    remat re-runs each layer's forward in the backward). Prints trained
    tokens/s, seconds per optimizer step and peak memory; ``--profile``
    adds the busy share and device time by kernel over the second round.
+
+Extra phases, run only when named: ``decode_time`` and ``flash_time``
+time the paged-decode and flash kernels of the package imported (with
+``--package DIR``, an earlier commit's) through their public signatures,
+so that two versions compare in one call.
 
 Then it prints the kernel table line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed check raises: the
@@ -598,6 +611,73 @@ def flash_sdpa(torch, x, kw):
     return fwd, bwd
 
 
+def flash_varlen(torch, x, kw):
+    """PyTorch's own varlen flash attention (FA2) over the real tokens, the
+    same packed segment-causal (windowed) function: ``torch.nn.attention.
+    varlen.varlen_attn`` where the installed torch has it, else
+    ``aten._flash_attention_forward`` / ``_backward``; K/V repeated to H
+    where the call lacks GQA. Returns (forward, backward, call name), or
+    (None, None, reason) where it cannot compute the function (a soft cap;
+    f32, which FA2 does not take)."""
+    import inspect
+
+    if kw.get("soft_cap") is not None or x["q"].dtype != torch.bfloat16:
+        return None, None, "no soft cap / f32 in FA2"
+    seg = x["seg_np"]
+    n = int((seg > 0).sum())
+    lens = np.bincount(seg[:n])[1:]
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32,
+                      device="cuda")
+    max_len = int(lens.max())
+    q, k, v = (x[name][:n].detach() for name in ("q", "k", "v"))
+    do = x["do"][:n]
+    H, D = q.shape[1:]
+    rep = H // k.shape[1]
+    window = kw.get("sliding_window")
+    scale = D ** -0.5
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError:
+        varlen_attn = None
+    if varlen_attn is not None:
+        params = inspect.signature(varlen_attn).parameters
+        opts = {"scale": scale}
+        if "window_size" in params:
+            opts["window_size"] = (window - 1 if window else -1, 0)
+        elif window:
+            return None, None, "varlen_attn without window_size"
+        else:
+            opts["is_causal"] = True
+        if "enable_gqa" in params:
+            opts["enable_gqa"] = True
+        else:
+            k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+
+        def fwd():
+            return varlen_attn(q, k, v, cu, cu, max_len, max_len, **opts)
+        name = "torch.nn.attention.varlen.varlen_attn"
+    else:
+        k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        wl = window - 1 if window else -1
+
+        def fwd():
+            return torch.ops.aten._flash_attention_forward(
+                q, k, v, cu, cu, max_len, max_len, 0.0, True, False,
+                scale=scale, window_size_left=wl, window_size_right=0)[0]
+        name = "aten._flash_attention_forward"
+    try:
+        out = fwd()
+    except RuntimeError as e:  # a build of torch without this path
+        return None, None, f"{name} failed: {str(e)[:160]}"
+
+    def bwd():
+        return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+    return fwd, bwd, name
+
+
 def flash_compare(torch, got, want, dtype):
     """(max abs err, err / limit) under FLASH_TOL; raises past the limit."""
     mode, a, r = FLASH_TOL[dtype]
@@ -617,7 +697,19 @@ def flash_kernels_phase(torch):
 
     slice_shape = dict(T=8192, H=12, Hkv=2, D=128, lens=SLICE_LENS)
     small = dict(T=384, H=4, Hkv=2, D=64, lens=[100, 156, 60])
+    # bf16 at D 64 / 128 runs the v4 kernels: GQA 6 with cap and window at D
+    # 64, GQA 16, one 4096-token segment (the dk/dv kernel's longest walk),
+    # single-token segments, and T a multiple of no tile
+    v4 = dict(T=501, H=6, Hkv=1, D=64, lens=[300, 150], dtype="bfloat16")
     cases = [
+        ("bf16_rep6_d64_cap_window", v4, dict(soft_cap=30.0, sliding_window=100)),
+        ("bf16_rep16_d128", dict(v4, T=700, H=16, D=128, lens=[700]), {}),
+        ("bf16_seg4096", dict(slice_shape, T=4096, lens=[4096], dtype="bfloat16"),
+         {}),
+        ("bf16_single_tokens", dict(v4, T=333, H=2, Hkv=2, D=128,
+                                    lens=[1, 1, 200, 1, 77]), {}),
+        ("bf16_odd_t", dict(v4, T=1001, H=6, Hkv=2, D=128, lens=[333, 1, 500, 97]),
+         dict(sliding_window=150)),
         ("slice_bf16", dict(slice_shape, dtype="bfloat16"), {}),
         ("f32", dict(small, dtype="float32"), {}),
         ("f32_soft_cap", dict(small, dtype="float32"), dict(soft_cap=5.0)),
@@ -643,6 +735,18 @@ def flash_kernels_phase(torch):
         out, lse = cuda_flash.flash_forward(q, k, v, seg, **kw)
         dq, dk, dv = cuda_flash.flash_backward(q, k, v, seg, out, lse, do, **kw)
         torch.cuda.synchronize()
+        # deterministic (the dk/dv parts merge in part order, no float
+        # atomics), and the merge leaves its arrival counters at 0
+        again = cuda_flash.flash_forward(q, k, v, seg, **kw)
+        again += cuda_flash.flash_backward(q, k, v, seg, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(again, (out, lse, dq, dk, dv))):
+            raise AssertionError(f"flash {name}: two launches on the same inputs "
+                                 "differ")
+        if int(cuda_flash.counters(q.device).abs().sum()) != 0:
+            raise AssertionError(f"flash {name}: arrival counters not 0 after "
+                                 "a launch")
+        del again
         qp, kp, vp = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         pout, plse = attention_plain(qp, kp, vp, seg, spec["D"] ** -0.5,
                                      kw.get("soft_cap"), kw.get("sliding_window"))
@@ -650,7 +754,8 @@ def flash_kernels_phase(torch):
         torch.cuda.synchronize()
         row = {"atol_or_rel": FLASH_TOL[spec["dtype"]][1],
                "rtol_or_rms": FLASH_TOL[spec["dtype"]][2],
-               "mode": FLASH_TOL[spec["dtype"]][0]}
+               "mode": FLASH_TOL[spec["dtype"]][0],
+               "bit_identical_rerun": True, "counters_zero": True}
         live = seg > 0
         checks = [("out", out, pout), ("lse", lse[:, live], plse[:, live]),
                   ("dq", dq, pgrads[0]), ("dk", dk, pgrads[1]),
@@ -694,6 +799,10 @@ def flash_kernels_phase(torch):
         row["library_fwd_ms"] = cuda_ms(lib_fwd, it) if lib_fwd else None
         row["library_bwd_ms"] = cuda_ms(lib_bwd, it) if lib_bwd else None
         del lib_fwd, lib_bwd
+        var_fwd, var_bwd, row["library_varlen_call"] = flash_varlen(torch, x, kw)
+        row["library_varlen_fwd_ms"] = cuda_ms(var_fwd, it) if var_fwd else None
+        row["library_varlen_bwd_ms"] = cuda_ms(var_bwd, it) if var_bwd else None
+        del var_fwd, var_bwd
         row["fwd_bound_ms"], row["fwd_bound_by"] = flash_bound(torch, x, kw, False)
         row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bound(torch, x, kw, True)
         row["pairs"] = flash_pairs(x["seg_np"], kw.get("sliding_window"))
@@ -702,6 +811,68 @@ def flash_kernels_phase(torch):
         torch.cuda.empty_cache()
     emit(phase="kernels", kernel="flash_attention", cases=results)
     return results
+
+
+def flash_time_phase(torch):
+    """The slice-shape flash case alone, through the wrappers' public
+    signature only, so that the same script times any version of the
+    package (``--package``): two versions compare in one call, on one
+    yardstick. Checked against the package's plain version first. Event
+    time of eager calls as every kernel row, and device time summed over
+    every kernel each wrapper launches (torch.profiler)."""
+    import hashlib
+    import pathlib
+
+    from areal_tpu_torch.ops.attention import attention_plain
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+
+    src = pathlib.Path(cuda_flash.__file__).parents[2] / "csrc" / \
+        "flash_attention.cu"
+    x = make_flash_inputs(torch, seed=200, T=8192, H=12, Hkv=2, D=128,
+                          lens=SLICE_LENS, dtype="bfloat16")
+    q, k, v, seg, do = x["q"], x["k"], x["v"], x["seg"], x["do"]
+
+    def fwd():
+        return cuda_flash.flash_forward(q, k, v, seg)
+
+    out, lse = fwd()
+
+    def bwd():
+        return cuda_flash.flash_backward(q, k, v, seg, out, lse, do)
+
+    got = (out,) + bwd()
+    qp, kp, vp = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    pout, _ = attention_plain(qp, kp, vp, seg, 128 ** -0.5)
+    want = (pout,) + torch.autograd.grad(pout, (qp, kp, vp), do)
+    row = {}
+    for part, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        err, over = flash_compare(torch, a, b, "bfloat16")
+        if not (np.isfinite(over) and over <= 1.0):
+            raise AssertionError(f"flash_time {part}: {over} x its limit")
+        row[f"{part}_err_over_tol"] = over
+    del qp, kp, vp, pout, want, got
+    row["fwd_ms"] = cuda_ms(fwd, 20)
+    row["bwd_ms"] = cuda_ms(bwd, 20)
+    for part, fn in (("fwd", fwd), ("bwd", bwd)):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        row[f"{part}_device_ms"] = sum(
+            ev.device_time_total for ev in prof.key_averages()) / 10 / 1e3
+        row[f"{part}_device_ms_by_kernel"] = {
+            ev.key[:60]: ev.device_time_total / ev.count / 1e3
+            for ev in prof.key_averages() if ev.device_time_total > 0}
+    row["fwd_bound_ms"], _ = flash_bound(torch, x, {}, False)
+    row["bwd_bound_ms"], _ = flash_bound(torch, x, {}, True)
+    del x, q, k, v, seg, do, out, lse
+    torch.cuda.empty_cache()
+    emit(phase="flash_time", package=str(src.parents[2]),
+         source_sha256=hashlib.sha256(src.read_bytes()).hexdigest()[:16],
+         cases={"slice_bf16": row})
 
 
 # --------------------------------------------------------------------------- #
@@ -1624,9 +1795,10 @@ def train_phase(torch, profile=False):
     )
     if prof is not None:
         row["profile"] = device_profile(
-            prof, inf_s + train_s, {"flash_fwd": "flash_fwd",
-                                    "flash_dq": "flash_dq",
-                                    "flash_dkdv": "flash_dkdv"})
+            prof, inf_s + train_s, {"flash_fwd": "flash_fwd_v4",
+                                    "flash_dq": "flash_dq_v4",
+                                    "flash_dkdv": "flash_dkdv_v4",
+                                    "flash_delta": "flash_delta"})
     emit(phase="train", **row)
     del eng, actor, probe
     torch.cuda.empty_cache()
@@ -1657,9 +1829,9 @@ def main(argv=None) -> int:
     ap.add_argument("--package", default=None,
                     help="import areal_tpu_torch from this directory (e.g. "
                          "an unpacked earlier commit) instead of the "
-                         "script's; with the extra phase decode_time, two "
-                         "versions of the paged-decode kernel are timed "
-                         "alike")
+                         "script's; with the extra phases decode_time and "
+                         "flash_time, two versions of the paged-decode or "
+                         "flash kernels are timed alike")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     args.kernels = tuple(args.kernels.split(","))
@@ -1706,6 +1878,8 @@ def main(argv=None) -> int:
             flash = flash_kernels_phase(torch)
     if "decode_time" in phases:
         decode_time_phase(torch)
+    if "flash_time" in phases:
+        flash_time_phase(torch)
     if args.sweep:
         sweep_phase(torch)
     if "parity" in phases:
