@@ -57,3 +57,14 @@ def fused_sample_enabled() -> bool:
     distribution-exact for sampled slots. An explicit engine argument
     overrides this knob."""
     return env_flag(FUSED_SAMPLE_ENV, False)
+
+
+# Decode-chunk pipelining (the reference's ``pipeline_chunks``).
+DECODE_PIPELINE_ENV = "AREAL_DECODE_PIPELINE"
+
+
+def decode_pipeline_enabled() -> bool:
+    """``AREAL_DECODE_PIPELINE`` (default off): harvest decode chunks one
+    late so the per-chunk host sync overlaps the next chunk's compute. An
+    explicit ``pipeline_chunks`` engine argument overrides this knob."""
+    return env_flag(DECODE_PIPELINE_ENV, False)

@@ -13,10 +13,25 @@
 - Decode: a chunk of N steps; stop-token detection and per-slot caps run
   on the device, so the host syncs once per chunk. Each step's attention
   is the paged decode kernel on a GPU.
+- Chunk programs (the counterpart of the reference's jitted ``lax.scan``
+  chunk, one per ``(n_steps, width, warp_bucket, fused, with_topk)``
+  key): on a GPU each key's chunk body is captured once as a
+  ``torch.cuda.CUDAGraph`` and every chunk replays it; on the CPU the
+  same body runs eagerly. Either way it reads and writes only static
+  buffers: the decode state is updated in place, the page table and the
+  warp rows are copied into fixed device buffers before each run, and
+  the harvest flags land in a fixed ``[4, B]`` buffer whose copy to the
+  host is enqueued right behind the chunk (``_dispatch``) and waited for
+  later (``_resolve``). Admission (extend and commit) stays eager.
+- Pipelining (``pipeline_chunks`` / ``AREAL_DECODE_PIPELINE``): harvest
+  each chunk one step late, after the next one is dispatched, so the
+  host's harvest overlaps the device's decode (``_step_pipelined``).
 - Interruption: the host stops issuing chunks and harvests partial
   outputs; clients re-submit with the accumulated tokens.
-- Weight update: swap the params between chunks; the prefix cache is
-  invalidated (KV from old weights must not seed new generations).
+- Weight update: the new weights are copied into the engine's tensors
+  between chunks (captured programs keep reading the same addresses); the
+  prefix cache is invalidated (KV from old weights must not seed new
+  generations).
 
 - Sampling: the plain epilogue materializes ``[B, V]`` logits and samples
   over them (``gen/sampling.py``); with ``fused_sample`` (argument, or
@@ -26,8 +41,7 @@
   keep the sorted sampler over their own logits rows only.
 
 Left out of this port so far (all off by default in the reference):
-speculative decoding and drafters, the tensor-parallel mesh and chunk
-pipelining.
+speculative decoding and drafters, and the tensor-parallel mesh.
 
 Thread-safety: ``submit`` arrives on the server's handler threads while
 ``step`` runs on the server's engine thread. ``_lock`` guards device
@@ -35,9 +49,10 @@ state, slots and pool; ``_pending_lock`` guards only the intake queue.
 """
 
 import dataclasses
+import functools
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +64,12 @@ from areal_tpu_torch.gen.sampling import SamplingParams, sample_tokens
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.ops import fused_sample as fused_ops
+from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
+from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
+
+# the kernel wrappers a decode chunk launches through: a captured chunk
+# credits each one the launches its capture recorded, on every replay
+_KERNEL_MODULES = (cuda_paged, cuda_fused)
 
 
 @dataclasses.dataclass
@@ -143,6 +164,45 @@ class _Clock:
         return a.elapsed_time(b) / 1e3 if self.cuda else b - a
 
 
+@dataclasses.dataclass
+class _ChunkProgram:
+    """One chunk key's program: ``run`` replays its CUDA graph (or runs the
+    eager body on the CPU); ``launches`` holds the kernel launches one run
+    makes, per wrapper module, as its capture recorded them."""
+
+    run: Callable[[], None]
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    launches: Dict[object, int] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class _ChunkIO:
+    """Host side of one chunk in flight: the staging copies of its page
+    table and warp rows, the buffer its harvest flags are copied into, and
+    the event that marks that copy done (pinned memory and an event on a
+    GPU; plain tensors and no event on the CPU, where copies are
+    synchronous). A chunk holds its ``_ChunkIO`` until it is resolved; at
+    most one chunk is in flight past the one being dispatched, so two
+    alternate."""
+
+    table: torch.Tensor          # [B, M] i32
+    warp: torch.Tensor           # [B] i64
+    flags: torch.Tensor          # [4, B] i32: active, n_gen, max_gen, lens
+    done: Optional["torch.cuda.Event"] = None
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """A dispatched chunk: its host buffers, its device-time marks, the
+    admission marks before it (if it admitted anything) and the (slot,
+    epoch) pairs it decoded."""
+
+    io: _ChunkIO
+    decode: tuple
+    prefill: Optional[tuple]
+    running: Tuple[Tuple[int, int], ...]
+
+
 class GenerationEngine:
     def __init__(
         self,
@@ -154,6 +214,7 @@ class GenerationEngine:
         page_size: int = 128,
         kv_dtype: Optional[str] = None,
         fused_sample: Optional[bool] = None,
+        pipeline_chunks: Optional[bool] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -164,13 +225,24 @@ class GenerationEngine:
             if fused_sample is not None
             else constants.fused_sample_enabled()
         )
+        # chunk pipelining: explicit argument > AREAL_DECODE_PIPELINE
+        self.pipeline = (
+            pipeline_chunks
+            if pipeline_chunks is not None
+            else constants.decode_pipeline_enabled()
+        )
         # explicit argument > cfg.kv_dtype > AREAL_KV_DTYPE > serving dtype
         kd = kv_dtype if kv_dtype is not None else (
             cfg.kv_dtype if cfg.kv_dtype is not None else constants.kv_dtype()
         )
         self.kv_dtype = _resolve_kv_dtype(kd, cfg.dtype)
         self.kv_quantized = self.kv_dtype == "int8"
-        self.params = self.prepare_params(params)
+        # the engine's own tensors: update_params copies into them, so
+        # none may alias the caller's
+        self.params = tfm.tree_map(
+            lambda t, src: t.clone() if t.data_ptr() == src.data_ptr() else t,
+            self.prepare_params(params), params,
+        )
         self.B = max_slots
         self.page = page_size
         self.M = -(-max_seqlen // page_size)      # table width (pages/slot)
@@ -188,7 +260,14 @@ class GenerationEngine:
         self.prefix = PrefixRegistry(self.pool)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self.state = self._make_state()
+        self.state = self._make_state(
+            tfm.PagedKVCache.empty(
+                self.cfg, self.n_pages, self.page,
+                kv_dtype="int8" if self.kv_quantized else None,
+                device=self.device,
+            ),
+            self.G,
+        )
         self.accepting = True  # False = decode only, no new admissions
         self.paused = False
         self._slots: List[Optional[_SlotInfo]] = [None] * self.B
@@ -211,30 +290,68 @@ class GenerationEngine:
         self._lock = threading.RLock()
         self._pending_lock = threading.Lock()
         self._clock = _Clock(self.device)
+        # the chunk programs' static operands: every run reads the table
+        # and the warp rows from these buffers (refilled before it) and
+        # writes its harvest flags into _flags_dev
+        B, M, dev = self.B, self.M, self.device
+        self._table_dev = torch.zeros((B, M), dtype=torch.int32, device=dev)
+        self._warp_dev = torch.full((B,), B, dtype=torch.int64, device=dev)
+        self._flags_dev = torch.zeros((4, B), dtype=torch.int32, device=dev)
+        self._rows = torch.arange(B, device=dev)
+        pin = dev.type == "cuda"
+        self._io = [
+            _ChunkIO(
+                table=torch.zeros((B, M), dtype=torch.int32, pin_memory=pin),
+                warp=torch.zeros((B,), dtype=torch.int64, pin_memory=pin),
+                flags=torch.zeros((4, B), dtype=torch.int32, pin_memory=pin),
+            )
+            for _ in range(2)
+        ]
+        self._n_dispatched = 0
+        self._programs: Dict[tuple, _ChunkProgram] = {}
+        if dev.type == "cuda":
+            # every captured program allocates from one pool and captures
+            # (and warms up) on one side stream; replays run one at a time
+            # on the caller's stream
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(dev)
+        self._inflight: Optional[_InFlight] = None   # pipelined: unharvested
+        self._steps_ahead = 0   # tokens the in-flight chunk advances a slot
+        # admission generation per slot: stale flags from a chunk dispatched
+        # before the slot turned over must never harvest its NEW occupant
+        self._slot_epoch = np.zeros((B,), np.int64)
         self.stats = {
             "prefill_tokens": 0,        # prompt tokens actually computed
             "prefix_hit_tokens": 0,     # prompt tokens served from shared pages
             "prefix_hits": 0,
             "admitted": 0,
-            "decode_steps": 0,          # decode steps run (one kernel per layer each)
+            # decode steps run (one kernel per layer each), warm-ups included
+            "decode_steps": 0,
             "prefill_s": 0.0,           # device time of admission (prefill)
             "decode_s": 0.0,            # device time of decode chunks
             "fused_sample_steps": 0,    # decode steps sampled by the fused epilogue
             "fused_topk_steps": 0,      # ... of which carried the online top-k buffer
             "sampler_fallback_rows": 0,  # slot-steps on the sorted fallback
+            # CUDA graphs: one capture per chunk key, each after one eager
+            # warm-up step over no active slot (counted in decode_steps)
+            "graph_captures": 0,
+            "graph_replays": 0,
+            "graph_capture_s": 0.0,     # host wall time of warm-ups + captures
+            "graph_pool_bytes": 0,      # memory the captures reserved
+            "chunk_flag_fetches": 0,    # chunks resolved
+            "chunk_flag_blocked": 0,    # ... whose flag copy was not done yet
         }
 
-    def _make_state(self) -> GenState:
+    def _make_state(self, cache: tfm.PagedKVCache, width: int) -> GenState:
+        """Slot state over ``cache`` with ``width`` output columns a slot,
+        every slot inactive."""
         B, dev = self.B, self.device
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=dev)
 
         return GenState(
-            cache=tfm.PagedKVCache.empty(
-                self.cfg, self.n_pages, self.page,
-                kv_dtype="int8" if self.kv_quantized else None, device=dev,
-            ),
+            cache=cache,
             lens=full((B,), 0, torch.int32),
             last_tokens=full((B,), 0, torch.int64),
             active=full((B,), False, torch.bool),
@@ -242,8 +359,8 @@ class GenerationEngine:
             min_gen=full((B,), 0, torch.int32),
             max_gen=full((B,), 0, torch.int32),
             stop_ids=full((B, self.max_stop_ids), -1, torch.int64),
-            out_tokens=full((B, self.G), 0, torch.int64),
-            out_logprobs=full((B, self.G), 0.0, torch.float32),
+            out_tokens=full((B, width), 0, torch.int64),
+            out_logprobs=full((B, width), 0.0, torch.float32),
             sp=SamplingParams.filled(B, device=dev),
         )
 
@@ -271,6 +388,20 @@ class GenerationEngine:
     def n_pending(self) -> int:
         with self._pending_lock:
             return len(self._pending)
+
+    def n_compiles(self) -> int:
+        """Decode-chunk programs built so far: one per ``(n_steps, width,
+        warp_bucket, fused, with_topk)`` key, the reference's
+        ``_jit_chunk`` keys (a CUDA graph each on a GPU). Admission
+        (extend and commit) stays eager in the port, so the reference's
+        extend and commit programs have no counterpart here."""
+        return len(self._programs)
+
+    @property
+    def has_inflight(self) -> bool:
+        """Pipelined mode: a dispatched chunk whose finishes have not been
+        harvested yet (the run and serve loops must keep stepping)."""
+        return self._inflight is not None
 
     def kv_pool_bytes(self) -> int:
         """Configured KV-pool footprint (pages + quant scales), from shapes."""
@@ -300,12 +431,24 @@ class GenerationEngine:
                             tfm.cast_params(self.cfg, params, self.device))
 
     def update_params(self, params, version: Optional[int] = None):
-        """Hot weight swap between decode chunks. Invalidates the prefix
-        cache: prompt KV computed under old weights must not seed new
-        generations."""
+        """Hot weight swap between decode chunks. The new weights are
+        COPIED into the engine's own tensors under the lock (their shapes
+        and dtypes are fixed by ``cfg``), so every captured chunk program
+        reads them on its next replay and none is recaptured; a chunk
+        already in flight finishes on the old weights first (the copy
+        follows it on the stream). Raises ``ValueError``, changing
+        nothing, if a shape differs. Invalidates the prefix cache: prompt
+        KV computed under old weights must not seed new generations."""
         params = self.prepare_params(params)
+
+        def check(dst, src):
+            if dst.shape != src.shape:
+                raise ValueError(f"weight update: shape {tuple(src.shape)} "
+                                 f"!= the engine's {tuple(dst.shape)}")
+
+        tfm.tree_map(check, self.params, params)
         with self._lock:
-            self.params = params
+            tfm.tree_map(lambda dst, src: dst.copy_(src), self.params, params)
             self.version = version if version is not None else self.version + 1
             self.prefix.clear()
 
@@ -335,7 +478,11 @@ class GenerationEngine:
 
     def cancel(self, rid: str) -> bool:
         """Abort a request: drop it from the pending queue, or release its
-        slot + pages mid-generation. False when the rid is unknown."""
+        slot + pages mid-generation. Safe against a pipelined chunk in
+        flight: the released slot is ``None`` (or, once re-admitted, of a
+        newer epoch), so that chunk's flags skip it, and its writes to the
+        released pages come before any new occupant's prefill on the
+        stream. False when the rid is unknown."""
         with self._pending_lock:
             for i, r in enumerate(self._pending):
                 if r.rid == rid:
@@ -355,12 +502,21 @@ class GenerationEngine:
         """Stop generating and harvest all running slots as interrupted."""
         with self._lock:
             self.paused = True
+            inflight, self._inflight = self._inflight, None
+            self._steps_ahead = 0
+            if inflight is not None:
+                # its flags are dropped (the pull below reads the state the
+                # chunk left); resolving keeps its device time in decode_s
+                self._resolve(inflight)
             if not any(s is not None for s in self._slots):
                 return []
             host_state = self._pull_outputs()
             outs = []
             for b, s in enumerate(self._slots):
                 if s is not None:
+                    # pipelined mode can hold finished-but-unharvested
+                    # slots: they report stop / length, never interrupted
+                    # (the client would resubmit a complete sample)
                     reason = (
                         "interrupted" if host_state["active"][b]
                         else _finish_reason(
@@ -478,6 +634,7 @@ class GenerationEngine:
                 still_pending.append(r)
                 break
             slot = free.pop(0)
+            self._slot_epoch[slot] += 1
             table_row = np.zeros((self.M,), np.int32)
             table_row[: len(shared) + len(owned)] = shared + owned
             self._table_host[slot] = table_row
@@ -587,7 +744,8 @@ class GenerationEngine:
             w *= 2
         return min(w, self.B)
 
-    def _sample_fused(self, hidden: torch.Tensor,
+    def _sample_fused(self, sp: SamplingParams, gen: torch.Generator,
+                      hidden: torch.Tensor,
                       warp_rows: Optional[torch.Tensor], with_topk: bool):
         """One step's tokens and logprobs from final-norm hidden states
         ``[B, E]`` through the fused epilogue. ``with_topk`` carries the
@@ -596,10 +754,10 @@ class GenerationEngine:
         only their own logits rows through the head, take the sorted
         sampler and overwrite; padding rows land in a spare row past the
         batch, which is dropped."""
-        cfg, sp, B = self.cfg, self.state.sp, self.B
+        cfg, B = self.cfg, self.B
         # the step's seed stays on the device: no host sync
         seed = torch.randint(
-            -(1 << 31), (1 << 31) - 1, (1,), generator=self._gen,
+            -(1 << 31), (1 << 31) - 1, (1,), generator=gen,
             device=self.device, dtype=torch.int32,
         )
         greedy_rows = sp.temperature <= 0.0
@@ -622,7 +780,7 @@ class GenerationEngine:
             safe = warp_rows.clamp(0, B - 1)
             row_logits = tfm.apply_head(cfg, self.params, hidden[safe])
             w_tok, w_lp = sample_tokens(
-                self._gen, row_logits, sp.rows(safe), warp=True
+                gen, row_logits, sp.rows(safe), warp=True
             )
             tokens = torch.cat([tokens, tokens[:1]])
             lp = torch.cat([lp, lp[:1]])
@@ -631,15 +789,17 @@ class GenerationEngine:
             tokens, lp = tokens[:B], lp[:B]
         return tokens, lp
 
-    def _decode_chunk(self, n_steps: int, W: int,
-                      warp_rows: Optional[torch.Tensor],
-                      with_topk: bool = False) -> torch.Tensor:
-        """Run ``n_steps`` decode steps for every slot on the device and
-        return the harvest flags ``[4, B]`` (active, n_gen, max_gen, lens)
-        still on the device; the caller's pull is the chunk's one sync."""
-        cfg, st = self.cfg, self.state
-        table = self._to_device(self._table_host[:, :W])
-        rows = torch.arange(self.B, device=self.device)
+    def _chunk_body(self, st: GenState, gen: torch.Generator, n_steps: int,
+                    table: torch.Tensor, warp_rows: Optional[torch.Tensor],
+                    with_topk: bool, flags: torch.Tensor):
+        """``n_steps`` decode steps for every slot of ``st``, then the
+        harvest flags (active, n_gen, max_gen, lens) into ``flags``
+        ``[4, B]``. Every result is written IN PLACE into ``st`` and
+        ``flags``, and every operand is read where it lies: captured once,
+        the body's graph then reads and writes the engine's own tensors
+        on each replay. No host sync, no host-to-device copy."""
+        cfg = self.cfg
+        rows = self._rows
         last_col = st.out_tokens.shape[1] - 1
         for _ in range(n_steps):
             head_out, _, new_lens = tfm.decode_step_paged(
@@ -647,11 +807,11 @@ class GenerationEngine:
                 st.lens, st.active, return_hidden=self.fused,
             )
             if self.fused:
-                tokens, lp = self._sample_fused(head_out, warp_rows,
-                                                with_topk)
+                tokens, lp = self._sample_fused(st.sp, gen, head_out,
+                                                warp_rows, with_topk)
             else:
                 tokens, lp = sample_tokens(
-                    self._gen, head_out, st.sp, warp=warp_rows is not None,
+                    gen, head_out, st.sp, warp=warp_rows is not None,
                     warp_rows=warp_rows,
                 )
             tokens = torch.where(st.active, tokens, st.last_tokens)
@@ -666,12 +826,149 @@ class GenerationEngine:
             hit_stop = (tokens[:, None] == st.stop_ids).any(1) & (
                 n_gen >= st.min_gen
             )
-            st.active = st.active & ~hit_stop & (n_gen < st.max_gen)
-            st.n_gen = n_gen
-            st.lens = new_lens
-            st.last_tokens = tokens
+            active = st.active & ~hit_stop & (n_gen < st.max_gen)
+            st.active.copy_(active)
+            st.n_gen.copy_(n_gen)
+            st.lens.copy_(new_lens)
+            st.last_tokens.copy_(tokens)
+        for i, f in enumerate((st.active, st.n_gen, st.max_gen, st.lens)):
+            flags[i].copy_(f)
+
+    def _program(self, key: tuple) -> _ChunkProgram:
+        """The chunk program of ``key`` = ``(n_steps, width, warp_bucket,
+        fused, with_topk)``, built at its first use."""
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = self._build_program(key)
+        return prog
+
+    def _build_program(self, key: tuple) -> _ChunkProgram:
+        """On the CPU: the eager body over the static buffers. On a GPU:
+        the body captured as a CUDA graph, after one eager warm-up step on
+        the capture stream (it loads cuBLAS's handle and workspace for this
+        thread and stream, the kernels' libraries and modules, and grows
+        the paged-decode arrival counters) over a scratch state whose every
+        slot is inactive: the live slots, their outputs and the engine's
+        generator are untouched, and the pool gets writes only at its trash
+        row. The warm-up is a decode step like any other to the counts
+        (``decode_steps``, the fused-sampler steps, kernel launches): one
+        for each of ``graph_captures``. A capture that fails raises:
+        decode on a GPU never runs eagerly."""
+        n_steps, W, wb, _, with_topk = key
+        table = self._table_dev[:, :W]
+        warp_rows = self._warp_dev[:wb] if wb else None
+        body = functools.partial(
+            self._chunk_body, self.state, self._gen, n_steps, table,
+            warp_rows, with_topk, self._flags_dev,
+        )
+        if self.device.type != "cuda":
+            return _ChunkProgram(run=body)
+        t0 = time.perf_counter()
+        dev, stream = self.device, self._capture_stream
+        scratch = self._make_state(self.state.cache, 1)
+        scratch_gen = torch.Generator(device=dev)
+        scratch_gen.manual_seed(0)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._chunk_body(scratch, scratch_gen, 1, table, warp_rows,
+                             with_topk, torch.empty_like(self._flags_dev))
+        self._count_steps(1, with_topk, 0)
+        torch.cuda.synchronize(dev)
+        del scratch
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        captured = {m: m.captured for m in _KERNEL_MODULES}
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        # thread_local: the server's handler threads may allocate (a
+        # weight load) while the engine thread captures
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            body()
+        launches = {m: m.captured - captured[m] for m in _KERNEL_MODULES}
+        self.stats["graph_captures"] += 1
+        self.stats["graph_pool_bytes"] += (
+            torch.cuda.memory_reserved(dev) - reserved
+        )
+        self.stats["graph_capture_s"] += time.perf_counter() - t0
+        return _ChunkProgram(run=graph.replay, graph=graph, launches=launches)
+
+    def _count_steps(self, n_steps: int, with_topk: bool, n_fallback: int):
         self.stats["decode_steps"] += n_steps
-        return torch.stack([st.active.int(), st.n_gen, st.max_gen, st.lens])
+        if self.fused:
+            self.stats["fused_sample_steps"] += n_steps
+            self.stats["fused_topk_steps"] += n_steps * with_topk
+            self.stats["sampler_fallback_rows"] += n_fallback * n_steps
+
+    def _chunk_key(self, decode_steps: int, running: List[int]):
+        """The chunk key for the resident slots, and the slots whose
+        sampling takes the sorted (warp-row) path. Under the fused sampler
+        that bucket narrows to the slots the online pass cannot serve, and
+        plain top-k slots ride the online buffer instead of the sort. The
+        table width covers the tokens of this chunk and, pipelined, of the
+        one still in flight (``_lens_host`` is a chunk stale then)."""
+        mirror = self._fused_warp_host if self.fused else self._warp_host
+        warp_slots = [b for b in running if mirror[b]]
+        with_topk = self.fused and any(
+            self._fused_topk_host[b] for b in running
+        )
+        W = self._table_width(
+            int(self._lens_host[running].max()) + self._steps_ahead
+            + decode_steps
+        )
+        key = (decode_steps, W, self._warp_bucket(len(warp_slots)),
+               self.fused, bool(with_topk))
+        return key, warp_slots
+
+    def _dispatch(self, key: tuple, warp_slots: List[int],
+                  running: List[int], prefill: Optional[tuple]) -> _InFlight:
+        """Run one decode chunk and START its harvest-flag copy to the host
+        in the same breath, right behind it on the stream (the next run
+        overwrites the static flags). The table and warp rows go to their
+        static device buffers through this chunk's host staging buffers,
+        which the chunk that used them two dispatches ago has released."""
+        prog = self._program(key)     # a first use captures, timed apart
+        io = self._io[self._n_dispatched % 2]
+        self._n_dispatched += 1
+        if io.done is not None:
+            io.done.synchronize()
+        io.table.copy_(torch.from_numpy(self._table_host))
+        io.warp.fill_(self.B)
+        if warp_slots:
+            io.warp[: len(warp_slots)] = torch.tensor(warp_slots)
+        self._table_dev.copy_(io.table, non_blocking=True)
+        self._warp_dev.copy_(io.warp, non_blocking=True)
+        t_start = self._clock.mark()
+        prog.run()
+        t_end = self._clock.mark()
+        io.flags.copy_(self._flags_dev, non_blocking=True)
+        if prog.graph is not None:
+            io.done = torch.cuda.Event()
+            io.done.record()
+            self.stats["graph_replays"] += 1
+            for mod, n in prog.launches.items():
+                mod.credit(n)
+        self._count_steps(key[0], key[4], len(warp_slots))
+        return _InFlight(
+            io=io, decode=(t_start, t_end), prefill=prefill,
+            running=tuple((b, int(self._slot_epoch[b])) for b in running),
+        )
+
+    def _resolve(self, inflight: _InFlight) -> np.ndarray:
+        """The chunk's harvest flags ``[4, B]`` on the host, once its copy
+        is done (pipelined, the host dispatched the next chunk meanwhile).
+        Counts every fetch, and in ``chunk_flag_blocked`` every one that
+        still had to wait for the card."""
+        self.stats["chunk_flag_fetches"] += 1
+        done = inflight.io.done
+        if done is not None:
+            if not done.query():
+                self.stats["chunk_flag_blocked"] += 1
+            done.synchronize()
+        self.stats["decode_s"] += self._clock.seconds(*inflight.decode)
+        if inflight.prefill is not None:
+            self.stats["prefill_s"] += self._clock.seconds(*inflight.prefill)
+        return inflight.io.flags.numpy().copy()
 
     def _pull_outputs(self) -> dict:
         """ONE device pull of every slot's accumulated outputs + flags."""
@@ -714,61 +1011,65 @@ class GenerationEngine:
         )
 
     def step(self, decode_steps: int = 16) -> List[GenOutput]:
-        """Admit pending requests, run one decode chunk, harvest finished."""
+        """Admit pending requests, run one decode chunk, harvest finished.
+
+        Pipelined (``pipeline_chunks`` / ``AREAL_DECODE_PIPELINE``): chunk
+        k+1 is dispatched first, then chunk k's flags (copied to the host
+        while k and k+1 ran) are read and its finishes harvested, one
+        chunk late. Output pulls for finished slots still read the current
+        state, so a harvest-bearing step waits like the unpipelined one."""
         with self._lock:
             if self.paused:
                 return []
-            t0 = self._clock.mark()
-            admitted = self._admit_pending()
-            if self.n_running() == 0:
+            if self.pipeline:
+                return self._step_pipelined(decode_steps)
+            inflight = self._admit_and_dispatch(decode_steps)
+            if inflight is None:
                 return []
-            t1 = self._clock.mark()
-            running = [b for b, s in enumerate(self._slots) if s is not None]
-            # fused routing: the fallback bucket narrows to the slots the
-            # online pass cannot serve; plain top-k slots ride the online
-            # buffer instead of the sort
-            mirror = self._fused_warp_host if self.fused else self._warp_host
-            warp_slots = [b for b in running if mirror[b]]
-            with_topk = self.fused and any(
-                self._fused_topk_host[b] for b in running
-            )
-            if self.fused:
-                self.stats["fused_sample_steps"] += decode_steps
-                self.stats["fused_topk_steps"] += decode_steps * with_topk
-                self.stats["sampler_fallback_rows"] += (
-                    len(warp_slots) * decode_steps
-                )
-            wb = self._warp_bucket(len(warp_slots))
-            warp_rows = None
-            if wb:
-                idx = np.full((wb,), self.B, np.int64)  # padding => dropped
-                idx[: len(warp_slots)] = warp_slots
-                warp_rows = self._to_device(idx)
-            # width-limit the chunk to the pages it can touch
-            W = self._table_width(
-                int(self._lens_host[running].max()) + decode_steps
-            )
-            flags = self._decode_chunk(decode_steps, W, warp_rows, with_topk)
-            t2 = self._clock.mark()
-            # the chunk's one host sync
-            active, n_gen, max_gen, lens = flags.cpu().numpy()
-            if admitted:
-                self.stats["prefill_s"] += self._clock.seconds(t0, t1)
-            self.stats["decode_s"] += self._clock.seconds(t1, t2)
-            self._lens_host[:] = lens
-            finished = [
-                b for b, info in enumerate(self._slots)
-                if info is not None and not active[b]
-            ]
-            if not finished:
-                return []
-            # the chunk already deactivated them on the device
-            host_state = self._pull_outputs()
-            return [
-                self._harvest(b, _finish_reason(n_gen[b], max_gen[b]),
-                              host_state=host_state)
-                for b in finished
-            ]
+            return self._harvest_chunk(inflight)
+
+    def _step_pipelined(self, decode_steps: int) -> List[GenOutput]:
+        new = self._admit_and_dispatch(decode_steps)
+        prev, self._inflight = self._inflight, new
+        self._steps_ahead = decode_steps if new is not None else 0
+        if prev is None:
+            return []
+        return self._harvest_chunk(prev)
+
+    def _admit_and_dispatch(self, decode_steps: int) -> Optional[_InFlight]:
+        t0 = self._clock.mark()
+        admitted = self._admit_pending()
+        if self.n_running() == 0:
+            return None
+        t1 = self._clock.mark()
+        running = [b for b, s in enumerate(self._slots) if s is not None]
+        key, warp_slots = self._chunk_key(decode_steps, running)
+        return self._dispatch(key, warp_slots, running,
+                              (t0, t1) if admitted else None)
+
+    def _harvest_chunk(self, inflight: _InFlight) -> List[GenOutput]:
+        """Harvest the slots a resolved chunk finished. Its flags may be a
+        chunk stale (pipelined): a slot that turned over since its dispatch
+        (released, or re-admitted at a newer epoch) is skipped."""
+        active, n_gen, max_gen, lens = self._resolve(inflight)
+        same = [
+            b for b, ep in inflight.running
+            if self._slots[b] is not None and self._slot_epoch[b] == ep
+        ]
+        for b in same:      # not fresh admissions: their lens is live
+            self._lens_host[b] = lens[b]
+        finished = [b for b in same if not active[b]]
+        if not finished:
+            return []
+        # one pull of the current state serves every finished slot: the
+        # chunk already deactivated them on the device, and they stayed
+        # inactive through any chunk dispatched since
+        host_state = self._pull_outputs()
+        return [
+            self._harvest(b, _finish_reason(n_gen[b], max_gen[b]),
+                          host_state=host_state)
+            for b in finished
+        ]
 
     def run_until_done(self, decode_steps: int = 16, timeout: float = 600.0):
         """Convenience loop: run until every submitted request finished."""
@@ -776,7 +1077,9 @@ class GenerationEngine:
         t0 = time.time()
         while True:
             with self._lock:
-                busy = (self._pending or self.n_running()) and not self.paused
+                busy = (
+                    self._pending or self.n_running() or self.has_inflight
+                ) and not self.paused
             if not busy:
                 break
             outs.extend(self.step(decode_steps))

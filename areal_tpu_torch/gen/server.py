@@ -191,7 +191,10 @@ class GenerationHTTPServer:
     def _run(self):
         eng = self.engine
         while not self._stop.is_set():
-            if eng.paused or (not eng.n_pending() and eng.n_running() == 0):
+            # a pipelined engine keeps stepping while a chunk is in flight:
+            # its finishes are harvested one step late
+            if eng.paused or (not eng.n_pending() and eng.n_running() == 0
+                              and not eng.has_inflight):
                 time.sleep(0.005)
                 continue
             if self._lock_waiters:
@@ -319,7 +322,7 @@ class GenerationHTTPServer:
                 # decode the running slots to completion
                 self.engine.accepting = False
                 try:
-                    while self.engine.n_running():
+                    while self.engine.n_running() or self.engine.has_inflight:
                         self._resolve(self.engine.step(self.decode_steps))
                 finally:
                     self.engine.accepting = True
@@ -397,6 +400,13 @@ class GenerationHTTPServer:
             # fused sampling epilogue: streamed LM-head sampling on the
             # decode chunk
             "fused_sample": bool(eng.fused),
+            # decode chunks: CUDA graphs captured and replayed (0 on the
+            # CPU, where the chunk runs eagerly), harvest-flag fetches and
+            # the fetches that had to wait for the chunk
+            "pipeline_chunks": bool(eng.pipeline),
+            **{k: eng.stats[k] for k in (
+                "graph_captures", "graph_replays", "chunk_flag_fetches",
+                "chunk_flag_blocked")},
             **{f"engine_{k}": v for k, v in eng.stats.items()},
         }
 

@@ -12,9 +12,12 @@ The head ``w [E, V]`` is read where it lies: with V contiguous (an untied
 head) or with E contiguous (tied embeddings hand over ``embed.T``). It is
 never copied; any other layout raises.
 
-``launches`` counts kernel launches (one per call: the partial pass and its
-merge pass together), so a run can show that its main path went through
-the kernel.
+``launches`` counts kernel launches the card ran (one per call: the
+partial pass and its merge pass together), so a run can show that its main
+path went through the kernel. A call under CUDA graph capture adds to
+``captured`` instead; whoever replays the graph adds what its capture
+recorded (``credit``). The workspaces are allocated per call, so under
+capture they come from the graph's memory pool.
 """
 
 import ctypes
@@ -32,11 +35,29 @@ PARTIAL_INTS = 2     # ints per (tile, row) partial record (kPI)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+captured = 0
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def _count_launch() -> None:
+    """One launch of the kernel: run now, or recorded into a CUDA graph
+    under capture (it runs when the graph replays; see ``credit``)."""
+    global launches, captured
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
+
+
+def credit(n: int) -> None:
+    """Count ``n`` launches that a replayed CUDA graph ran: the caller
+    read them off ``captured`` when it captured the graph."""
+    global launches
+    launches += n
 
 
 def _library():
@@ -133,7 +154,6 @@ def fused_sample(
     V contiguous, E, V and the strides multiples of 8, 16-byte aligned) and
     on the CUDA cores otherwise; ``cuda_cores=True`` keeps it there (the
     card's check holds both versions against the plain one on one input)."""
-    global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused sample: unsupported device {x.device}")
     v_contig = _check(seed, x, w, temperature, greedy, exclude, gather_ids)
@@ -163,7 +183,7 @@ def fused_sample(
     )
     if rc != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _count_launch()
     out = {"tokens": out_i[0], "logprobs": out_f[0], "argmax": out_i[1],
            "norm": out_f[2]}
     if gather_ids is not None:

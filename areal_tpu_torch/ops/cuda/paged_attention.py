@@ -17,8 +17,12 @@ the same launch through a per-(slot, kv head) arrival counter. The
 counters live in a zeroed int32 buffer kept per device (``counters``);
 every launch leaves them at 0.
 
-``launches`` counts wrapper calls that launched the kernel, so a run can
-show that its main path went through it.
+``launches`` counts launches the card ran, so a run can show that its
+main path went through the kernel: an eager call adds one; a call under
+CUDA graph capture adds one to ``captured`` instead, and whoever replays
+the graph adds what its capture recorded (``credit``). The arrival
+counters must be grown (``counters``) before a capture: a buffer made
+under capture would belong to the graph's memory pool.
 """
 
 import ctypes
@@ -37,6 +41,7 @@ SPLIT_TOKENS = 256   # default split: this many positions' worth of pages
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 launches = 0
+captured = 0
 _counters: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -75,6 +80,23 @@ def counters(device: torch.device, n: int = 0) -> torch.Tensor:
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def _count_launch() -> None:
+    """One launch of the kernel: run now, or recorded into a CUDA graph
+    under capture (it runs when the graph replays; see ``credit``)."""
+    global launches, captured
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
+
+
+def credit(n: int) -> None:
+    """Count ``n`` launches that a replayed CUDA graph ran: the caller
+    read them off ``captured`` when it captured the graph."""
+    global launches
+    launches += n
 
 
 def _kernel():
@@ -170,7 +192,6 @@ def decode(
 ) -> torch.Tensor:
     """Attention of one new token per slot over its pages plus itself, on
     the card. Returns ``[B, Hq, D]`` in q's dtype."""
-    global launches
     layer = int(layer)
     if q.device.type != "cuda":
         raise ValueError(f"paged decode: unsupported device {q.device}")
@@ -200,5 +221,5 @@ def decode(
     )
     if rc != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _count_launch()
     return out

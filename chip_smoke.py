@@ -50,15 +50,26 @@ Phases, each printing one JSON line:
      SDPA with an explicit [T, T] segment-causal boolean mask (which does
      every pair of the [T, T] square, ~16x the pairs the mask keeps at the
      trainer's shape), forward and backward.
-3. ``parity``: a tiny float32 model served by the engine on the card and
-   on the CPU must give the same greedy tokens.
+3. ``parity``: a tiny float32 model served by the engine on the card
+   (decoding from CUDA graphs, unpipelined and pipelined) and on the CPU
+   (eagerly) must give the same greedy tokens, plain and fused sampler.
 4. ``serve``: the engine at the full width of the R1-Distill-Qwen-1.5B
    profile (28 layers, random weights from a seed, bf16) behind the
    port's HTTP server answers 32 concurrent /generate requests (4 prompts
-   of 1024 tokens, 8 requests each, greedy / temperature 1 / top-p 0.9);
-   every answer is checked, the prefix cache must have been hit, and the
-   paged-decode launch count must equal layers x decode steps.
-5. ``serve_int8``: the same with an int8 KV pool and 8 requests.
+   of 1024 tokens, 8 requests each, greedy / temperature 1 / top-p 0.9),
+   queued while the server is paused and admitted together; every answer
+   is checked, the prefix cache must have been hit, the paged-decode
+   launch count must equal layers x decode steps, and every chunk must
+   have replayed a captured CUDA graph: replays x 16 + warm-up steps (one
+   per capture) = decode steps. ``--profile`` also holds the profiler's
+   own count of paged-decode kernels to layers x decode steps and reports
+   the card's busy share.
+5. ``serve_fused``: ``serve`` with the fused sampler (two fused engines
+   with one seed must draw the same tokens first); ``serve_int8``: with an
+   int8 KV pool and 8 requests; ``serve_pipelined``: ``serve`` with
+   pipelined chunks, whose greedy tokens must equal ``serve``'s. A
+   ``weight_sync`` phase reloads a trainer's export into a running server
+   and checks that the replayed graphs decode with the new weights.
 6. ``train_parity``: a tiny float32 model trained two SFT optimizer steps
    on the card and on the CPU from the same numpy params and batch; loss,
    grad norm and weights must agree.
@@ -96,7 +107,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
-          "weight_sync", "train_parity", "train")
+          "serve_pipelined", "weight_sync", "train_parity", "train")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -1173,26 +1184,35 @@ def parity_phase(torch):
     prompts = [shared + rng.integers(0, 512, size=int(n)).tolist()
                for n in (1, 5, 17, 30)] + [rng.integers(0, 512, 9).tolist()]
     outs = {}
-    for dev in ("cuda", "cpu"):
+    # the card decodes from CUDA graphs, the CPU eagerly; the card also
+    # pipelined (each chunk harvested one step late)
+    for dev, pipelined in (("cuda", False), ("cuda", True), ("cpu", False)):
         for fused in (False, True):
             eng = GenerationEngine(cfg, params, max_slots=4, max_seqlen=128,
                                    page_size=16, fused_sample=fused,
-                                   device=dev)
+                                   pipeline_chunks=pipelined, device=dev)
             for i, p in enumerate(prompts):
                 eng.submit(GenRequest(rid=str(i), input_ids=p,
                                       max_new_tokens=24, greedy=True))
-            outs[dev, fused] = {o.rid: o.output_ids
-                                for o in eng.run_until_done(8)}
+            outs[dev, fused, pipelined] = {o.rid: o.output_ids
+                                           for o in eng.run_until_done(8)}
             if fused and eng.stats["fused_sample_steps"] <= 0:
                 raise AssertionError("parity: the fused engine took no "
                                      "fused step")
+            st = eng.stats
+            graphed = st["graph_captures"] == eng.n_compiles() > 0 and (
+                st["graph_replays"] * 8 + st["graph_captures"]
+                == st["decode_steps"])
+            if graphed != (dev == "cuda"):
+                raise AssertionError(f"parity: {dev} engine graphs: {st}")
     # float32: the fused and the unfused epilogue agree on every argmax
-    want = outs["cpu", False]
+    want = outs["cpu", False, False]
     for key, got in outs.items():
         if got != want:
             raise AssertionError(f"greedy {key} != cpu unfused: {got} {want}")
     emit(phase="parity", requests=len(prompts), tokens_each=24,
-         token_exact=True, fused_token_exact=True)
+         token_exact=True, fused_token_exact=True,
+         pipelined_token_exact=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -1228,9 +1248,9 @@ def get(port, path):
 
 def device_profile(prof, wall_s, kernels):
     """Device time by kernel from a ``torch.profiler`` window: total, the
-    busy share of the wall time, each named kernel's time and share
-    (``kernels``: label -> substring of the kernel's name), and the top
-    kernels."""
+    busy share of the wall time, each named kernel's time, share and
+    number of runs the profiler saw (``kernels``: label -> substring of the
+    kernel's name), and the top kernels."""
     rows = []
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
@@ -1245,19 +1265,25 @@ def device_profile(prof, wall_s, kernels):
         ms = sum(r[1] for r in rows if needle in r[0])
         out[f"{label}_ms"] = ms
         out[f"{label}_share"] = ms / max(total, 1e-9)
+        out[f"{label}_runs"] = sum(r[2] for r in rows if needle in r[0])
     out["top"] = [[k[:80], ms, n] for k, ms, n in rows[:10]]
     return out
 
 
 TOPK_NEW_TOKENS = 32   # serve_fused: top-k requests leave early
+DECODE_STEPS = 16      # decode steps per chunk in the serve phases
 
 
 def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
-                group, plen=1024, max_new=128, profile=False, fused=False):
+                group, plen=1024, max_new=128, profile=False, fused=False,
+                pipelined=False):
     """Serve ``n_prompts`` x ``group`` requests over HTTP. ``fused`` runs
     the engine with the fused sampling epilogue and turns the group's last
     member into a top-k 20 request of TOPK_NEW_TOKENS tokens: while it is
-    resident the streamed top-k route runs, afterwards the kernel."""
+    resident the streamed top-k route runs, afterwards the kernel.
+    ``pipelined`` harvests each decode chunk one step late. The requests
+    queue while the server is paused and are admitted together, so two
+    runs batch their prefills alike."""
     from areal_tpu_torch.gen.engine import GenerationEngine
     from areal_tpu_torch.gen.server import serve
     from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
@@ -1265,8 +1291,9 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
 
     eng = GenerationEngine(cfg, params, max_slots=32, max_seqlen=2048,
                            page_size=128, seed=0, kv_dtype=kv_dtype,
-                           fused_sample=fused, device="cuda")
-    srv = serve(eng, "127.0.0.1", 0, decode_steps=16)
+                           fused_sample=fused, pipeline_chunks=pipelined,
+                           device="cuda")
+    srv = serve(eng, "127.0.0.1", 0, decode_steps=DECODE_STEPS)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=plen).tolist()
                for _ in range(n_prompts)]
@@ -1301,9 +1328,24 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
             )
             prof.__enter__()
         t0 = time.perf_counter()
+        post(srv.port, "/pause_generation", {})
         with ThreadPoolExecutor(len(bodies)) as ex:
-            answers = list(ex.map(lambda b: post(srv.port, "/generate", b),
-                                  bodies))
+            futs = [ex.submit(post, srv.port, "/generate", b) for b in bodies]
+            deadline = time.time() + 60
+            while eng.n_pending() < len(bodies):
+                if time.time() > deadline:
+                    raise AssertionError(f"{name}: requests did not queue")
+                time.sleep(0.005)
+            post(srv.port, "/continue_generation", {})
+            answers = [f.result() for f in futs]
+        # pipelined: the engine loop resolves the chunk it dispatched
+        # after the last finish
+        deadline = time.time() + 60
+        while eng.has_inflight:
+            if time.time() > deadline:
+                raise AssertionError(f"{name}: a chunk stayed in flight")
+            time.sleep(0.005)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -1337,6 +1379,19 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
             f"decode steps of {cfg.n_layers} layers"
         )
     stats = eng.stats
+    # every chunk replayed a captured graph; each capture followed one
+    # eager warm-up step over no active slot, a decode step like the rest
+    if stats["graph_replays"] <= 0 or (
+            stats["graph_captures"] != eng.n_compiles()) or (
+            stats["graph_replays"] * DECODE_STEPS + stats["graph_captures"]
+            != steps):
+        raise AssertionError(f"{name}: {steps} decode steps from graph "
+                             f"replays and warm-ups: {stats}")
+    if stats["chunk_flag_fetches"] != stats["graph_replays"] or (
+            metrics["chunk_flag_fetches"] != stats["chunk_flag_fetches"]) or (
+            metrics["pipeline_chunks"] != pipelined):
+        raise AssertionError(f"{name}: flag fetches {stats}; /metrics_json "
+                             f"{metrics}")
     if fused:
         # every step sampled by the fused epilogue; the kernel in exactly
         # those steps in which no plain-top-k slot was resident (the
@@ -1384,11 +1439,29 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
                        if modes[int(r.split("m")[1])] == "greedy"},
         greedy_group_agreement=agree,
         kv_pool_bytes=metrics["kv_pool_bytes"],
+        pipeline_chunks=pipelined,
+        graph_captures=stats["graph_captures"],
+        graph_replays=stats["graph_replays"],
+        graph_capture_s=stats["graph_capture_s"],
+        graph_pool_gb=stats["graph_pool_bytes"] / 1e9,
+        chunk_flag_fetches=stats["chunk_flag_fetches"],
+        chunk_flag_blocked=stats["chunk_flag_blocked"],
     )
     if prof is not None:
-        row["profile"] = device_profile(
+        pr = row["profile"] = device_profile(
             prof, wall, {"paged_decode": "paged_decode_split_kernel",
                          "fused_sample": "fused_sample_"})
+        # the profiler's own count, independent of the Python counters
+        if pr["paged_decode_runs"] != cfg.n_layers * steps:
+            raise AssertionError(
+                f"{name}: the profiler saw {pr['paged_decode_runs']} "
+                f"paged-decode kernels over {steps} steps of {cfg.n_layers} "
+                f"layers; {json.dumps(pr)}")
+        row["paged_decode_ms_per_step"] = pr["paged_decode_ms"] / steps
+        # the window holds the one-time captures (host time, the card
+        # idles): the share over the rest of it
+        pr["busy_share_after_capture"] = pr["device_ms"] / 1e3 / max(
+            wall - stats["graph_capture_s"], 1e-9)
     emit(phase=name, **{k: v for k, v in row.items() if k != "greedy_tokens"})
     del eng
     torch.cuda.empty_cache()
@@ -1431,6 +1504,30 @@ def fused_determinism(torch, params, cfg):
 # --------------------------------------------------------------------------- #
 # weight sync: trainer -> committed HF export -> running server
 # --------------------------------------------------------------------------- #
+
+
+# weight_sync: a sampled token's logprob from the engine (paged decode,
+# bf16) against the same token scored by a packed forward (flash, bf16) on
+# the same weights. Both round the logits to bf16 (one ulp is 2^-6 at the
+# |logits| of 2-4 a random head gives) and differ by about one bf16 ulp of
+# the hidden state, ~0.01; two independent random weight sets give logits
+# of std ~0.8 each, so the same token's logprob moves by ~0.9 on average.
+WEIGHT_SYNC_LP_TOL = 0.1
+
+
+def score_tokens(torch, tfm, cfg, params, ids, n_prompt):
+    """Temperature-1 log-probabilities of the generated tokens of ``ids``
+    (after ``n_prompt`` prompt tokens) under ``params``, by one packed
+    forward."""
+    t = torch.tensor(ids, device="cuda")
+    with torch.no_grad():
+        logits = tfm.forward_packed(
+            params, cfg, t, torch.ones_like(t, dtype=torch.int32),
+            torch.arange(len(ids), dtype=torch.int32, device="cuda"),
+            remat=False)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    pos = torch.arange(n_prompt - 1, len(ids) - 1, device="cuda")
+    return lp[pos, t[n_prompt:]].cpu().numpy()
 
 
 def weight_sync_phase(torch):
@@ -1488,11 +1585,10 @@ def weight_sync_phase(torch):
         nbytes = os.path.getsize(os.path.join(path, "model.safetensors"))
 
         # the server starts on OTHER weights (seed 1)
-        eng = GenerationEngine(
-            cfg, tfm.init_params(cfg, seed=1, device="cuda",
-                                 dtype=torch.bfloat16),
-            max_slots=8, max_seqlen=2048, page_size=128, seed=0,
-            device="cuda")
+        old_params = tfm.init_params(cfg, seed=1, device="cuda",
+                                     dtype=torch.bfloat16)
+        eng = GenerationEngine(cfg, old_params, max_slots=8, max_seqlen=2048,
+                               page_size=128, seed=0, device="cuda")
         srv = serve(eng, "127.0.0.1", 0, decode_steps=16)
         rng = np.random.default_rng(4)
         prompts = [rng.integers(0, cfg.vocab_size, size=256).tolist()
@@ -1500,8 +1596,15 @@ def weight_sync_phase(torch):
         bodies = [{"rid": f"inflight{i}", "input_ids": p,
                    "sampling_params": {"max_new_tokens": 1000, "greedy": True}}
                   for i, p in enumerate(prompts)]
-        with ThreadPoolExecutor(len(bodies)) as ex:
-            futs = [ex.submit(post, srv.port, "/generate", b) for b in bodies]
+        # graphed decode finishes a 1000-token request faster than the
+        # overlapped load takes: keep four requests in flight until the
+        # update answers. Their 100-token prompts fill no page, so none is
+        # cached (the prefix cache must be empty after the update).
+        feed = [rng.integers(0, cfg.vocab_size, size=100).tolist()
+                for _ in range(4)]
+        with ThreadPoolExecutor(64) as ex:
+            futs = [(b, ex.submit(post, srv.port, "/generate", b))
+                    for b in bodies]
             deadline = time.time() + 120
             while eng.stats["decode_steps"] < 32:
                 if time.time() > deadline:
@@ -1509,11 +1612,22 @@ def weight_sync_phase(torch):
                 time.sleep(0.01)
             before = get(srv.port, "/metrics_json")
             t0 = time.perf_counter()
-            status, ans = post(srv.port, "/update_weights_from_disk", {
+            upd = ex.submit(post, srv.port, "/update_weights_from_disk", {
                 "model_path": path, "version": trainer.version,
                 "allow_interrupt": True})
+            while not upd.done() and len(futs) < 60:
+                if sum(not f.done() for _, f in futs) < 4:
+                    b = {"rid": f"feed{len(futs)}",
+                         "input_ids": feed[len(futs) % 4],
+                         "sampling_params": {"max_new_tokens": 1000,
+                                             "greedy": True}}
+                    futs.append((b, ex.submit(post, srv.port, "/generate",
+                                              b)))
+                time.sleep(0.005)
+            status, ans = upd.result()
             reload_s = time.perf_counter() - t0
-            partials = [f.result() for f in futs]
+            bodies = [b for b, _ in futs]
+            partials = [f.result() for _, f in futs]
         after = get(srv.port, "/metrics_json")
         if status != 200 or not ans.get("success") or (
                 ans.get("num_paused_requests", 0) <= 0):
@@ -1554,6 +1668,25 @@ def weight_sync_phase(torch):
                     f"weight_sync: after the reload {got['output_ids']} != "
                     f"{want.output_ids} from the trainer's params")
             n_checked += len(want.output_ids)
+        # the graphs captured before the reload must decode with the new
+        # weights: a temperature-1 request's logprobs (greedy ones are 0
+        # at the temperature floor) against its tokens scored by a packed
+        # forward on the exported weights, and on the old ones
+        _, ans_t = post(srv.port, "/generate", {
+            "rid": "after_t", "input_ids": prompts[2],
+            "sampling_params": {"max_new_tokens": 32, "temperature": 1.0}})
+        ids = prompts[2] + ans_t["output_ids"]
+        got_lp = np.asarray(ans_t["output_logprobs"])
+        err_new = np.abs(got_lp - score_tokens(
+            torch, tfm, cfg, fresh.params, ids, len(prompts[2]))).max()
+        diff_old = np.abs(got_lp - score_tokens(
+            torch, tfm, cfg, old_params, ids, len(prompts[2]))).mean()
+        if not err_new <= WEIGHT_SYNC_LP_TOL < diff_old or (
+                eng.stats["graph_captures"] != eng.n_compiles()):
+            raise AssertionError(
+                f"weight_sync: logprobs after the reload are {err_new} from "
+                f"the export's and {diff_old} from the old weights' (limit "
+                f"{WEIGHT_SYNC_LP_TOL}); {eng.stats}")
         status, bad = post(srv.port, "/update_weights_from_disk", {
             "model_path": os.path.join(root, "missing"), "version": 7})
         final = get(srv.port, "/metrics_json")
@@ -1573,8 +1706,12 @@ def weight_sync_phase(torch):
          num_paused_requests=ans["num_paused_requests"],
          weight_update_s=final["weight_update_s"],
          weight_load_overlapped_s=final["weight_load_overlapped_s"],
-         greedy_tokens_checked=n_checked, version=final["version"])
-    del trainer, eng, fresh
+         greedy_tokens_checked=n_checked, version=final["version"],
+         logprob_err_vs_export=float(err_new),
+         logprob_diff_vs_old=float(diff_old),
+         graph_captures=eng.stats["graph_captures"],
+         graph_replays=eng.stats["graph_replays"])
+    del trainer, eng, fresh, old_params
     torch.cuda.empty_cache()
 
 
@@ -1885,7 +2022,8 @@ def main(argv=None) -> int:
     if "parity" in phases:
         parity_phase(torch)
     served = {}
-    if any(p in phases for p in ("serve", "serve_fused", "serve_int8")):
+    if any(p in phases for p in ("serve", "serve_fused", "serve_int8",
+                                 "serve_pipelined")):
         from areal_tpu_torch.models import transformer as tfm
 
         cfg = qwen_1p5b_cfg()
@@ -1911,6 +2049,26 @@ def main(argv=None) -> int:
                 torch, "serve_int8", params, cfg, kv_dtype="int8",
                 n_prompts=1, group=8, profile=args.profile,
             )
+        if "serve_pipelined" in phases:
+            if "bfloat16" not in served:
+                raise AssertionError("serve_pipelined holds its greedy "
+                                     "tokens to serve's: run both")
+            row = serve_phase(
+                torch, "serve_pipelined", params, cfg, kv_dtype=None,
+                n_prompts=4, group=8, profile=args.profile, pipelined=True,
+            )
+            want = served["bfloat16"]["greedy_tokens"]
+            diff = [r for r in want if row["greedy_tokens"].get(r) != want[r]]
+            if diff or len(want) != len(row["greedy_tokens"]):
+                raise AssertionError(f"serve_pipelined: greedy tokens differ "
+                                     f"from serve's on {diff}")
+            emit(phase="serve_pipelined_summary",
+                 greedy_requests_equal=len(want),
+                 decode_tok_per_s=row["decode_tok_per_s"],
+                 unpipelined_decode_tok_per_s=served["bfloat16"][
+                     "decode_tok_per_s"],
+                 chunk_flag_blocked=row["chunk_flag_blocked"],
+                 chunk_flag_fetches=row["chunk_flag_fetches"])
         del params
         torch.cuda.empty_cache()
     if "weight_sync" in phases:

@@ -36,11 +36,11 @@ CFG = ModelConfig(n_layers=2, n_q_heads=4, n_kv_heads=2, head_dim=8,
                   dtype="float32")
 
 
-def _engine(max_seqlen=128):
+def _engine(max_seqlen=128, **kw):
     params = pt_tfm.init_params(CFG, seed=2, device="cpu")
     return pt_engine.GenerationEngine(CFG, params, max_slots=2,
                                       max_seqlen=max_seqlen, page_size=8,
-                                      device="cpu")
+                                      device="cpu", **kw)
 
 
 @pytest.fixture
@@ -107,6 +107,49 @@ def test_concurrent_requests_health_and_metrics(server):
     assert m["fused_sample"] is False and m["engine_fused_sample_steps"] == 0
     assert m["n_weight_updates"] == 0
     assert _call(server.port, "/nope")[0] == 404
+
+
+def test_pipelined_engine_answers_every_request():
+    """Behind the server a pipelined engine harvests each chunk one step
+    late: the engine loop keeps stepping while a chunk is in flight, so
+    the last finishes are answered too, and /metrics_json reports the
+    chunk counters."""
+    srv = pt_server.serve(_engine(pipeline_chunks=True), "127.0.0.1", 0,
+                          decode_steps=4)
+    bodies = [{"rid": f"r{i}", "input_ids": [2 + i] * (3 + i),
+               "sampling_params": {"max_new_tokens": 3 + 2 * i,
+                                   "greedy": True}} for i in range(5)]
+    results = {}
+    try:
+        threads = [threading.Thread(
+            target=lambda b=b: results.update(
+                {b["rid"]: _call(srv.port, "/generate", b)}))
+            for b in bodies]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        status, m = _call(srv.port, "/metrics_json")
+        inflight = srv.engine.has_inflight
+    finally:
+        srv.stop()
+    assert status == 200 and not inflight
+    for b in bodies:
+        code, ans = results[b["rid"]]
+        n = b["sampling_params"]["max_new_tokens"]
+        eng = _engine()
+        eng.submit(pt_engine.GenRequest(rid=b["rid"], input_ids=b["input_ids"],
+                                        max_new_tokens=n, greedy=True))
+        (want,) = eng.run_until_done(decode_steps=4)
+        assert code == 200 and ans["output_ids"] == want.output_ids
+        assert ans["finish_reason"] == "length"
+    assert m["pipeline_chunks"] is True and m["served"] == 5
+    assert m["running"] == 0 and m["pending"] == 0
+    assert m["chunk_flag_fetches"] == m["engine_chunk_flag_fetches"] > 0
+    assert m["chunk_flag_blocked"] == 0          # the CPU copies at once
+    # a CPU engine runs its chunk programs eagerly: no graph
+    assert m["graph_captures"] == m["graph_replays"] == 0
 
 
 def test_metrics_show_the_fused_sampler(monkeypatch):
