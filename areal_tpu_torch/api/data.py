@@ -11,14 +11,16 @@ buffers. Key semantics, as the reference:
 - ``seqlens[key]``: ``List[List[int]]`` — outer list over items, inner list
   over the sequences of that key within the item.
 
-Left out until a ported caller needs them: ``from_default``, ``gather``,
-``unpack``, ``total_len``, the JSON wire codecs,
-``meta``/``select``/``remap_keys_``/``cpu_nbytes`` and the method form of
-``split_into_micro_batches`` (the trainer uses
+The rollout stream and the trainer's buffer use ``from_default``,
+``gather``, ``unpack``, ``meta``, ``select``, the JSON wire codecs
+(``as_json_compatible`` / ``from_json_compatible``) and ``cpu_nbytes``.
+Left out until a ported caller needs them: ``remap_keys_`` and the method
+form of ``split_into_micro_batches`` (the trainer uses
 ``train/batching.py::split_into_micro_batches``).
 """
 
 import dataclasses
+import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +84,27 @@ class SequenceSample:
                     f"({len(vs)} != {self.bs})"
                 )
 
+    @classmethod
+    def from_default(
+        cls,
+        ids: List[Any],
+        seqlens: List[int],
+        data: Dict[str, np.ndarray],
+        metadata: Optional[Dict[str, List[Any]]] = None,
+    ) -> "SequenceSample":
+        """Every key holds one sequence per item with the same lengths,
+        except keys with one value per item, which get length-1 entries."""
+        seqlens = [int(x) for x in seqlens]
+        sls: Dict[str, List[List[int]]] = {}
+        for k, v in data.items():
+            v = np.asarray(v)
+            if v.shape[0] == len(ids) and v.shape[0] != sum(seqlens):
+                sls[k] = [[1] for _ in ids]  # scalar-per-item key
+            else:
+                sls[k] = [[s] for s in seqlens]
+        return cls(keys=set(data.keys()), ids=list(ids), seqlens=sls,
+                   data=dict(data), metadata=metadata or {})
+
     @property
     def bs(self) -> int:
         return len(self.ids)
@@ -89,9 +112,56 @@ class SequenceSample:
     def item_total_len(self, key: str, i: int) -> int:
         return sum(self.seqlens[key][i])
 
+    def total_len(self, key: str) -> int:
+        return sum(self.item_total_len(key, i) for i in range(self.bs))
+
     def _offsets(self, key: str) -> np.ndarray:
         lens = [self.item_total_len(key, i) for i in range(self.bs)]
         return np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+    @classmethod
+    def gather(cls, samples: Sequence["SequenceSample"],
+               keys=None) -> "SequenceSample":
+        """Concatenate ``samples`` item-wise over ``keys`` (default: the
+        first sample's keys); metadata present in every sample is kept."""
+        if not samples:
+            raise ValueError("gather of zero samples")
+        keys = set(keys) if keys is not None else set(samples[0].keys)
+        for s in samples:
+            if not keys.issubset(s.keys):
+                raise ValueError(f"missing keys {keys - s.keys} in gather")
+        ids = list(itertools.chain.from_iterable(s.ids for s in samples))
+        seqlens = {
+            k: list(itertools.chain.from_iterable(s.seqlens[k] for s in samples))
+            for k in keys
+        }
+        data = None
+        if all(s.data is not None for s in samples):
+            data = {}
+            for k in keys:
+                parts = [s.data.get(k) for s in samples]
+                if all(p is None for p in parts):
+                    data[k] = None
+                elif any(p is None for p in parts):
+                    raise ValueError(
+                        f"gather: key {k!r} present in some samples but None "
+                        "in others"
+                    )
+                else:
+                    data[k] = np.concatenate(parts, axis=0)
+        metadata = {
+            mk: list(itertools.chain.from_iterable(s.metadata[mk]
+                                                   for s in samples))
+            for mk in samples[0].metadata
+            if all(mk in s.metadata for s in samples)
+        }
+        return cls(
+            keys=keys, ids=ids, seqlens=seqlens, data=data,
+            dtypes={k: samples[0].dtypes.get(k) for k in keys},
+            trailing_shapes={k: samples[0].trailing_shapes.get(k)
+                             for k in keys},
+            metadata=metadata,
+        )
 
     def split_with_lengths(self, part_lengths: Sequence[int]) -> List["SequenceSample"]:
         """Split items contiguously: part i gets ``part_lengths[i]`` items."""
@@ -138,11 +208,87 @@ class SequenceSample:
     def split(self, k_parts: int, key: Optional[str] = None) -> List["SequenceSample"]:
         return self.split_with_lengths(self.get_split_spec(k_parts, key))
 
+    def unpack(self) -> List["SequenceSample"]:
+        return self.split_with_lengths([1] * self.bs)
+
     def main_key(self) -> str:
         for cand in ("packed_input_ids", "packed_prompts", "input_ids"):
             if cand in self.keys:
                 return cand
         return sorted(self.keys)[0]
+
+    def meta(self) -> "SequenceSample":
+        """The structure without the arrays."""
+        return SequenceSample(
+            keys=set(self.keys),
+            ids=list(self.ids),
+            seqlens={k: [list(s) for s in v] for k, v in self.seqlens.items()},
+            data=None,
+            dtypes=dict(self.dtypes),
+            trailing_shapes=dict(self.trailing_shapes),
+            metadata={mk: list(vs) for mk, vs in self.metadata.items()},
+        )
+
+    def select(self, keys) -> "SequenceSample":
+        keys = set(keys)
+        if not keys.issubset(self.keys):
+            raise ValueError(f"select: missing {keys - self.keys}")
+        return SequenceSample(
+            keys=keys,
+            ids=list(self.ids),
+            seqlens={k: self.seqlens[k] for k in keys},
+            data=None if self.data is None else {k: self.data.get(k)
+                                                 for k in keys},
+            dtypes={k: self.dtypes.get(k) for k in keys},
+            trailing_shapes={k: self.trailing_shapes.get(k) for k in keys},
+            metadata=dict(self.metadata),
+        )
+
+    def as_json_compatible(self) -> dict:
+        """The wire form of the rollout -> trainer stream (flat lists)."""
+        data = None if self.data is None else {
+            k: (None if v is None else v.reshape(-1).tolist())
+            for k, v in self.data.items()
+        }
+        return dict(
+            ids=[str(i) for i in self.ids],
+            keys=sorted(self.keys),
+            seqlens=self.seqlens,
+            dtypes=self.dtypes,
+            trailing_shapes={k: (None if v is None else list(v))
+                             for k, v in self.trailing_shapes.items()},
+            data=data,
+            metadata=self.metadata,
+        )
+
+    @classmethod
+    def from_json_compatible(cls, d: dict) -> "SequenceSample":
+        data = None
+        if d.get("data") is not None:
+            data = {}
+            for k, flat in d["data"].items():
+                if flat is None:
+                    data[k] = None
+                    continue
+                arr = np.asarray(flat, dtype=np.dtype(d["dtypes"][k]))
+                trail = tuple(d["trailing_shapes"][k] or ())
+                total = sum(sum(s) for s in d["seqlens"][k])
+                data[k] = arr.reshape((total,) + trail)
+        return cls(
+            keys=set(d["keys"]),
+            ids=list(d["ids"]),
+            seqlens={k: [list(s) for s in v] for k, v in d["seqlens"].items()},
+            data=data,
+            dtypes=dict(d["dtypes"]),
+            trailing_shapes={k: (None if v is None else tuple(v))
+                             for k, v in d["trailing_shapes"].items()},
+            metadata={k: list(v) for k, v in d.get("metadata", {}).items()},
+        )
+
+    def cpu_nbytes(self) -> int:
+        if self.data is None:
+            return 0
+        return sum(v.nbytes for v in self.data.values() if v is not None)
 
     def update_(self, other: "SequenceSample"):
         """Merge keys of ``other`` (same ids, same order) into self."""

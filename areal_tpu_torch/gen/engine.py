@@ -27,7 +27,11 @@
   each chunk one step late, after the next one is dispatched, so the
   host's harvest overlaps the device's decode (``_step_pipelined``).
 - Interruption: the host stops issuing chunks and harvests partial
-  outputs; clients re-submit with the accumulated tokens.
+  outputs; clients re-submit with the accumulated tokens. A harvested
+  slot's full pages (prompt and output) stay in the prefix cache, so
+  such a resubmission (or the next chunk of a chunked rollout) borrows
+  them instead of prefilling them again (the reference caches prompt
+  pages only).
 - Weight update: the new weights are copied into the engine's tensors
   between chunks (captured programs keep reading the same addresses); the
   prefix cache is invalidated (KV from old weights must not seed new
@@ -144,6 +148,7 @@ class _SlotInfo:
     rid: str
     pages: List[int]          # owned pages (refcount held by this slot)
     borrowed: List[int]       # shared prefix pages (one ref held)
+    n_updates: int            # weight updates before its admission
 
 
 class _Clock:
@@ -258,6 +263,7 @@ class GenerationEngine:
         self.n_pages = self.B * self.M * bytes_ratio
         self.pool = PagePool(self.n_pages, page_size)
         self.prefix = PrefixRegistry(self.pool)
+        self._n_updates = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self.state = self._make_state(
@@ -450,6 +456,7 @@ class GenerationEngine:
         with self._lock:
             tfm.tree_map(lambda dst, src: dst.copy_(src), self.params, params)
             self.version = version if version is not None else self.version + 1
+            self._n_updates += 1
             self.prefix.clear()
 
     def partial_outputs(
@@ -638,7 +645,9 @@ class GenerationEngine:
             table_row = np.zeros((self.M,), np.int32)
             table_row[: len(shared) + len(owned)] = shared + owned
             self._table_host[slot] = table_row
-            self._slots[slot] = _SlotInfo(rid=r.rid, pages=owned, borrowed=shared)
+            self._slots[slot] = _SlotInfo(rid=r.rid, pages=owned,
+                                          borrowed=shared,
+                                          n_updates=self._n_updates)
             covered = len(shared) * self.page
             row = {"tokens": ids[covered:plen_eff], "start": covered,
                    "table_row": table_row}
@@ -998,13 +1007,34 @@ class GenerationEngine:
             self._req_meta.pop(info.rid, None)
         return info
 
+    def _cache_output_pages(self, b: int, out_ids: List[int]):
+        """Register slot ``b``'s full pages past its prompt in the prefix
+        cache before they are released: a chunked rollout resubmits
+        ``prompt + output`` (partial rollout, interrupted requests), and
+        its admission then borrows every page whose KV this slot wrote
+        instead of prefilling it again. KV exists for every position but
+        the last output token's. A slot that ran across a weight update
+        holds KV of the old weights and caches nothing."""
+        if not out_ids or self._slots[b].n_updates != self._n_updates:
+            return
+        with self._pending_lock:
+            req = self._req_meta.get(self._slots[b].rid)
+        if req is None:
+            return
+        ids = list(req.input_ids) + out_ids
+        n_full = (len(ids) - 1) // self.page
+        if n_full > (len(req.input_ids) - 1) // self.page:
+            self.prefix.insert(ids, self._table_host[b][:n_full].tolist())
+
     def _harvest(self, b: int, reason: str, host_state: dict) -> GenOutput:
         """Release slot ``b`` and build its output from a host snapshot."""
         n = int(host_state["n_gen"][b])
+        out_ids = host_state["out_tokens"][b, :n].tolist()
+        self._cache_output_pages(b, out_ids)
         info = self._release_slot(b)
         return GenOutput(
             rid=info.rid,
-            output_ids=host_state["out_tokens"][b, :n].tolist(),
+            output_ids=out_ids,
             output_logprobs=host_state["out_logprobs"][b, :n].tolist(),
             finish_reason=reason,
             version=self.version,

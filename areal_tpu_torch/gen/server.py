@@ -29,9 +29,9 @@ import json
 import logging
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 
+from areal_tpu_torch.base import http
 from areal_tpu_torch.gen.engine import GenerationEngine, GenOutput, GenRequest
 from areal_tpu_torch.models import hf as hf_conv
 from areal_tpu_torch.models import transformer as tfm
@@ -139,7 +139,7 @@ class GenerationHTTPServer:
         self._t_weight = 0.0        # inside the lock: pause/drain + swap
         self._t_weight_load = 0.0   # overlapped loads, outside the lock
         self._start = time.time()
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._httpd = None
         self._threads = []
         self.port: Optional[int] = None
 
@@ -148,16 +148,12 @@ class GenerationHTTPServer:
     # ------------------------------------------------------------------ #
 
     def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
-        self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
-        self._httpd.daemon_threads = True
-        self._threads = [
-            threading.Thread(target=self._httpd.serve_forever,
-                             name="gen-http", daemon=True),
-            threading.Thread(target=self._run, name="gen-engine",
-                             daemon=True),
-        ]
-        for t in self._threads:
-            t.start()
+        self._httpd, http_thread = http.start_server(
+            self.routes(), host, port, "gen-http")
+        engine_thread = threading.Thread(target=self._run, name="gen-engine",
+                                         daemon=True)
+        engine_thread.start()
+        self._threads = [http_thread, engine_thread]
         self.port = self._httpd.server_address[1]
         logger.info("generation server on %s:%d", host, self.port)
         return self.port
@@ -413,45 +409,15 @@ class GenerationHTTPServer:
     def metrics(self, body: bytes):
         return 200, self.metrics_dict()
 
-
-def _make_handler(srv: GenerationHTTPServer):
-    routes = {
-        ("POST", "/generate"): srv.generate,
-        ("POST", "/pause_generation"): srv.pause,
-        ("POST", "/continue_generation"): srv.resume,
-        ("POST", "/update_weights_from_disk"): srv.update_weights,
-        ("GET", "/health"): srv.health,
-        ("GET", "/metrics_json"): srv.metrics,
-    }
-
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-
-        def _dispatch(self, method: str):
-            fn = routes.get((method, self.path.split("?", 1)[0]))
-            n = int(self.headers.get("Content-Length") or 0)
-            body = self.rfile.read(n) if n else b""
-            if fn is None:
-                status, payload = 404, {"error": f"no route {method} {self.path}"}
-            else:
-                status, payload = fn(body)
-            data = json.dumps(payload).encode()
-            self.send_response(status)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(data)))
-            self.end_headers()
-            self.wfile.write(data)
-
-        def do_GET(self):
-            self._dispatch("GET")
-
-        def do_POST(self):
-            self._dispatch("POST")
-
-        def log_message(self, fmt, *args):
-            logger.debug("%s - " + fmt, self.address_string(), *args)
-
-    return Handler
+    def routes(self):
+        return {
+            ("POST", "/generate"): self.generate,
+            ("POST", "/pause_generation"): self.pause,
+            ("POST", "/continue_generation"): self.resume,
+            ("POST", "/update_weights_from_disk"): self.update_weights,
+            ("GET", "/health"): self.health,
+            ("GET", "/metrics_json"): self.metrics,
+        }
 
 
 def serve(engine: GenerationEngine, host: str = "127.0.0.1", port: int = 0,

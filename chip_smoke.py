@@ -70,10 +70,25 @@ Phases, each printing one JSON line:
    pipelined chunks, whose greedy tokens must equal ``serve``'s. A
    ``weight_sync`` phase reloads a trainer's export into a running server
    and checks that the replayed graphs decode with the new weights.
-6. ``train_parity``: a tiny float32 model trained two SFT optimizer steps
+6. ``async_rollout``: AReaL's async loop closed once at the 1.5B profile's
+   widths (full depth where two f32 exports fit on the disk, else cut
+   only as far as they do): a bf16 server behind the gserver manager
+   (staleness window 4, batch 8), one rollout worker with the math agent
+   over 64 prompts of 512 tokens in groups of 4, 512 new tokens in
+   chunks of 256, the stream into a staleness-ordered buffer, one PPO
+   step of an f32-master trainer (same seed-0 weights) on the first 8
+   groups, its HF export published while rollouts run, the manager's
+   flush to version 1 and the interrupted rollouts finishing at version
+   1. Checks trajectory shapes, the gate (a staleness denial before the
+   step, running groups within the window), the update (versions,
+   interruptions, a trajectory spanning 0 -> 1), rollout-vs-trainer
+   logprobs (0.1), finite PPO stats, no drop or failure, and the launch
+   counts (paged decode = layers x steps, replays x 16 + captures =
+   steps, flash = layers x micro-batches).
+7. ``train_parity``: a tiny float32 model trained two SFT optimizer steps
    on the card and on the CPU from the same numpy params and batch; loss,
    grad norm and weights must agree.
-7. ``train``: critic-free GRPO rounds of the PPO actor (decoupled loss,
+8. ``train``: critic-free GRPO rounds of the PPO actor (decoupled loss,
    2 minibatches) at the 1.5B profile's full width (f32 master weights
    from seed 0, bf16 compute, full remat, chunked loss), 2 prompts x 8
    samples of 512 + 256-1024 tokens, micro-batches of 8192 tokens: each
@@ -107,7 +122,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
-          "serve_pipelined", "weight_sync", "train_parity", "train")
+          "serve_pipelined", "weight_sync", "async_rollout", "train_parity",
+          "train")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -1598,8 +1614,7 @@ def weight_sync_phase(torch):
                   for i, p in enumerate(prompts)]
         # graphed decode finishes a 1000-token request faster than the
         # overlapped load takes: keep four requests in flight until the
-        # update answers. Their 100-token prompts fill no page, so none is
-        # cached (the prefix cache must be empty after the update).
+        # update answers.
         feed = [rng.integers(0, cfg.vocab_size, size=100).tolist()
                 for _ in range(4)]
         with ThreadPoolExecutor(64) as ex:
@@ -1644,7 +1659,7 @@ def weight_sync_phase(torch):
         if n_partial != ans["num_paused_requests"]:
             raise AssertionError(f"weight_sync: {n_partial} partial answers "
                                  f"for {ans['num_paused_requests']} paused")
-        if before["prefix_pages"] <= 0 or after["prefix_pages"] != 0 or (
+        if before["prefix_pages"] <= 0 or (
                 after["version"] != 1 or after["paused"]
                 or after["n_weight_updates"] != 1):
             raise AssertionError(f"weight_sync: metrics after the update: "
@@ -1656,6 +1671,9 @@ def weight_sync_phase(torch):
                                  max_seqlen=2048, page_size=128, seed=0,
                                  device="cuda")
         n_checked = 0
+        # both prompts' pages were cached before the update, which must
+        # have dropped them (no page of the old weights seeds a request)
+        hits_before = eng.stats["prefix_hit_tokens"]
         for i, p in enumerate(prompts[:2]):
             _, got = post(srv.port, "/generate", {
                 "rid": f"after{i}", "input_ids": p,
@@ -1668,6 +1686,9 @@ def weight_sync_phase(torch):
                     f"weight_sync: after the reload {got['output_ids']} != "
                     f"{want.output_ids} from the trainer's params")
             n_checked += len(want.output_ids)
+        if eng.stats["prefix_hit_tokens"] != hits_before:
+            raise AssertionError(f"weight_sync: a page cached before the "
+                                 f"update seeded a request: {eng.stats}")
         # the graphs captured before the reload must decode with the new
         # weights: a temperature-1 request's logprobs (greedy ones are 0
         # at the temperature floor) against its tokens scored by a packed
@@ -1713,6 +1734,428 @@ def weight_sync_phase(torch):
          graph_replays=eng.stats["graph_replays"])
     del trainer, eng, fresh, old_params
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# the async rollout loop: server + manager + worker + stream + PPO step +
+# a weight update mid-rollout, at the 1.5B profile's widths
+# --------------------------------------------------------------------------- #
+
+ASYNC_ROLLOUT = dict(
+    n_prompts=64, prompt_len=512, group=4, max_new_tokens=512,
+    new_tokens_per_chunk=256,       # the reference's default chunk
+    train_batch_size=8, max_head_offpolicyness=4,   # the reference's window
+    max_concurrent_rollouts=64, max_concurrent_tasks=48,
+    mb_tokens=8192, limit_s=600.0,
+)
+TRAJ_KEYS = {"packed_input_ids", "prompt_mask", "packed_logprobs", "rewards",
+             "seq_no_eos_mask", "version_start", "version_end"}
+
+
+def export_bytes(cfg, n_layers):
+    """Bytes of an f32 HF export of ``cfg`` cut to ``n_layers``."""
+    E, D, F = cfg.hidden_dim, cfg.head_dim, cfg.intermediate_dim
+    q, kv = cfg.n_q_heads * D, cfg.n_kv_heads * D
+    layer = E * (q + 2 * kv) + (q + 2 * kv) * cfg.use_attention_bias + (
+        q * E + 3 * E * F + 2 * E)
+    ends = cfg.vocab_size * E * (1 if cfg.tied_embedding else 2) + E
+    return 4 * (ends + n_layers * layer)
+
+
+def export_dir_and_depth(cfg, root):
+    """Where the phase's export goes, and the depth it runs at: the
+    process's temporary directory, else ``root`` (the checkout); the full
+    depth where two exports fit (staging + commit), else the most layers
+    that do. Also the free bytes of each candidate (and of /dev/shm, for
+    the record)."""
+    import os
+    import shutil
+    import tempfile
+
+    free = {}
+    for d in (tempfile.gettempdir(), root, "/dev/shm"):
+        try:
+            free[d] = shutil.disk_usage(d).free
+        except OSError:
+            free[d] = 0
+    for d in (tempfile.gettempdir(), root):
+        if free[d] >= 2 * export_bytes(cfg, cfg.n_layers):
+            return d, cfg.n_layers, free
+    d = max((tempfile.gettempdir(), root), key=free.get)
+    n = cfg.n_layers
+    while n > 1 and free[d] < 2 * export_bytes(cfg, n):
+        n -= 1
+    return d, n, free
+
+
+def action_mask(sample, members=None):
+    """The positions of ``sample``'s packed tokens whose logprob scores a
+    generated token (a logprob sits one position before its token), for
+    the sequences in ``members`` (a bool per sequence; all by default)."""
+    act = np.zeros(sample.total_len("packed_input_ids"), bool)
+    off, j = 0, 0
+    for seqs in sample.seqlens["packed_input_ids"]:
+        for n in seqs:
+            if members is None or members[j]:
+                act[off:off + n - 1] = ~sample.data["prompt_mask"][
+                    off + 1:off + n]
+            off, j = off + n, j + 1
+    return act
+
+
+def logprob_err(sample, members=None):
+    """Mean |behaviour logprob - the trainer's recompute| over the
+    generated tokens of ``members``."""
+    act = action_mask(sample, members)
+    return float(np.abs(sample.data["packed_logprobs"][act]
+                        - sample.data["prox_logp"][act]).mean())
+
+
+def async_rollout_phase(torch):
+    """AReaL's async loop closed once on one card: a bf16 server behind the
+    gserver manager, one rollout worker driving the math agent through
+    chunked generation, the stream into a staleness-ordered buffer, one
+    PPO step of an f32-master trainer on a streamed batch, its HF export,
+    and the manager's flush of the server to version 1 while rollouts are
+    in flight; the interrupted rollouts finish at version 1."""
+    import asyncio
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from areal_tpu_torch.agents.math_single_step import MathSingleStepAgent
+    from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.api.dataset import DatasetUtility
+    from areal_tpu_torch.api.model import (
+        GenerationHyperparameters, PPOHyperparameters, make_interface)
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.datasets.prompt import MathCodePromptDataset
+    from areal_tpu_torch.envs.math_code_single_step import MathCodeSingleStepEnv
+    from areal_tpu_torch.gen.engine import GenerationEngine
+    from areal_tpu_torch.gen.server import serve
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+    from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
+    from areal_tpu_torch.system.buffer import SequenceBuffer
+    from areal_tpu_torch.system.gserver_manager import (
+        GserverManager, GserverManagerConfig, serve_manager)
+    from areal_tpu_torch.system.push_pull_stream import JsonPuller, JsonPusher
+    from areal_tpu_torch.system.rollout_worker import RolloutWorker
+    from areal_tpu_torch.system.stream_dataset import PullerStreamDataset
+    from areal_tpu_torch.train import batching
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
+    c = ASYNC_ROLLOUT
+    exp, trial = "chip_smoke", "async_rollout"
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    full = qwen_1p5b_cfg()
+    export_parent, n_layers, free = export_dir_and_depth(full, root_dir)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    train_cfg = dataclasses.replace(cfg, remat_policy="full",
+                                    loss_chunk_size=2048)
+    spec = MicroBatchSpec(max_tokens_per_mb=c["mb_tokens"])
+    deadline = time.time() + c["limit_s"]
+
+    def wait(what, cond, poll=0.02):
+        while not cond():
+            if time.time() > deadline:
+                raise AssertionError(f"async_rollout: {what} did not happen "
+                                     f"within {c['limit_s']} s")
+            time.sleep(poll)
+
+    torch.cuda.reset_peak_memory_stats()
+    name_resolve.reset()
+    work = tempfile.mkdtemp(prefix="areal_async_rollout_", dir=export_parent)
+    # one seed-0 init: f32 masters for the trainer, their bf16 cast served
+    trainer = TrainEngine(train_cfg, optimizer=OptimizerConfig(lr=1e-5),
+                          device="cuda").init_random(0).setup_optimizer(100)
+    eng = GenerationEngine(cfg, trainer.params, max_slots=32, max_seqlen=2048,
+                           page_size=128, seed=0, device="cuda")
+    srv = manager = stream = pusher = loop = None
+    try:
+        srv = serve(eng, "127.0.0.1", 0, decode_steps=DECODE_STEPS)
+        name_resolve.add(names.gen_server(exp, trial, 0),
+                         f"http://127.0.0.1:{srv.port}", replace=True)
+        manager = GserverManager(GserverManagerConfig(
+            experiment_name=exp, trial_name=trial,
+            train_batch_size=c["train_batch_size"],
+            max_head_offpolicyness=c["max_head_offpolicyness"],
+            max_concurrent_rollouts=c["max_concurrent_rollouts"]))
+        manager.discover_servers()
+        serve_manager(manager, "127.0.0.1", 0)
+        # traffic: 64 math prompts of 512 random tokens, each with a boxed
+        # solution
+        rng = np.random.default_rng(0)
+        data_path = os.path.join(work, "math.jsonl")
+        with open(data_path, "w") as f:
+            for i in range(c["n_prompts"]):
+                f.write(json.dumps({
+                    "query_id": f"q{i}",
+                    "prompt_ids": rng.integers(
+                        0, cfg.vocab_size, c["prompt_len"]).tolist(),
+                    "task": "math",
+                    "solutions": [f"\\boxed{{{int(rng.integers(100))}}}"],
+                }) + "\n")
+        dataset = MathCodePromptDataset(
+            util=DatasetUtility(seed=0, dp_rank=0, world_size=1),
+            path=data_path)
+        puller = JsonPuller("127.0.0.1", 0, default_timeout_ms=100)
+        stream = PullerStreamDataset(exp, trial, 0,
+                                     offline_dataset_size=len(dataset),
+                                     puller=puller)
+        pusher = JsonPusher("127.0.0.1", puller.port)
+        worker = RolloutWorker(
+            experiment_name=exp, trial_name=trial, worker_index=0,
+            n_workers=1, n_pullers=1,
+            agent=MathSingleStepAgent(gconfig=GenerationHyperparameters(
+                n=c["group"], max_new_tokens=c["max_new_tokens"],
+                temperature=1.0, top_p=1.0)),
+            env=MathCodeSingleStepEnv(dataset.load_metadata()),
+            dataset=dataset, new_tokens_per_chunk=c["new_tokens_per_chunk"],
+            max_concurrent_tasks=c["max_concurrent_tasks"], pusher=pusher,
+            manager_url=f"http://127.0.0.1:{manager.port}",
+        )
+        loop = asyncio.new_event_loop()
+        threading.Thread(target=loop.run_forever, daemon=True,
+                         name="rollout-worker").start()
+        stop = threading.Event()
+        collected = []
+
+        def take():
+            if run.done():
+                run.result()   # the worker failed: raise its error
+            got = stream.get_batch(64, timeout=0.05)
+            collected.extend(got)
+            return got
+
+        # the main path's run: every launch counted from here on
+        cuda_paged.reset_launches()
+        cuda_flash.reset_launches()
+        t_start = time.perf_counter()
+        run = asyncio.run_coroutine_threadsafe(
+            worker.run_async(should_stop=stop.is_set), loop)
+
+        # 1-2. rollouts at version 0 until the gate closes and 8 groups
+        # are in the buffer
+        buf = SequenceBuffer(max_version_lag=c["max_head_offpolicyness"])
+        def fill():
+            for s in take():
+                buf.put(s, current_version=0)
+            return len(buf) >= c["train_batch_size"]
+
+        wait("8 streamed groups", fill)
+        # the 41st group was asked for long before 8 groups finished
+        denied_before_step = manager.counters["denied_staled"]
+        t_first_batch = time.perf_counter() - t_start
+        samples = buf.pop_batch(c["train_batch_size"], current_version=0)
+        batch = SequenceSample.gather(samples, keys={
+            "packed_input_ids", "prompt_mask", "packed_logprobs", "rewards",
+            "seq_no_eos_mask"})
+
+        # 3. one PPO step: proximal logprobs, then the decoupled update
+        hp = PPOHyperparameters(disable_value=True, adv_norm=True,
+                                use_decoupled_loss=True, ppo_n_minibatches=2)
+        actor = make_interface("ppo_actor", hp=hp)
+        n_inf = len(batching.split_into_micro_batches(
+            batch, spec.n_mbs, spec.max_tokens_per_mb, 1))
+        n_train = sum(len(batching.split_into_micro_batches(
+            mb, spec.n_mbs, spec.max_tokens_per_mb, 1))
+            for mb in batch.split(hp.ppo_n_minibatches))
+        tokens = batch.total_len("packed_input_ids")
+        t0 = time.perf_counter()
+        batch.update_(actor.inference(trainer, batch, spec))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = actor.train_step(trainer, batch, spec)
+        torch.cuda.synchronize()
+        train_s, inf_s = time.perf_counter() - t1, t1 - t0
+        bad = {k: v for k, v in stats.items() if not np.isfinite(v)}
+        if bad or stats["guard/step_ok"] != 1.0:
+            raise AssertionError(f"async_rollout: PPO step stats {stats}")
+        # behaviour logprobs (bf16 server) against the trainer's recompute
+        # on the same version-0 tokens (action positions only)
+        lp_err = logprob_err(batch)
+        if not lp_err <= WEIGHT_SYNC_LP_TOL:
+            raise AssertionError(f"async_rollout: rollout logprobs are "
+                                 f"{lp_err} from the trainer's (limit "
+                                 f"{WEIGHT_SYNC_LP_TOL})")
+
+        # 4. the trainer's progress, as trainer_worker publishes it
+        name_resolve.add(names.training_samples(exp, trial),
+                         str(c["train_batch_size"]), replace=True)
+        # 5. the export, published while rollouts are in flight
+        path = os.path.join(work, "v1")
+        t0 = time.perf_counter()
+        trainer.save_hf(path, "qwen2")
+        export_s = time.perf_counter() - t0
+        running = get(srv.port, "/metrics_json")["running"]
+        if running <= 0:
+            raise AssertionError("async_rollout: no request in flight to "
+                                 "interrupt at the weight update")
+        t0 = time.perf_counter()
+        name_resolve.add(names.model_version(exp, trial, "actor"),
+                         f"1:{path}", replace=True)
+        # 6. the manager's poll loop flushes the server
+        wait("the weight update", lambda: manager.version == 1, poll=0.05)
+        reload_s = time.perf_counter() - t0
+
+        # 7. collect until the interrupted rollouts finished at version 1,
+        # and a group's worth of sequences was generated wholly at it
+        def spans():
+            take()
+            ends = [s for s in collected
+                    if int(np.max(s.data["version_end"])) == 1]
+            across = [s for s in ends
+                      if int(np.min(s.data["version_start"])) == 0]
+            at_v1 = sum(int((s.data["version_start"] == 1).sum())
+                        for s in collected)
+            return (len(ends) >= c["train_batch_size"] and across
+                    and at_v1 >= c["group"])
+
+        wait("8 groups at version 1, one across the update, and "
+             f"{c['group']} sequences generated at version 1", spans)
+        window = time.perf_counter() - t_start
+        # the rates count what was streamed inside the window only: the
+        # drain below finishes every group still in flight
+        n_window = len(collected)
+        gen_window = sum(int((~s.data["prompt_mask"]).sum())
+                         for s in collected)
+        stop.set()
+        run.result(timeout=max(deadline - time.time(), 1))
+        asyncio.run_coroutine_threadsafe(
+            worker.drain(timeout=max(deadline - time.time(), 1)),
+            loop).result()
+        take()
+        torch.cuda.synchronize()
+        launches = cuda_paged.launches
+        fwd, bwd = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+        metrics = get(srv.port, "/metrics_json")
+        mgr = get(manager.port, "/metrics_json")
+        # the reloaded 28 layers: tokens the server generated at version 1
+        # against the trainer's recompute on the weights it exported (the
+        # step left them all but equal to version 0's, so this holds the
+        # reload, not the update)
+        v1 = [s for s in collected if (s.data["version_start"] == 1).any()]
+        v1 = v1[:c["train_batch_size"]]
+        v1_batch = SequenceSample.gather(v1, keys={
+            "packed_input_ids", "prompt_mask", "packed_logprobs"})
+        v1_batch.update_(actor.inference(trainer, v1_batch, spec))
+        v1_members = np.concatenate([s.data["version_start"] == 1 for s in v1])
+        v1_tokens = int(action_mask(v1_batch, v1_members).sum())
+        lp_err_v1 = logprob_err(v1_batch, v1_members)
+        if not lp_err_v1 <= WEIGHT_SYNC_LP_TOL:
+            raise AssertionError(f"async_rollout: logprobs of tokens "
+                                 f"generated at version 1 are {lp_err_v1} "
+                                 f"from the trainer's (limit "
+                                 f"{WEIGHT_SYNC_LP_TOL})")
+    finally:
+        if loop is not None:
+            loop.call_soon_threadsafe(loop.stop)
+        for end in (stream and stream.close, pusher and pusher.close,
+                    manager and manager.stop, srv and srv.stop):
+            if end:
+                end()
+        shutil.rmtree(work, ignore_errors=True)
+        name_resolve.reset()
+
+    # hard checks, over every trajectory streamed (the batch's included)
+    samples = collected
+    for s in samples:
+        lens = s.seqlens["packed_input_ids"][0]
+        if not s.keys >= TRAJ_KEYS or len(lens) != c["group"] or (
+                s.data["packed_input_ids"].shape[0] != sum(lens)) or (
+                s.data["packed_logprobs"].shape[0] != sum(lens)) or not (
+                np.isfinite(s.data["packed_logprobs"]).all()):
+            raise AssertionError(f"async_rollout: bad trajectory {s.ids}: "
+                                 f"{sorted(s.keys)} {lens}")
+    bound = (c["max_head_offpolicyness"] + 1) * c["train_batch_size"]
+    if denied_before_step <= 0 or not 0 < mgr["counters"]["max_running"] <= bound:
+        raise AssertionError(f"async_rollout: the gate: {mgr['counters']}")
+    if mgr["version"] != 1 or metrics["version"] != 1 or (
+            mgr["counters"]["interrupted_requests"] <= 0):
+        raise AssertionError(f"async_rollout: weight update: manager {mgr}, "
+                             f"server {metrics}")
+    faults = dict(push_drops=pusher.drop_cnt, stream_drops=stream.dropped,
+                  requeued=worker.requeued_cnt, dropped=worker.dropped_cnt,
+                  server_failures=worker.prm.stats["server_failures"],
+                  client_retries=worker.prm.client.retries,
+                  update_failures=mgr["counters"].get(
+                      "weight_update_failures", 0),
+                  buffer_stale=buf.n_dropped_stale,
+                  buffer_capacity=buf.n_dropped_capacity)
+    if any(faults.values()) or worker.n_tasks() or mgr["running"]:
+        raise AssertionError(f"async_rollout: faults {faults}, tasks "
+                             f"{worker.n_tasks()}, running {mgr['running']}")
+    stats_e = eng.stats
+    steps = stats_e["decode_steps"]
+    if launches != cfg.n_layers * steps or stats_e["graph_replays"] <= 0 or (
+            stats_e["graph_replays"] * DECODE_STEPS
+            + stats_e["graph_captures"] != steps):
+        raise AssertionError(f"async_rollout: paged_decode launched "
+                             f"{launches} times over {steps} steps: {stats_e}")
+    L = cfg.n_layers
+    if fwd != L * (n_inf + 2 * n_train) or bwd != L * n_train:
+        raise AssertionError(
+            f"async_rollout: flash launches fwd {fwd} bwd {bwd}; expected "
+            f"{L * (n_inf + 2 * n_train)} and {L * n_train}")
+    across = sum(1 for s in samples
+                 if int(np.min(s.data["version_start"])) == 0
+                 and int(np.max(s.data["version_end"])) == 1)
+    n_seqs = sum(len(s.seqlens["packed_input_ids"][0]) for s in samples)
+    gen_tokens = sum(
+        int((~s.data["prompt_mask"]).sum()) for s in samples)
+    hit, pre = stats_e["prefix_hit_tokens"], stats_e["prefill_tokens"]
+    row = dict(
+        layers=L, depth_cut_reason=(
+            None if L == full.n_layers else
+            f"two f32 exports of {full.n_layers} layers "
+            f"({2 * export_bytes(full, full.n_layers) / 1e9:.1f} GB) do not "
+            f"fit in {export_parent}"),
+        free_gb={d: v / 1e9 for d, v in free.items()},
+        export_dir=export_parent, export_gb=export_bytes(cfg, L) / 1e9,
+        trajectories=len(samples), sequences=n_seqs,
+        window_s=window, first_batch_s=t_first_batch,
+        trajectories_in_window=n_window, gen_tokens_in_window=gen_window,
+        trajectories_per_s=n_window / window,
+        gen_tok_per_s=gen_window / window, gen_tokens=gen_tokens,
+        server_gen_tokens=metrics["gen_tokens"],
+        decode_s=stats_e["decode_s"], prefill_s=stats_e["prefill_s"],
+        decode_steps=steps, prefill_tokens=pre, prefix_hit_tokens=hit,
+        prefix_hit_share=hit / max(hit + pre, 1),
+        chunks=worker.prm.stats["chunks"],
+        chunks_per_sequence=worker.prm.stats["chunks"] / max(n_seqs, 1),
+        chunk_reasons={k: v for k, v in worker.prm.stats.items()
+                       if k.startswith("chunks_")},
+        gate_denials_staled=mgr["counters"].get("denied_staled", 0),
+        gate_denials_capacity=mgr["counters"].get("denied_capacity", 0),
+        gate_denials_before_step=denied_before_step,
+        max_running_groups=mgr["counters"]["max_running"],
+        running_bound=bound, allocated=mgr["counters"]["allocated"],
+        worker_denied=worker.denied_cnt,
+        interrupted_requests=mgr["counters"]["interrupted_requests"],
+        trajectories_across_update=across,
+        weight_update_s=metrics["weight_update_s"],
+        weight_load_overlapped_s=metrics["weight_load_overlapped_s"],
+        manager_flush_s=manager.last_weight_update_s,
+        export_s=export_s, reload_s=reload_s,
+        ppo_tokens=tokens, inference_mbs=n_inf, train_mbs=n_train,
+        inference_s=inf_s, train_step_s=train_s,
+        trained_tok_per_s=tokens / train_s,
+        logprob_mean_abs_err=lp_err,
+        logprob_mean_abs_err_v1=lp_err_v1, v1_tokens_checked=v1_tokens,
+        stats={k: stats[k] for k in ("actor_loss", "grad_norm",
+                                     "importance_weight", "approx_kl")},
+        paged_decode_launches=launches, flash_fwd_launches=fwd,
+        flash_bwd_launches=bwd, graph_captures=stats_e["graph_captures"],
+        graph_replays=stats_e["graph_replays"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        faults=faults,
+    )
+    emit(phase="async_rollout", **row)
+    del trainer, eng
+    torch.cuda.empty_cache()
+    return row
 
 
 # --------------------------------------------------------------------------- #
@@ -2073,6 +2516,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "weight_sync" in phases:
         weight_sync_phase(torch)
+    if "async_rollout" in phases:
+        async_rollout_phase(torch)
     if "train_parity" in phases:
         train_parity_phase(torch)
     trained = train_phase(torch, args.profile) if "train" in phases else {}

@@ -180,6 +180,34 @@ def test_cancel_update_params_and_accounting(tree):
     assert eng.pool.n_free == eng.n_pages
 
 
+def test_harvest_caches_output_pages_of_the_current_weights_only(tree):
+    eng = _pt_engine(tree, max_slots=2)
+    prompt = [3, 1, 4, 1, 5]
+    (first,) = _run(eng, pt_engine, [dict(rid="a", input_ids=prompt,
+                                          max_new_tokens=20,
+                                          greedy=True)]).values()
+    # 5 + 20 tokens hold KV for 24 positions: three full pages cached
+    assert len(eng.prefix) == 3
+    hits = eng.stats["prefix_hit_tokens"]
+    ids = prompt + first.output_ids
+    (again,) = _run(eng, pt_engine, [dict(rid="b", input_ids=ids,
+                                          max_new_tokens=4,
+                                          greedy=True)]).values()
+    assert eng.stats["prefix_hit_tokens"] - hits == 3 * 8
+    fresh = _run(_pt_engine(tree), pt_engine, [dict(
+        rid="b", input_ids=ids, max_new_tokens=4, greedy=True)])
+    assert again.output_ids == fresh["b"].output_ids
+    # a slot that runs across an update holds KV of the old weights
+    eng.submit(pt_engine.GenRequest(rid="c", input_ids=prompt,
+                                    max_new_tokens=20, greedy=True))
+    eng.step(decode_steps=STEPS)
+    assert eng.n_running() == 1
+    eng.update_params(pt_tfm.params_from_numpy(tree, device="cpu"))
+    (late,) = eng.run_until_done(decode_steps=STEPS)
+    assert late.rid == "c" and len(late.output_ids) == 20
+    assert len(eng.prefix) == 0
+
+
 def test_submit_rejects_over_capacity(tree):
     eng = _pt_engine(tree)
     with pytest.raises(ValueError, match="per-slot capacity"):

@@ -1,8 +1,10 @@
 """The port stands alone: importing every ``areal_tpu_torch`` module (and
 ``chip_smoke.py``) loads neither ``jax`` nor ``areal_tpu`` (nor
-``safetensors`` or ``triton``, which the card's machine need not have); no source line
-imports them; entry points refuse to fall back to the CPU; the kernel
-build raises when the toolchain is missing.
+``safetensors``, ``triton``, ``aiohttp`` or ``zmq``, which the card's
+machine need not have); no source line imports them; the async code of
+``system/`` and ``gen/`` passes the repo's async-hygiene scanner; entry
+points refuse to fall back to the CPU; the kernel build raises when the
+toolchain is missing.
 
 The import check runs in a subprocess: this test process already imported
 jax through ``tests/conftest.py``.
@@ -39,13 +41,18 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "areal_tpu",
-                                    "safetensors", "triton"))
+                                    "safetensors", "triton", "aiohttp",
+                                    "zmq"))
 print(len(names), bad)
 assert not bad, bad
 for n in ("areal_tpu_torch.ops.fused_sample",
           "areal_tpu_torch.ops.cuda.fused_sample",
           "areal_tpu_torch.base.safetensors_io",
-          "areal_tpu_torch.base.recover", "areal_tpu_torch.models.hf"):
+          "areal_tpu_torch.base.recover", "areal_tpu_torch.models.hf",
+          "areal_tpu_torch.gen.client", "areal_tpu_torch.system.gserver_manager",
+          "areal_tpu_torch.system.rollout_worker",
+          "areal_tpu_torch.system.push_pull_stream",
+          "areal_tpu_torch.agents.math_single_step"):
     assert n in names, n
 """
 
@@ -61,7 +68,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|areal_tpu)(?![\w])", re.MULTILINE
+    r"^\s*(import|from)\s+(jax|jaxlib|areal_tpu|aiohttp|zmq)(?![\w])",
+    re.MULTILINE,
 )
 
 
@@ -73,6 +81,18 @@ def test_no_source_line_imports_jax_or_the_jax_package():
         for p in files for m in _FORBIDDEN.finditer(p.read_text())
     ]
     assert not offenders, offenders
+
+
+def test_async_code_passes_the_hygiene_scanner():
+    """No bare ``asyncio.gather``, no discarded ``create_task``, no
+    ``time.sleep`` in an ``async def`` and no ``shutil.rmtree`` outside
+    ``base/recover.py`` in the port's system and generation layers."""
+    from tools import check_async_hygiene
+
+    paths = [str(PORT / "system"), str(PORT / "gen")]
+    assert len(list((PORT / "system").glob("*.py"))) >= 8
+    findings = check_async_hygiene.scan_paths(paths)
+    assert not findings, [str(f) for f in findings]
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
