@@ -13,10 +13,10 @@ buffers. Key semantics, as the reference:
 
 The rollout stream and the trainer's buffer use ``from_default``,
 ``gather``, ``unpack``, ``meta``, ``select``, the JSON wire codecs
-(``as_json_compatible`` / ``from_json_compatible``) and ``cpu_nbytes``.
-Left out until a ported caller needs them: ``remap_keys_`` and the method
-form of ``split_into_micro_batches`` (the trainer uses
-``train/batching.py::split_into_micro_batches``).
+(``as_json_compatible`` / ``from_json_compatible``) and ``cpu_nbytes``;
+the function executor uses ``remap_keys_``. Left out until a ported
+caller needs it: the method form of ``split_into_micro_batches`` (the
+trainer uses ``train/batching.py::split_into_micro_batches``).
 """
 
 import dataclasses
@@ -289,6 +289,18 @@ class SequenceSample:
         if self.data is None:
             return 0
         return sum(v.nbytes for v in self.data.values() if v is not None)
+
+    def remap_keys_(self, remap: Dict[str, str]):
+        for old, new in remap.items():
+            if old not in self.keys:
+                continue
+            self.keys.discard(old)
+            self.keys.add(new)
+            self.seqlens[new] = self.seqlens.pop(old)
+            self.dtypes[new] = self.dtypes.pop(old)
+            self.trailing_shapes[new] = self.trailing_shapes.pop(old)
+            if self.data is not None and old in self.data:
+                self.data[new] = self.data.pop(old)
 
     def update_(self, other: "SequenceSample"):
         """Merge keys of ``other`` (same ids, same order) into self."""

@@ -1,10 +1,10 @@
-"""Dataset utilities (the slice's part of ``areal_tpu/api/dataset.py``):
-``DatasetUtility``, the deterministic shuffle-and-split jsonl loader and
-``dataset_metadata``."""
+"""Dataset utilities and registry (a copy of ``areal_tpu/api/dataset.py``):
+``DatasetUtility``, the deterministic shuffle-and-split jsonl loader,
+``register_dataset`` / ``make_dataset`` and ``dataset_metadata``."""
 
 import dataclasses
 import json
-from typing import Any, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -29,6 +29,22 @@ def load_shuffle_split_jsonl(path: str, util: DatasetUtility) -> List[dict]:
     lo = util.dp_rank * per
     hi = n if util.dp_rank == util.world_size - 1 else lo + per
     return records[lo:hi]
+
+
+ALL_DATASETS: Dict[str, Callable] = {}
+
+
+def register_dataset(name: str, cls: Callable):
+    assert name not in ALL_DATASETS, name
+    ALL_DATASETS[name] = cls
+
+
+def make_dataset(name: str, util: DatasetUtility, **kwargs):
+    """``kwargs`` go to the dataset (``path``; ``max_length`` drops prompts
+    longer than it)."""
+    import areal_tpu_torch.datasets  # noqa: F401  (triggers registration)
+
+    return ALL_DATASETS[name](util=util, **kwargs)
 
 
 def dataset_metadata(dataset) -> dict:

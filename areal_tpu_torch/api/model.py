@@ -1,9 +1,8 @@
-"""Algorithm API contracts (a copy of the trainer slice's part of
-``areal_tpu/api/model.py``, which the port may not import):
-``PPOHyperparameters`` (with the ``GenerationHyperparameters`` it holds),
-the ``ModelInterface`` base and the interface registry. Interfaces receive
-the port's ``TrainEngine``. ``ModelInterface.save`` (HF export) waits for
-the weight-sync slice.
+"""Algorithm API contracts (a copy of ``areal_tpu/api/model.py``, which
+the port may not import): ``FinetuneSpec``, ``PPOHyperparameters`` (with
+the ``GenerationHyperparameters`` it holds), the ``ModelInterface`` base
+(``save`` writes the engine's HF export) and the interface registry.
+Interfaces receive the port's ``TrainEngine``.
 """
 
 import abc
@@ -11,6 +10,21 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+
+
+@dataclasses.dataclass
+class FinetuneSpec:
+    total_train_epochs: int
+    dataset_size: int
+    train_batch_size: int
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(1, self.dataset_size // self.train_batch_size)
+
+    @property
+    def total_train_steps(self) -> int:
+        return self.total_train_epochs * self.steps_per_epoch
 
 
 @dataclasses.dataclass
@@ -80,6 +94,18 @@ class ModelInterface(abc.ABC):
 
     def evaluate(self, engine, eval_dataloader) -> Dict[str, float]:
         return {}
+
+    def save(self, engine, save_dir: str):
+        family = getattr(self, "hf_family", None) or getattr(
+            engine, "hf_family", None
+        )
+        if family:
+            engine.save_hf(save_dir, family)
+        else:
+            raise ValueError(
+                "No HF family configured for saving: set hf_family on the "
+                "interface or load the engine from an HF checkpoint"
+            )
 
 
 ALL_INTERFACES: Dict[str, type] = {}

@@ -15,6 +15,7 @@
 import asyncio
 import json
 import logging
+import sys
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -52,6 +53,16 @@ class _Server(ThreadingHTTPServer):
     # a rollout fleet opens a connection per in-flight request: the
     # default backlog of 5 would drop SYNs under a burst of them
     request_queue_size = 1024
+
+    def handle_error(self, request, client_address):
+        """A client that went away before its answer (a rollout worker
+        stopping at teardown) is logged at debug level; anything else with
+        its traceback, through logging rather than on stderr."""
+        err = sys.exc_info()[1]
+        if isinstance(err, (BrokenPipeError, ConnectionResetError)):
+            logger.debug("client %s went away: %r", client_address, err)
+        else:
+            logger.exception("error answering %s", client_address)
 
 
 def make_handler(routes: Dict[Tuple[str, str], Route]):

@@ -8,10 +8,13 @@ of ``areal_tpu/base/name_resolve.py``, same semantics):
 
 ``add`` (with ``replace`` / ``delete_on_exit``), ``get``, ``wait`` (poll
 until a key appears), ``delete``, ``clear_subtree``, ``get_subtree``,
-``find_subtree`` and ``reset`` (drop everything this process added). The
-TCP backend of the reference waits for the launcher.
+``find_subtree`` and ``reset`` (drop everything this process added).
+``reconfigure(NameResolveConfig(type="file", root=...))`` swaps the module
+default, as the launcher does in every process of a run. The reference's
+TCP backend (``type="rpc"``) is not ported.
 """
 
+import dataclasses
 import os
 import random
 import shutil
@@ -235,7 +238,34 @@ class FileNameRecordRepository(NameRecordRepository):
                 pass
 
 
+@dataclasses.dataclass
+class NameResolveConfig:
+    type: str = "file"  # "memory" | "file"
+    root: Optional[str] = None  # file: directory
+
+
 _DEFAULT: NameRecordRepository = MemoryNameRecordRepository()
+
+
+def make_repository(cfg: NameResolveConfig) -> NameRecordRepository:
+    if cfg.type == "memory":
+        return MemoryNameRecordRepository()
+    if cfg.type == "file":
+        return FileNameRecordRepository(cfg.root)
+    if cfg.type == "rpc":
+        raise NotImplementedError(
+            "the TCP name-resolve backend is not ported yet (ROADMAP.md)")
+    raise ValueError(f"Unknown name_resolve backend: {cfg.type}")
+
+
+def reconfigure(cfg: NameResolveConfig):
+    """Swap the module-level default repository."""
+    global _DEFAULT
+    _DEFAULT = make_repository(cfg)
+
+
+def default_repository() -> NameRecordRepository:
+    return _DEFAULT
 
 
 def set_repository(repo: NameRecordRepository):

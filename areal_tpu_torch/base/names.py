@@ -37,3 +37,11 @@ def model_version(experiment_name, trial_name, model_name) -> str:
 
 def training_samples(experiment_name, trial_name) -> str:
     return f"{trial_root(experiment_name, trial_name)}/training_samples"
+
+
+def worker_status(experiment_name, trial_name, worker_name) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/worker_status/{worker_name}"
+
+
+def experiment_status(experiment_name, trial_name) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/experiment_status"

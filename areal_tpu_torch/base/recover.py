@@ -1,27 +1,121 @@
-"""The checkpoint commit protocol (counterpart of the commit helpers of
-``areal_tpu/base/recover.py``): every checkpoint dir (the HF weight-sync
-export today) is written to a ``<path>.tmp-<tag>`` staging dir, a
-``COMMIT.json`` manifest (step, version, format) is fsynced into it, and
-the staging dir is atomically renamed over ``<path>``. A crash at ANY
-instant leaves either the old committed checkpoint or the new one, never a
-half-written dir that a reader would load.
+"""Failure-recovery bookkeeping and the checkpoint commit protocol (the
+counterpart of ``areal_tpu/base/recover.py``).
 
-``RecoverInfo`` and its dump/load (trainer restart bookkeeping) come with
-trainer checkpoints.
+``RecoverInfo`` holds what a restarted trainer needs besides its engine
+state: step counters, frequency-control states, the samples consumed and
+the model version; it is dumped atomically as JSON at every checkpoint
+tick.
+
+Every checkpoint dir (the HF weight-sync export, the trainer's recover
+checkpoint) is written to a ``<path>.tmp-<tag>`` staging dir, a
+``COMMIT.json`` manifest (step, version, format, per-tree checksums) is
+fsynced into it, and the staging dir is atomically renamed over
+``<path>``. A crash at ANY instant leaves either the old committed
+checkpoint or the new one, never a half-written dir that a reader would
+load.
 """
 
+import dataclasses
 import glob as glob_mod
+import hashlib
 import json
 import logging
 import os
 import shutil
-from typing import List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
+
+from areal_tpu_torch.base import constants
 
 logger = logging.getLogger("areal_tpu_torch.recover")
 
+RECOVER_INFO_FILE = "recover_info.json"
 CKPT_MANIFEST = "COMMIT.json"
 _TMP_MARK = ".tmp-"
 _OLD_MARK = ".old-"
+
+
+@dataclasses.dataclass
+class StepInfo:
+    epoch: int = 0
+    epoch_step: int = 0
+    global_step: int = 0
+
+    def next(self, steps_per_epoch: Optional[int] = None) -> "StepInfo":
+        epoch, epoch_step = self.epoch, self.epoch_step + 1
+        if steps_per_epoch is not None and epoch_step >= steps_per_epoch:
+            epoch, epoch_step = epoch + 1, 0
+        return StepInfo(epoch, epoch_step, self.global_step + 1)
+
+
+@dataclasses.dataclass
+class RecoverInfo:
+    recover_start: StepInfo = dataclasses.field(default_factory=StepInfo)
+    last_step_info: StepInfo = dataclasses.field(default_factory=StepInfo)
+    save_ctl_states: Dict[str, dict] = dataclasses.field(default_factory=dict)
+    ckpt_ctl_states: Dict[str, dict] = dataclasses.field(default_factory=dict)
+    eval_ctl_states: Dict[str, dict] = dataclasses.field(default_factory=dict)
+    data_loading_dp_idx: int = 0
+    hash_vals_to_ignore: List[int] = dataclasses.field(default_factory=list)
+    # async-RL restart-the-world state: the resumed trainer republishes both
+    # so the manager's staleness gate and the fleet's weight version
+    # converge on the restored run instead of the crashed one
+    samples_consumed: int = 0
+    model_version: int = 0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RecoverInfo":
+        d = dict(d)
+        for k in ("recover_start", "last_step_info"):
+            d[k] = StepInfo(**d[k])
+        return cls(**d)
+
+
+def dump(info: RecoverInfo, root: Optional[str] = None):
+    root = root or constants.get_recover_root()
+    path = os.path.join(root, RECOVER_INFO_FILE)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(info.to_dict(), f, indent=2)
+    os.replace(tmp, path)
+    logger.debug("dumped recover info to %s", path)
+
+
+def load(root: Optional[str] = None) -> Optional[RecoverInfo]:
+    root = root or constants.get_recover_root()
+    path = os.path.join(root, RECOVER_INFO_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return RecoverInfo.from_dict(json.load(f))
+
+
+def tree_leaves_with_path(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """``(dotted path, leaf)`` for every leaf of a dict / list tree, in a
+    fixed order (dict keys sorted, lists in order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_path(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def tree_checksum(tree) -> str:
+    """Structural checksum of a state tree: sha256 over every leaf's path,
+    shape and dtype. It hashes no values, yet catches what matters at
+    restore time: a manifest paired with the wrong tree, a truncated save,
+    a model or optimizer config that drifted between save and load."""
+    h = hashlib.sha256()
+    for path, leaf in tree_leaves_with_path(tree):
+        shape = tuple(getattr(leaf, "shape", ()))
+        dtype = str(getattr(leaf, "dtype", type(leaf).__name__))
+        h.update(f"{path}|{shape}|{dtype}\n".encode())
+    return h.hexdigest()
 
 
 def _fsync_path(p: str) -> None:

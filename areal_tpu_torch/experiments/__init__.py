@@ -1,0 +1,16 @@
+"""Experiment configuration layer: dataclass configs plus YAML and dotted
+overrides, compiled into worker processes by the launcher
+(``areal_tpu_torch/apps/launcher.py``)."""
+
+from areal_tpu_torch.experiments.config import (  # noqa: F401
+    AsyncPPOExperiment,
+    DatasetSpec,
+    EvaluatorSpec,
+    GatewaySpec,
+    GenFleetSpec,
+    ManagerSpec,
+    ModelSpec,
+    RolloutSpec,
+    TrainerControlSpec,
+    load_config,
+)

@@ -113,9 +113,8 @@ class GenOutput:
     version: int = 0
 
 
-# Fixed at the reference engine's defaults; the port's callers never set
-# them (a launcher or config that needs another value brings the option).
-MAX_NEW_TOKENS_CAP = 1024          # output buffer width per slot
+# Fixed at the reference engine's default; the port's callers never set
+# it (a caller that needs another value brings the option).
 ADMIT_BUCKETS = (1, 2, 4, 8)       # rows per prefill extend call
 # Vocab block of the streamed top-k epilogue (plain PyTorch on the engine's
 # device): every block costs a few dozen small launches, so blocks are wide;
@@ -215,8 +214,11 @@ class GenerationEngine:
         params,
         max_slots: int = 8,
         max_seqlen: int = 2048,
+        max_new_tokens_cap: int = 1024,
+        stop_token_ids: Sequence[int] = (),
         seed: int = 0,
         page_size: int = 128,
+        n_pages: Optional[int] = None,
         kv_dtype: Optional[str] = None,
         fused_sample: Optional[bool] = None,
         pipeline_chunks: Optional[bool] = None,
@@ -252,15 +254,20 @@ class GenerationEngine:
         self.page = page_size
         self.M = -(-max_seqlen // page_size)      # table width (pages/slot)
         self.S = self.M * page_size
-        self.G = MAX_NEW_TOKENS_CAP
+        self.G = max_new_tokens_cap         # output buffer width per slot
         self.version = 0
         self.admit_chunk = page_size   # prefill tokens per row per extend
+        # engine-wide stop ids, merged ahead of each request's own
+        self.global_stop_ids = list(stop_token_ids)
         self.max_stop_ids = 8
-        # dense-equivalent pool sized at the SERVING-dtype byte budget: an
-        # int8 pool buys itemsize-ratio x the pages for the same bytes
+        # dense-equivalent pool sized at the SERVING-dtype byte budget by
+        # default: an int8 pool buys itemsize-ratio x the pages for the same
+        # bytes. Pass n_pages to cap bytes.
         itemsize = torch_dtype(cfg.dtype).itemsize
         bytes_ratio = itemsize if self.kv_quantized else 1
-        self.n_pages = self.B * self.M * bytes_ratio
+        self.n_pages = (
+            n_pages if n_pages is not None else self.B * self.M * bytes_ratio
+        )
         self.pool = PagePool(self.n_pages, page_size)
         self.prefix = PrefixRegistry(self.pool)
         self._n_updates = 0
@@ -723,7 +730,9 @@ class GenerationEngine:
             top_k[j] = min(r.top_k, 1 << 30)
             min_gen[j] = r.min_new_tokens
             max_gen[j] = min(r.max_new_tokens, self.G)
-            merged = list(dict.fromkeys(r.stop_token_ids))[:K]
+            merged = list(
+                dict.fromkeys(self.global_stop_ids + list(r.stop_token_ids))
+            )[:K]
             stop_ids[j, : len(merged)] = merged
         st, idx = self.state, self._to_device(slots)
         st.lens[idx] = self._to_device(lens)

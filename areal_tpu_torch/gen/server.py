@@ -16,7 +16,12 @@ Routes (the slice's subset of the reference's route table):
   ``overlap_load`` (read and stage the weights on the device before taking
   the lock). A failed load leaves the engine untouched and answers
   ``success: false``.
-- ``GET /health``, ``GET /metrics_json``.
+- ``GET /health``, ``GET /metrics_json`` (with the device-memory
+  gauges of ``base/hbm.py``).
+
+With ``metrics_dump_path`` the ``/metrics_json`` body is also written to
+that file every 10 s and at stop, so the serving side's accounting
+outlives the process.
 
 A malformed ``/generate`` body is answered 400 with the reference's error
 texts. If the engine fails, every waiting and later request is answered
@@ -27,14 +32,16 @@ import concurrent.futures
 import contextlib
 import json
 import logging
+import os
 import threading
 import time
 from typing import Dict, Optional
 
-from areal_tpu_torch.base import http
+from areal_tpu_torch.base import constants, hbm, http
 from areal_tpu_torch.gen.engine import GenerationEngine, GenOutput, GenRequest
 from areal_tpu_torch.models import hf as hf_conv
 from areal_tpu_torch.models import transformer as tfm
+from areal_tpu_torch.ops import cuda as cuda_ops
 
 logger = logging.getLogger("areal_tpu_torch.gen.server")
 
@@ -115,9 +122,12 @@ class GenerationHTTPServer:
     """``start()`` binds and starts the HTTP and engine threads and
     returns the port; ``stop()`` ends both."""
 
-    def __init__(self, engine: GenerationEngine, decode_steps: int = 16):
+    def __init__(self, engine: GenerationEngine, decode_steps: int = 16,
+                 metrics_dump_path: Optional[str] = None):
         self.engine = engine
         self.decode_steps = decode_steps
+        self.metrics_dump_path = metrics_dump_path
+        self._hbm = hbm.HBMMonitor(device=engine.device, tag="gen-server")
         self._futures: Dict[str, concurrent.futures.Future] = {}
         self._futures_lock = threading.Lock()
         # serializes engine.step against pause (the engine's own lock
@@ -166,6 +176,19 @@ class GenerationHTTPServer:
         for t in self._threads:
             t.join()
         self._fail_all(RuntimeError("server stopped"))
+        if self.metrics_dump_path:
+            self._dump_metrics()
+
+    def _dump_metrics(self):
+        """Write the ``/metrics_json`` body to ``metrics_dump_path``
+        (atomically: a reader never sees half a file)."""
+        tmp = f"{self.metrics_dump_path}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(self.metrics_dict(), f)
+            os.replace(tmp, self.metrics_dump_path)
+        except OSError:
+            logger.exception("could not dump gen-server metrics")
 
     # ------------------------------------------------------------------ #
     # engine loop
@@ -184,9 +207,29 @@ class GenerationHTTPServer:
             with self._waiters_lock:
                 self._lock_waiters -= 1
 
+    def _housekeeping(self):
+        """The periodic metrics dump and device-memory kill check, run
+        from the engine thread between steps."""
+        now = time.monotonic()
+        if self.metrics_dump_path and now >= self._next_dump:
+            self._next_dump = now + 10.0
+            self._dump_metrics()
+        if now >= self._next_hbm:
+            self._next_hbm = now + constants.hbm_check_secs()
+            try:
+                self._hbm.check()
+            except hbm.HBMPressureError:
+                logger.critical(
+                    "device memory past kill threshold; dying for launcher "
+                    "restart", exc_info=True,
+                )
+                os._exit(1)
+
     def _run(self):
         eng = self.engine
+        self._next_dump = self._next_hbm = time.monotonic()
         while not self._stop.is_set():
+            self._housekeeping()
             # a pipelined engine keeps stepping while a chunk is in flight:
             # its finishes are harvested one step late
             if eng.paused or (not eng.n_pending() and eng.n_running() == 0
@@ -404,6 +447,9 @@ class GenerationHTTPServer:
                 "graph_captures", "graph_replays", "chunk_flag_fetches",
                 "chunk_flag_blocked")},
             **{f"engine_{k}": v for k, v in eng.stats.items()},
+            **self._hbm.check(kill=False),
+            # this process's kernel launches, by wrapper
+            "kernel_launches": cuda_ops.launch_counts(),
         }
 
     def metrics(self, body: bytes):

@@ -8,10 +8,17 @@ of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once. Sources that need building are compiled
 together, one ``nvcc`` process each.
 
+Several processes may build at once (a launcher's gen server and trainer
+both reach their kernels at first use): each library is built under an
+exclusive file lock beside it, re-checked once the lock is held, written
+under a temporary name and renamed into place, so no process loads a
+half-written library and a source is compiled once.
+
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -19,7 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 PACKAGE_ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
@@ -67,6 +74,64 @@ def _library_path(name: str) -> pathlib.Path:
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def locked_build(paths: Dict[str, pathlib.Path], compile_fn) -> List[str]:
+    """Build the libraries of ``paths`` that no process has built yet.
+    Takes an exclusive lock file beside each library (in sorted order, so
+    two processes never deadlock), re-checks which are still missing, and
+    calls ``compile_fn({name: temporary path})``, which writes each
+    library it can to its temporary path and returns ``{name: error}``
+    for the ones it cannot. The built ones are renamed into place before
+    the locks are released; then a failure raises ``RuntimeError``.
+    Returns the names built by this call."""
+    locks = []
+    try:
+        for n in sorted(paths):
+            paths[n].parent.mkdir(parents=True, exist_ok=True)
+            f = open(paths[n].with_name(paths[n].name + ".lock"), "w")
+            fcntl.flock(f, fcntl.LOCK_EX)
+            locks.append(f)
+        missing = [n for n in paths if not paths[n].exists()]
+        if not missing:
+            return []
+        tmps = {n: paths[n].with_name(f"{paths[n].stem}.{os.getpid()}.tmp")
+                for n in missing}
+        failed = compile_fn(tmps)
+        for n in missing:
+            if n not in failed:
+                os.replace(tmps[n], paths[n])
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(
+                f"{n}.cu {err}" for n, err in failed.items()))
+        return missing
+    finally:
+        for f in locks:
+            fcntl.flock(f, fcntl.LOCK_UN)
+            f.close()
+
+
+def _nvcc_compile(nvcc: str, tmps: Dict[str, pathlib.Path],
+                  paths: Dict[str, pathlib.Path]) -> Dict[str, str]:
+    """One nvcc process per source, all started together."""
+    t0 = time.perf_counter()
+    procs = {}
+    for n, tmp in tmps.items():
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+    failed = {}
+    for n, proc in procs.items():
+        out, _ = proc.communicate()
+        build_log[n] = {
+            "seconds": time.perf_counter() - t0,
+            "ptxas": out.strip(),
+            "path": str(paths[n]),
+        }
+        if proc.returncode != 0:
+            failed[n] = f"(exit {proc.returncode}):\n{out}"
+    return failed
+
+
 def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
     """Build (in parallel) whatever is not built yet, then load every
     library named. Raises ``RuntimeError`` with nvcc's output on failure."""
@@ -76,30 +141,10 @@ def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
         missing = [n for n in todo if not paths[n].exists()]
         if missing:
             nvcc = nvcc_path()
-            build_dir().mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            procs = {}
-            for n in missing:
-                tmp = paths[n].with_name(f"{paths[n].stem}.{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-                procs[n] = (tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True,
-                ))
-            failed = []
-            for n, (tmp, proc) in procs.items():
-                out, _ = proc.communicate()
-                build_log[n] = {
-                    "seconds": time.perf_counter() - t0,
-                    "ptxas": out.strip(),
-                    "path": str(paths[n]),
-                }
-                if proc.returncode != 0:
-                    failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
-                else:
-                    os.replace(tmp, paths[n])
-            if failed:
-                raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            locked_build(
+                {n: paths[n] for n in missing},
+                lambda tmps: _nvcc_compile(nvcc, tmps, paths),
+            )
         for n in todo:
             build_log.setdefault(
                 n, {"seconds": 0.0, "ptxas": "", "path": str(paths[n])}

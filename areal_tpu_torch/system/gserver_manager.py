@@ -16,7 +16,13 @@ over the standard library.
   every healthy server. The version advances even when some servers fail;
   those are evicted and a probe loop re-admits them after a catch-up load.
   Superseded checkpoint dirs are pruned once every healthy server acked a
-  newer version.
+  newer version. Unlike the reference, a snapshot the manager skipped
+  (the trainer announced ``v<n+1>`` before the poll read ``v<n>``) joins
+  that pruning order by its version when the manager moves past it: it
+  sits beside the announced one under the trainer's ``v<version>`` naming
+  and no server holds it, so the newest ``n_checkpoints_to_keep``
+  snapshots stay whichever the poll happened to read. The reference never
+  deletes a skipped dir.
 
 Threads: every route runs on an HTTP thread of its own and serializes on
 one ``threading.Lock``, the scope of the reference's ``asyncio.Lock``; the
@@ -30,6 +36,7 @@ what a route or a test reads lives in ``rollout_stat`` and ``counters``.
 import asyncio
 import dataclasses
 import logging
+import os
 import threading
 import time
 from collections import defaultdict
@@ -270,7 +277,9 @@ class GserverManager:
             # the new weights, failed servers were evicted and catch up
             # through the probe loop
             with self._lock:
+                skipped = range(self.version + 1, version)
                 self.version = version
+                self._track_skipped(path, version, skipped)
                 self._ckpt_dirs.append(path)
                 self._ckpt_versions[path] = version
                 self._latest_path = path
@@ -314,6 +323,20 @@ class GserverManager:
                            "evicted the rest", version, n_ok, len(urls))
         logger.info("updated %d servers to v%d (%d requests interrupted)",
                     n_ok, version, n_paused)
+
+    def _track_skipped(self, path: str, version: int, skipped):
+        """Queue the snapshots of ``skipped`` versions that sit beside
+        ``path`` under the ``v<version>`` naming for pruning, in version
+        order (never loaded, so no server holds them)."""
+        parent, base = os.path.split(path.rstrip("/"))
+        if base != f"v{version}":
+            return
+        for k in skipped:
+            old = os.path.join(parent, f"v{k}")
+            if k >= 0 and os.path.isdir(old) and old not in self._ckpt_versions:
+                self.counters["skipped_versions"] += 1
+                self._ckpt_dirs.append(old)
+                self._ckpt_versions[old] = k
 
     def _prune_checkpoints(self):
         """Delete superseded checkpoint dirs, but only those whose version

@@ -17,8 +17,10 @@ eager PyTorch on one device: no step cache, in-place optimizer updates
 finite-ness check decides whether ``step()`` runs). ``load_hf`` /
 ``save_hf`` read and write HF checkpoints (the export is committed through
 a staging directory and a manifest: the weight-sync leg to the generation
-server). Multi-device training and trainer checkpoints with optimizer
-state are later slices.
+server). ``save_checkpoint`` / ``load_checkpoint`` write and restore the
+whole training state (params, AdamW moments and counts, the step
+counters, the version) through the same commit protocol, so training
+resumes exactly. Multi-device training is a later slice.
 """
 
 import dataclasses
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
-from areal_tpu_torch.base import recover
+from areal_tpu_torch.base import recover, safetensors_io
 from areal_tpu_torch.base.device import resolve_device, torch_dtype
 from areal_tpu_torch.models import hf as hf_conv
 from areal_tpu_torch.models import transformer as tfm
@@ -147,6 +149,15 @@ def _leaves(tree) -> List[torch.Tensor]:
     out: List[torch.Tensor] = []
     tfm.tree_map(out.append, tree)
     return out
+
+
+# recover-checkpoint files: params and each AdamW moment in a file of its
+# own (a restore reads one file into host memory at a time), the per-param
+# AdamW step counts in a small one
+_CKPT_FILES = {"params": "params.safetensors",
+               "exp_avg": "exp_avg.safetensors",
+               "exp_avg_sq": "exp_avg_sq.safetensors",
+               "step": "adam_step.safetensors"}
 
 
 class TrainEngine:
@@ -268,6 +279,131 @@ class TrainEngine:
             return t
         _write()
         return None
+
+    # ------------------------------------------------------------------ #
+    # Recover checkpoints (params + optimizer state, committed)
+    # ------------------------------------------------------------------ #
+
+    def _named_params(self) -> List[Tuple[str, torch.Tensor]]:
+        return list(recover.tree_leaves_with_path(self.params))
+
+    def _opt_state_tree(self, meta: bool = False) -> Dict[str, Dict[str, Any]]:
+        """The AdamW state as a tree keyed like the params: ``exp_avg`` and
+        ``exp_avg_sq`` of each param's shape and dtype, its ``step`` a 0-d
+        f32 count. A param the optimizer has not stepped yet reads as zeros
+        (on the host), which is what AdamW starts it from. ``meta`` gives
+        shapes and dtypes only (for checksums), allocating nothing."""
+        tree: Dict[str, Dict[str, Any]] = {"exp_avg": {}, "exp_avg_sq": {},
+                                           "step": {}}
+        for name, p in self._named_params():
+            st = {} if meta else self.optimizer.state.get(p, {})
+            for k in ("exp_avg", "exp_avg_sq"):
+                tree[k][name] = st[k] if k in st else torch.zeros(
+                    p.shape, dtype=p.dtype, device="meta" if meta else "cpu")
+            step = st.get("step")
+            tree["step"][name] = (
+                torch.zeros((), dtype=torch.float32,
+                            device="meta" if meta else "cpu")
+                if step is None else torch.as_tensor(step, dtype=torch.float32))
+        return tree
+
+    def _ckpt_trees(self, with_optim: bool, meta: bool = False
+                    ) -> Dict[str, Any]:
+        trees = {"params": dict(self._named_params())}
+        if with_optim and self.optimizer is not None:
+            trees["opt_state"] = self._opt_state_tree(meta)
+        return trees
+
+    def save_checkpoint(self, path: str, with_optim: bool = True):
+        """Atomic committed save of the whole training state: tensors are
+        written into a staging dir, then a ``COMMIT.json`` manifest (step,
+        update count, version, per-tree structural checksums) is fsynced
+        and the staging dir renamed over ``path``. A crash at any instant
+        leaves the previous committed checkpoint restorable. Tensors are
+        copied to the host one at a time as they are written."""
+        path = os.path.abspath(path)
+        staging = recover.prepare_staging(path, f"s{self._step}")
+        os.makedirs(staging)
+        trees = self._ckpt_trees(with_optim)
+        safetensors_io.save_file(trees["params"],
+                                 os.path.join(staging, _CKPT_FILES["params"]))
+        for k, tree in trees.get("opt_state", {}).items():
+            safetensors_io.save_file(tree,
+                                     os.path.join(staging, _CKPT_FILES[k]))
+        recover.commit_checkpoint(staging, path, {
+            "step": self._step,
+            "n_updates": self._n_updates,
+            "version": self.version,
+            "format": "torch-train",
+            "with_optim": "opt_state" in trees,
+            "checksums": {k: recover.tree_checksum(v)
+                          for k, v in trees.items()},
+        })
+
+    def validate_checkpoint(self, path: str, with_optim: bool = True) -> dict:
+        """Validate WITHOUT restoring: resolve the newest committed dir at
+        ``path`` (promoting a committed-but-unswapped staging sibling) and
+        check the manifest's structural checksums against this engine's
+        state trees. Returns the manifest. Raises ``FileNotFoundError``
+        (nothing committed) or ``ValueError`` (incompatible or corrupt)."""
+        path = os.path.abspath(path)
+        recover.resolve_committed(path)
+        manifest = recover.read_manifest(path)
+        if manifest is None:
+            raise FileNotFoundError(
+                f"no committed checkpoint at {path} (missing or crashed "
+                "before its COMMIT manifest landed)"
+            )
+        saved_sums = manifest.get("checksums", {})
+        for k, tree in self._ckpt_trees(with_optim, meta=True).items():
+            want = saved_sums.get(k)
+            if want is not None and want != recover.tree_checksum(tree):
+                raise ValueError(
+                    f"checkpoint {path} is incompatible with this engine: "
+                    f"state-tree checksum mismatch on {k!r} (model/optimizer "
+                    "config drift or a corrupt save)"
+                )
+        return manifest
+
+    def load_checkpoint(self, path: str, with_optim: bool = True):
+        """Restore from the newest COMMITTED checkpoint at ``path``, after
+        :meth:`validate_checkpoint`. Values are copied into the engine's
+        own tensors, so the optimizer keeps addressing them; a step after
+        the load equals the step the saved run would have taken."""
+        path = os.path.abspath(path)
+        manifest = self.validate_checkpoint(path, with_optim)
+        named = self._named_params()
+        with torch.no_grad():
+            saved = safetensors_io.load_file(
+                os.path.join(path, _CKPT_FILES["params"]))
+            for name, p in named:
+                p.copy_(saved.pop(name))
+            del saved
+            if with_optim and self.optimizer is not None and manifest.get(
+                    "with_optim"):
+                steps = safetensors_io.load_file(
+                    os.path.join(path, _CKPT_FILES["step"]))
+                for name, p in named:
+                    st = self.optimizer.state[p]
+                    if "step" in st and isinstance(st["step"], torch.Tensor):
+                        st["step"].copy_(steps[name])
+                    else:
+                        st["step"] = steps[name].clone()
+                for k in ("exp_avg", "exp_avg_sq"):
+                    saved = safetensors_io.load_file(
+                        os.path.join(path, _CKPT_FILES[k]))
+                    for name, p in named:
+                        st = self.optimizer.state[p]
+                        if k in st:
+                            st[k].copy_(saved.pop(name))
+                        else:
+                            st[k] = saved.pop(name).to(
+                                device=p.device, dtype=p.dtype).clone()
+                    del saved
+        self._step = int(manifest["step"])
+        self._n_updates = int(manifest.get("n_updates", manifest["step"]))
+        self.version = int(manifest["version"])
+        return self
 
     # ------------------------------------------------------------------ #
     # Optimizer

@@ -75,16 +75,33 @@ Phases, each printing one JSON line:
    only as far as they do): a bf16 server behind the gserver manager
    (staleness window 4, batch 8), one rollout worker with the math agent
    over 64 prompts of 512 tokens in groups of 4, 512 new tokens in
-   chunks of 256, the stream into a staleness-ordered buffer, one PPO
-   step of an f32-master trainer (same seed-0 weights) on the first 8
-   groups, its HF export published while rollouts run, the manager's
-   flush to version 1 and the interrupted rollouts finishing at version
-   1. Checks trajectory shapes, the gate (a staleness denial before the
-   step, running groups within the window), the update (versions,
-   interruptions, a trajectory spanning 0 -> 1), rollout-vs-trainer
-   logprobs (0.1), finite PPO stats, no drop or failure, and the launch
-   counts (paged decode = layers x steps, replays x 16 + captures =
-   steps, flash = layers x micro-batches).
+   chunks of 256, and the trainer worker (``AsyncPPOTrainerWorker``) of
+   an f32-master trainer (same seed-0 weights): one ``run_step`` pulls
+   the first 8 groups into its staleness-ordered buffer, runs the PPO
+   graph (actor_inf -> actor_train), bumps ``training_samples`` and
+   publishes its HF export while rollouts run; the manager flushes to
+   version 1 and the interrupted rollouts finish at version 1. Checks
+   trajectory shapes, the gate (a staleness denial before the step,
+   running groups within the window), the update (versions,
+   interruptions, a trajectory spanning 0 -> 1), the worker's records
+   (step 1, ``training_samples`` 8, ``model_version`` ``1:<path>`` of a
+   committed export, one finite ``metrics.jsonl`` line, the graph's
+   levels), rollout-vs-trainer logprobs (0.1), finite PPO stats, no drop
+   or failure, and the launch counts (paged decode = layers x steps,
+   replays x 16 + captures = steps, flash = layers x micro-batches).
+6b. ``async_ppo``: the port's own entry point, ``python -m
+   areal_tpu_torch.apps.main async-ppo`` with dotted overrides, at the
+   1.5B widths (full depth where seven f32 exports fit on the disk): the
+   generation server and the trainer as two CUDA processes on the card,
+   the manager and one rollout worker on the host, the same traffic as
+   ``async_rollout``, two trainer steps with a weight publish after each
+   and a committed recover checkpoint at step 2. Checks exit code 0,
+   every process gone, two finite ``metrics.jsonl`` lines, weight-sync
+   dirs v1 and v2, the server's metrics dump (version 2, replays x 16 +
+   captures = decode steps = paged-decode launches / layers), the
+   recover checkpoint (version 2, 16 groups consumed) and, loaded into a
+   fresh trainer on the card, its params equal to the v2 export bit for
+   bit. ``--keep-logs DIR`` keeps the run's log.
 7. ``train_parity``: a tiny float32 model trained two SFT optimizer steps
    on the card and on the CPU from the same numpy params and batch; loss,
    grad norm and weights must agree.
@@ -122,8 +139,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
-          "serve_pipelined", "weight_sync", "async_rollout", "train_parity",
-          "train")
+          "serve_pipelined", "weight_sync", "async_rollout", "async_ppo",
+          "train_parity", "train")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -1748,6 +1765,8 @@ ASYNC_ROLLOUT = dict(
     max_concurrent_rollouts=64, max_concurrent_tasks=48,
     mb_tokens=8192, limit_s=600.0,
 )
+TRAIN_KEYS = ("packed_input_ids", "prompt_mask", "packed_logprobs", "rewards",
+              "seq_no_eos_mask")
 TRAJ_KEYS = {"packed_input_ids", "prompt_mask", "packed_logprobs", "rewards",
              "seq_no_eos_mask", "version_start", "version_end"}
 
@@ -1762,12 +1781,12 @@ def export_bytes(cfg, n_layers):
     return 4 * (ends + n_layers * layer)
 
 
-def export_dir_and_depth(cfg, root):
+def export_dir_and_depth(cfg, root, copies=2):
     """Where the phase's export goes, and the depth it runs at: the
     process's temporary directory, else ``root`` (the checkout); the full
-    depth where two exports fit (staging + commit), else the most layers
-    that do. Also the free bytes of each candidate (and of /dev/shm, for
-    the record)."""
+    depth where ``copies`` f32 exports fit (two: staging + commit), else
+    the most layers that do. Also the free bytes of each candidate (and of
+    /dev/shm, for the record)."""
     import os
     import shutil
     import tempfile
@@ -1779,11 +1798,11 @@ def export_dir_and_depth(cfg, root):
         except OSError:
             free[d] = 0
     for d in (tempfile.gettempdir(), root):
-        if free[d] >= 2 * export_bytes(cfg, cfg.n_layers):
+        if free[d] >= copies * export_bytes(cfg, cfg.n_layers):
             return d, cfg.n_layers, free
     d = max((tempfile.gettempdir(), root), key=free.get)
     n = cfg.n_layers
-    while n > 1 and free[d] < 2 * export_bytes(cfg, n):
+    while n > 1 and free[d] < copies * export_bytes(cfg, n):
         n -= 1
     return d, n, free
 
@@ -1814,10 +1833,12 @@ def logprob_err(sample, members=None):
 def async_rollout_phase(torch):
     """AReaL's async loop closed once on one card: a bf16 server behind the
     gserver manager, one rollout worker driving the math agent through
-    chunked generation, the stream into a staleness-ordered buffer, one
-    PPO step of an f32-master trainer on a streamed batch, its HF export,
-    and the manager's flush of the server to version 1 while rollouts are
-    in flight; the interrupted rollouts finish at version 1."""
+    chunked generation, and the trainer worker (``AsyncPPOTrainerWorker``)
+    taking one step of an f32-master trainer on the stream: its buffer,
+    the PPO graph, ``training_samples``, its HF export and the
+    ``model_version`` announce; the manager flushes the server to version
+    1 while rollouts are in flight and the interrupted rollouts finish at
+    version 1."""
     import asyncio
     import dataclasses
     import os
@@ -1829,20 +1850,22 @@ def async_rollout_phase(torch):
     from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
     from areal_tpu_torch.api.dataset import DatasetUtility
     from areal_tpu_torch.api.model import (
-        GenerationHyperparameters, PPOHyperparameters, make_interface)
-    from areal_tpu_torch.base import name_resolve, names
+        GenerationHyperparameters, PPOHyperparameters)
+    from areal_tpu_torch.base import constants, name_resolve, names, recover
+    from areal_tpu_torch.base.metrics import MetricLogger
     from areal_tpu_torch.datasets.prompt import MathCodePromptDataset
     from areal_tpu_torch.envs.math_code_single_step import MathCodeSingleStepEnv
     from areal_tpu_torch.gen.engine import GenerationEngine
     from areal_tpu_torch.gen.server import serve
     from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
     from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
-    from areal_tpu_torch.system.buffer import SequenceBuffer
     from areal_tpu_torch.system.gserver_manager import (
         GserverManager, GserverManagerConfig, serve_manager)
     from areal_tpu_torch.system.push_pull_stream import JsonPuller, JsonPusher
     from areal_tpu_torch.system.rollout_worker import RolloutWorker
     from areal_tpu_torch.system.stream_dataset import PullerStreamDataset
+    from areal_tpu_torch.system.trainer_worker import (
+        AsyncPPOTrainerWorker, TrainerControl)
     from areal_tpu_torch.train import batching
     from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
 
@@ -1867,6 +1890,11 @@ def async_rollout_phase(torch):
     torch.cuda.reset_peak_memory_stats()
     name_resolve.reset()
     work = tempfile.mkdtemp(prefix="areal_async_rollout_", dir=export_parent)
+    # the trainer worker's roots (weight sync, logs) live in the work dir
+    old_fileroot = os.environ.get("AREAL_FILEROOT")
+    constants.set_fileroot(work)
+    constants.set_experiment_trial_names(exp, trial)
+    log_dir = constants.get_log_root()
     # one seed-0 init: f32 masters for the trainer, their bf16 cast served
     trainer = TrainEngine(train_cfg, optimizer=OptimizerConfig(lr=1e-5),
                           device="cuda").init_random(0).setup_optimizer(100)
@@ -1922,12 +1950,48 @@ def async_rollout_phase(torch):
         stop = threading.Event()
         collected = []
 
-        def take():
+        def take(n=64, timeout=0.05):
             if run.done():
                 run.result()   # the worker failed: raise its error
-            got = stream.get_batch(64, timeout=0.05)
+            got = stream.get_batch(n, timeout=timeout)
             collected.extend(got)
             return got
+
+        class Tap:
+            """The trainer worker's stream: records what it hands over,
+            and the gate's staleness denials when the 8th group does."""
+
+            def __init__(self):
+                self.taken, self.denied_at_batch, self.t_batch = [], None, None
+
+            def get_batch(self, n, timeout=0.1):
+                if time.time() > deadline:
+                    raise AssertionError("async_rollout: 8 streamed groups "
+                                         "did not arrive in time")
+                got = take(n, timeout)
+                self.taken.extend(got)
+                if (self.denied_at_batch is None
+                        and len(self.taken) >= c["train_batch_size"]):
+                    self.denied_at_batch = manager.counters["denied_staled"]
+                    self.t_batch = time.perf_counter()
+                return got
+
+            def clear(self):
+                return stream.clear()
+
+        tap = Tap()
+        hp = PPOHyperparameters(disable_value=True, adv_norm=True,
+                                use_decoupled_loss=True, ppo_n_minibatches=2)
+        trainer_worker = AsyncPPOTrainerWorker(
+            experiment_name=exp, trial_name=trial, actor_engine=trainer,
+            stream=tap, hp=hp,
+            control=TrainerControl(total_train_steps=1,
+                                   weight_sync_freq_steps=1,
+                                   ckpt_freq_steps=None, ckpt_freq_secs=None),
+            train_batch_size=c["train_batch_size"], mb_spec=spec,
+            hf_family="qwen2", metric_logger=MetricLogger(log_dir),
+            max_head_offpolicyness=c["max_head_offpolicyness"],
+        )
 
         # the main path's run: every launch counted from here on
         cuda_paged.reset_launches()
@@ -1936,66 +2000,52 @@ def async_rollout_phase(torch):
         run = asyncio.run_coroutine_threadsafe(
             worker.run_async(should_stop=stop.is_set), loop)
 
-        # 1-2. rollouts at version 0 until the gate closes and 8 groups
-        # are in the buffer
-        buf = SequenceBuffer(max_version_lag=c["max_head_offpolicyness"])
-        def fill():
-            for s in take():
-                buf.put(s, current_version=0)
-            return len(buf) >= c["train_batch_size"]
-
-        wait("8 streamed groups", fill)
-        # the 41st group was asked for long before 8 groups finished
-        denied_before_step = manager.counters["denied_staled"]
-        t_first_batch = time.perf_counter() - t_start
-        samples = buf.pop_batch(c["train_batch_size"], current_version=0)
-        batch = SequenceSample.gather(samples, keys={
-            "packed_input_ids", "prompt_mask", "packed_logprobs", "rewards",
-            "seq_no_eos_mask"})
-
-        # 3. one PPO step: proximal logprobs, then the decoupled update
-        hp = PPOHyperparameters(disable_value=True, adv_norm=True,
-                                use_decoupled_loss=True, ppo_n_minibatches=2)
-        actor = make_interface("ppo_actor", hp=hp)
+        # 1-5. the trainer worker's own step: it pulls 8 groups through the
+        # tap into its staleness-ordered buffer, runs the graph (actor_inf
+        # -> actor_train), bumps training_samples and publishes its export
+        # in the background while rollouts are in flight
+        stats = trainer_worker.run_step()
+        t_step = time.perf_counter()
+        if stats is None or tap.denied_at_batch is None:
+            raise AssertionError("async_rollout: the trainer worker took no "
+                                 "batch")
+        denied_before_step = tap.denied_at_batch
+        t_first_batch = tap.t_batch - t_start
+        bad = {k: v for k, v in stats.items() if not np.isfinite(v)}
+        if bad or stats["guard/step_ok"] != 1.0:
+            raise AssertionError(f"async_rollout: PPO step stats {stats}")
+        samples = tap.taken[:c["train_batch_size"]]
+        batch = SequenceSample.gather(samples, keys=set(TRAIN_KEYS))
         n_inf = len(batching.split_into_micro_batches(
             batch, spec.n_mbs, spec.max_tokens_per_mb, 1))
         n_train = sum(len(batching.split_into_micro_batches(
             mb, spec.n_mbs, spec.max_tokens_per_mb, 1))
             for mb in batch.split(hp.ppo_n_minibatches))
         tokens = batch.total_len("packed_input_ids")
-        t0 = time.perf_counter()
-        batch.update_(actor.inference(trainer, batch, spec))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        stats = actor.train_step(trainer, batch, spec)
-        torch.cuda.synchronize()
-        train_s, inf_s = time.perf_counter() - t1, t1 - t0
-        bad = {k: v for k, v in stats.items() if not np.isfinite(v)}
-        if bad or stats["guard/step_ok"] != 1.0:
-            raise AssertionError(f"async_rollout: PPO step stats {stats}")
-        # behaviour logprobs (bf16 server) against the trainer's recompute
-        # on the same version-0 tokens (action positions only)
-        lp_err = logprob_err(batch)
-        if not lp_err <= WEIGHT_SYNC_LP_TOL:
-            raise AssertionError(f"async_rollout: rollout logprobs are "
-                                 f"{lp_err} from the trainer's (limit "
-                                 f"{WEIGHT_SYNC_LP_TOL})")
+        if stats["n_tokens"] != tokens:
+            raise AssertionError(f"async_rollout: the worker trained on "
+                                 f"{stats['n_tokens']} tokens, the tapped "
+                                 f"batch holds {tokens}")
 
-        # 4. the trainer's progress, as trainer_worker publishes it
-        name_resolve.add(names.training_samples(exp, trial),
-                         str(c["train_batch_size"]), replace=True)
-        # 5. the export, published while rollouts are in flight
-        path = os.path.join(work, "v1")
+        # the announce lands once the background export is committed
+        path = os.path.join(constants.get_param_sync_root(), "v1")
+        mv_key = names.model_version(exp, trial, "actor")
+
+        def announced():
+            try:
+                return name_resolve.get(mv_key) == f"1:{path}"
+            except name_resolve.NameEntryNotFoundError:
+                return False
+
+        wait("the v1 announce", announced, poll=0.01)
         t0 = time.perf_counter()
-        trainer.save_hf(path, "qwen2")
-        export_s = time.perf_counter() - t0
+        export_s = t0 - t_step
         running = get(srv.port, "/metrics_json")["running"]
         if running <= 0:
             raise AssertionError("async_rollout: no request in flight to "
                                  "interrupt at the weight update")
-        t0 = time.perf_counter()
-        name_resolve.add(names.model_version(exp, trial, "actor"),
-                         f"1:{path}", replace=True)
+        trainer_worker._join_publish()   # raises if the export failed
+        trainer_worker.flush_stats()
         # 6. the manager's poll loop flushes the server
         wait("the weight update", lambda: manager.version == 1, poll=0.05)
         reload_s = time.perf_counter() - t0
@@ -2032,10 +2082,41 @@ def async_rollout_phase(torch):
         fwd, bwd = cuda_flash.fwd_launches, cuda_flash.bwd_launches
         metrics = get(srv.port, "/metrics_json")
         mgr = get(manager.port, "/metrics_json")
+        # the worker's own records: step, training_samples, announce,
+        # committed export, one metrics line, the graph
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        levels = [[m.name for m in lvl]
+                  for lvl in trainer_worker.executor.graph.levels]
+        worker_ok = (
+            trainer_worker.step == 1
+            and name_resolve.get(names.training_samples(exp, trial))
+            == str(c["train_batch_size"])
+            and name_resolve.get(mv_key) == f"1:{path}"
+            and recover.is_committed(path)
+            and len(lines) == 1
+            and all(np.isfinite(lines[0].get(k, np.nan)) for k in (
+                "ppo/actor_loss", "ppo/grad_norm", "ppo/n_tokens"))
+            and levels == [["actor_inf"], ["actor_train"]])
+        if not worker_ok:
+            raise AssertionError(
+                f"async_rollout: trainer worker: step {trainer_worker.step}, "
+                f"levels {levels}, metrics {lines}, model_version "
+                f"{name_resolve.get(mv_key)}, committed "
+                f"{recover.is_committed(path)}")
+        # rollout logprobs against the trainer's recompute. The step's lr
+        # is 0 (the first step of the warmup), so the weights it left are
+        # version 0's, bit for bit: the batch's v0 tokens are held against
+        # them as in the hand-wired step of earlier versions of this phase
+        actor = trainer_worker.actor_if
+        batch.update_(actor.inference(trainer, batch, spec))
+        lp_err = logprob_err(batch)
+        if not lp_err <= WEIGHT_SYNC_LP_TOL:
+            raise AssertionError(f"async_rollout: rollout logprobs are "
+                                 f"{lp_err} from the trainer's (limit "
+                                 f"{WEIGHT_SYNC_LP_TOL})")
         # the reloaded 28 layers: tokens the server generated at version 1
-        # against the trainer's recompute on the weights it exported (the
-        # step left them all but equal to version 0's, so this holds the
-        # reload, not the update)
+        # against the trainer's recompute on the weights it exported
         v1 = [s for s in collected if (s.data["version_start"] == 1).any()]
         v1 = v1[:c["train_batch_size"]]
         v1_batch = SequenceSample.gather(v1, keys={
@@ -2058,6 +2139,10 @@ def async_rollout_phase(torch):
                 end()
         shutil.rmtree(work, ignore_errors=True)
         name_resolve.reset()
+        if old_fileroot is None:
+            os.environ.pop("AREAL_FILEROOT", None)
+        else:
+            os.environ["AREAL_FILEROOT"] = old_fileroot
 
     # hard checks, over every trajectory streamed (the batch's included)
     samples = collected
@@ -2082,8 +2167,10 @@ def async_rollout_phase(torch):
                   client_retries=worker.prm.client.retries,
                   update_failures=mgr["counters"].get(
                       "weight_update_failures", 0),
-                  buffer_stale=buf.n_dropped_stale,
-                  buffer_capacity=buf.n_dropped_capacity)
+                  buffer_stale=trainer_worker.telemetry_gauges()[
+                      "buffer_dropped_stale"],
+                  buffer_capacity=trainer_worker.telemetry_gauges()[
+                      "buffer_dropped_capacity"])
     if any(faults.values()) or worker.n_tasks() or mgr["running"]:
         raise AssertionError(f"async_rollout: faults {faults}, tasks "
                              f"{worker.n_tasks()}, running {mgr['running']}")
@@ -2140,8 +2227,9 @@ def async_rollout_phase(torch):
         manager_flush_s=manager.last_weight_update_s,
         export_s=export_s, reload_s=reload_s,
         ppo_tokens=tokens, inference_mbs=n_inf, train_mbs=n_train,
-        inference_s=inf_s, train_step_s=train_s,
-        trained_tok_per_s=tokens / train_s,
+        step_s=stats["timeperf/e2e"],
+        trained_tok_per_s=tokens / stats["timeperf/e2e"],
+        step_tflops_per_s=stats["tflops_per_sec"],
         logprob_mean_abs_err=lp_err,
         logprob_mean_abs_err_v1=lp_err_v1, v1_tokens_checked=v1_tokens,
         stats={k: stats[k] for k in ("actor_loss", "grad_norm",
@@ -2153,8 +2241,261 @@ def async_rollout_phase(torch):
         faults=faults,
     )
     emit(phase="async_rollout", **row)
-    del trainer, eng
+    del trainer_worker, tap, trainer, eng
     torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# the system's own entry point: python -m areal_tpu_torch.apps.main async-ppo
+# --------------------------------------------------------------------------- #
+
+ASYNC_PPO = dict(
+    n_prompts=64, prompt_len=512, group=4, max_new_tokens=512,
+    new_tokens_per_chunk=256, train_batch_size=8, max_head_offpolicyness=4,
+    max_concurrent_tasks=48, max_slots=32, max_seqlen=2048, mb_tokens=8192,
+    total_train_steps=2, ppo_n_minibatches=2, limit_s=600.0,
+    # disk at the peak, in f32 exports of the model: three weight-sync
+    # snapshots (v0 is pruned only once v2 is loaded) plus the recover
+    # checkpoint (params and two AdamW moments), one staging copy spare
+    export_copies=7,
+)
+
+
+def live_group_members(pgid):
+    """Processes of process group ``pgid`` that are still running (a zombie
+    has exited: it only waits to be reaped)."""
+    import os
+
+    alive = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] not in ("Z", "X"):
+            alive.append(f"{pid} {fields[0]} {cmd[:120]}")
+    return alive
+
+
+def async_ppo_phase(torch, keep_logs=None):
+    """The port's normal entry point as a user runs it: ``python -m
+    areal_tpu_torch.apps.main async-ppo`` with dotted overrides, at the
+    1.5B widths, with the generation server and the trainer on the card
+    as two CUDA processes (the manager and the rollout worker on the
+    host). Two trainer steps, a weight publish after each, a committed
+    recover checkpoint at step 2; then every record the run leaves is
+    checked, and the checkpoint is loaded into a fresh trainer on the card
+    and held against the v2 export."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import areal_tpu_torch
+    from areal_tpu_torch.base import recover
+    from areal_tpu_torch.models import hf as hf_conv
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
+    c = ASYNC_PPO
+    exp, trial = "chip_smoke", "async_ppo"
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    full = qwen_1p5b_cfg()
+    parent, n_layers, free = export_dir_and_depth(full, root_dir,
+                                                  c["export_copies"])
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    work = tempfile.mkdtemp(prefix="areal_async_ppo_", dir=parent)
+    fileroot = os.path.join(work, "root")
+    rng = np.random.default_rng(0)
+    data_path = os.path.join(work, "math.jsonl")
+    with open(data_path, "w") as f:
+        for i in range(c["n_prompts"]):
+            f.write(json.dumps({
+                "query_id": f"q{i}",
+                "prompt_ids": rng.integers(
+                    0, cfg.vocab_size, c["prompt_len"]).tolist(),
+                "task": "math",
+                "solutions": [f"\\boxed{{{int(rng.integers(100))}}}"],
+            }) + "\n")
+    arch = {f: getattr(cfg, f) for f in (
+        "n_layers", "n_q_heads", "n_kv_heads", "head_dim", "hidden_dim",
+        "intermediate_dim", "vocab_size", "use_attention_bias", "dtype")}
+    overrides = [
+        f"experiment_name={exp}", f"trial_name={trial}",
+        f"fileroot={fileroot}", "seed=1", "hf_family=qwen2",
+        "dataset.name=math_code_prompt", f"dataset.path={data_path}",
+        f"actor.arch={json.dumps(arch)}",
+        'actor.overrides={"remat_policy": "full", "loss_chunk_size": 2048}',
+        "actor.optimizer.lr=1e-05", "use_ref_model=false",
+        "gen.device=", "trainer_device=", "gen.n_servers=1",
+        f"gen.max_slots={c['max_slots']}", f"gen.max_seqlen={c['max_seqlen']}",
+        f"gen.decode_steps_per_chunk={DECODE_STEPS}",
+        "rollout.n_workers=1",
+        f"rollout.max_concurrent_tasks={c['max_concurrent_tasks']}",
+        f"rollout.new_tokens_per_chunk={c['new_tokens_per_chunk']}",
+        f"manager.max_head_offpolicyness={c['max_head_offpolicyness']}",
+        "gconfig=" + json.dumps({"n": c["group"],
+                                 "max_new_tokens": c["max_new_tokens"],
+                                 "temperature": 1.0}),
+        f"train_batch_size={c['train_batch_size']}",
+        f"max_tokens_per_mb={c['mb_tokens']}",
+        "ppo=" + json.dumps({"disable_value": True, "adv_norm": True,
+                             "use_decoupled_loss": True,
+                             "ppo_n_minibatches": c["ppo_n_minibatches"]}),
+        "control=" + json.dumps({
+            "total_train_steps": c["total_train_steps"],
+            "weight_sync_freq_steps": 1, "ckpt_freq_steps": 2,
+            "ckpt_freq_secs": None}),
+    ]
+    pkg_parent = os.path.dirname(os.path.dirname(
+        os.path.abspath(areal_tpu_torch.__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [pkg_parent] + [p for p in [env.get("PYTHONPATH")] if p])
+    log_path = os.path.join(work, "async_ppo.log")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    rc = None
+    try:
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "areal_tpu_torch.apps.main",
+                 "async-ppo", *overrides],
+                cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True,
+            )
+            try:
+                rc = proc.wait(timeout=c["limit_s"])
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.time() - t0
+        # every process of the run is gone (they share its process group); the
+        # multiprocessing resource tracker may take a moment after the
+        # launcher
+        stray = live_group_members(proc.pid)
+        t_gone = time.time() + 15
+        while stray and time.time() < t_gone:
+            time.sleep(0.2)
+            stray = live_group_members(proc.pid)
+        if stray:
+            os.killpg(proc.pid, signal.SIGKILL)
+        if keep_logs:
+            os.makedirs(keep_logs, exist_ok=True)
+            shutil.copy(log_path, os.path.join(keep_logs, "async_ppo.log"))
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        if rc != 0 or stray:
+            raise AssertionError(
+                f"async_ppo: the entry point exited {rc} after {wall:.1f} s "
+                f"(limit {c['limit_s']} s), processes left: {stray}; log "
+                f"tail:\n{tail}")
+        save_root = os.path.join(fileroot, "checkpoints", exp, trial)
+        log_root = os.path.join(fileroot, "logs", exp, trial)
+        with open(os.path.join(log_root, "metrics.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        keys = ("ppo/actor_loss", "ppo/grad_norm", "ppo/n_tokens")
+        if len(lines) != c["total_train_steps"] or not all(
+                np.isfinite(ln.get(k, np.nan)) for ln in lines for k in keys):
+            raise AssertionError(f"async_ppo: metrics.jsonl {lines}")
+        sync_root = os.path.join(save_root, "weight_sync")
+        versions = sorted(os.listdir(sync_root))
+        if versions != ["v1", "v2"]:
+            raise AssertionError(f"async_ppo: weight-sync root {versions}")
+        with open(os.path.join(log_root, "gen_server_0.json")) as f:
+            srv = json.load(f)
+        steps = srv["engine_decode_steps"]
+        if srv["version"] != 2 or steps <= 0 or (
+                srv["graph_replays"] * DECODE_STEPS + srv["graph_captures"]
+                != steps) or (srv["kernel_launches"]["paged_decode"]
+                              != cfg.n_layers * steps):
+            raise AssertionError(f"async_ppo: server dump {srv}")
+        ckpt = os.path.join(save_root, "recover", "trainer", "actor")
+        manifest = recover.read_manifest(ckpt)
+        info = recover.load(os.path.join(save_root, "recover"))
+        opt_steps = c["total_train_steps"] * c["ppo_n_minibatches"]
+        if manifest is None or manifest["version"] != 2 or (
+                manifest["step"] != opt_steps) or info is None or (
+                info.recover_start.global_step != 2) or (
+                info.samples_consumed != 2 * c["train_batch_size"]):
+            raise AssertionError(f"async_ppo: recover checkpoint {manifest}, "
+                                 f"info {info}")
+        # the checkpoint in a fresh trainer on the card: its params equal
+        # the v2 export, bit for bit
+        train_cfg = dataclasses.replace(cfg, remat_policy="full",
+                                        loss_chunk_size=2048)
+        t1 = time.perf_counter()
+        fresh = TrainEngine(train_cfg, optimizer=OptimizerConfig(lr=1e-5),
+                            device="cuda").init_random(1)
+        fresh.setup_optimizer(c["total_train_steps"])
+        fresh.load_checkpoint(ckpt)
+        load_s = time.perf_counter() - t1
+        got = tfm.params_to_numpy(fresh.params)
+        _, want = hf_conv.load_hf_checkpoint(os.path.join(sync_root, "v2"))
+        flat_g = dict(recover.tree_leaves_with_path(got))
+        flat_w = dict(recover.tree_leaves_with_path(want))
+        diff = [k for k in flat_w if not np.array_equal(flat_w[k], flat_g[k])]
+        if set(flat_g) != set(flat_w) or diff or fresh.version != 2:
+            raise AssertionError(f"async_ppo: checkpoint vs v2 export differ "
+                                 f"on {diff[:5]} (version {fresh.version})")
+        ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f))
+                      for f in os.listdir(ckpt)) / 1e9
+        v1_commit = os.path.getmtime(
+            os.path.join(sync_root, "v1", recover.CKPT_MANIFEST))
+        del fresh, got, want, flat_g, flat_w
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    step_s = [ln["ppo/timeperf/e2e"] for ln in lines]
+    n_tok = [ln["ppo/n_tokens"] for ln in lines]
+    t_run = lines[-1]["time"] - t0
+    row = dict(
+        layers=cfg.n_layers, depth_cut_reason=(
+            None if cfg.n_layers == full.n_layers else
+            f"{c['export_copies']} f32 exports of {full.n_layers} layers "
+            f"({c['export_copies'] * export_bytes(full, full.n_layers) / 1e9:.1f}"
+            f" GB) do not fit in {parent}"),
+        free_gb={d: v / 1e9 for d, v in free.items()},
+        wall_s=wall, rc=rc,
+        trajectories_trained=info.samples_consumed,
+        trajectories_per_s=info.samples_consumed / t_run,
+        trajectories_per_s_steady=c["train_batch_size"] / (
+            lines[1]["time"] - lines[0]["time"]),
+        step_s=step_s, n_tokens=n_tok,
+        trained_tok_per_s=[n / s for n, s in zip(n_tok, step_s)],
+        stats=[{k: ln[f"ppo/{k}"] for k in (
+            "actor_loss", "grad_norm", "importance_weight", "approx_kl")}
+            for ln in lines],
+        export_s=v1_commit - lines[0]["time"],
+        weight_updates=srv["n_weight_updates"],
+        reload_s=srv["weight_load_overlapped_s"] / max(
+            srv["n_weight_updates"], 1),
+        weight_update_s=srv["weight_update_s"] / max(
+            srv["n_weight_updates"], 1),
+        ckpt_gb=ckpt_gb, ckpt_load_s=load_s,
+        decode_steps=steps, graph_replays=srv["graph_replays"],
+        graph_captures=srv["graph_captures"],
+        server_gen_tokens=srv["gen_tokens"],
+        server_decode_s=srv["engine_decode_s"],
+        server_prefill_s=srv["engine_prefill_s"],
+        paged_decode_launches=srv["kernel_launches"]["paged_decode"],
+        flash_fwd_launches=sum(ln["ppo/kernel/flash_fwd_launches"]
+                               for ln in lines),
+        flash_bwd_launches=sum(ln["ppo/kernel/flash_bwd_launches"]
+                               for ln in lines),
+        trainer_peak_mem_gb=max(ln.get("ppo/hbm_peak_bytes_in_use", 0)
+                                for ln in lines) / 1e9,
+        server_peak_mem_gb=srv.get("hbm_peak_bytes_in_use", 0) / 1e9,
+    )
+    emit(phase="async_ppo", **row)
     return row
 
 
@@ -2412,6 +2753,9 @@ def main(argv=None) -> int:
                          "script's; with the extra phases decode_time and "
                          "flash_time, two versions of the paged-decode or "
                          "flash kernels are timed alike")
+    ap.add_argument("--keep-logs", default=None,
+                    help="copy the async_ppo run's log (every process of "
+                         "the entry point) into this directory")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     args.kernels = tuple(args.kernels.split(","))
@@ -2518,6 +2862,8 @@ def main(argv=None) -> int:
         weight_sync_phase(torch)
     if "async_rollout" in phases:
         async_rollout_phase(torch)
+    if "async_ppo" in phases:
+        async_ppo_phase(torch, keep_logs=args.keep_logs)
     if "train_parity" in phases:
         train_parity_phase(torch)
     trained = train_phase(torch, args.profile) if "train" in phases else {}

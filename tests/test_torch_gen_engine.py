@@ -208,6 +208,43 @@ def test_harvest_caches_output_pages_of_the_current_weights_only(tree):
     assert len(eng.prefix) == 0
 
 
+def _option_kw(name, jax_outputs):
+    if name == "max_new_tokens_cap":
+        return dict(max_new_tokens_cap=5)
+    if name == "stop_token_ids":
+        # engine-wide: stops the plain request early, merged ahead of the
+        # stop request's own
+        return dict(stop_token_ids=[
+            jax_outputs["raw"][0]["plain"].output_ids[2]])
+    return dict(n_pages=12)     # a pool smaller than slots x table
+
+
+@pytest.mark.parametrize("option", ["max_new_tokens_cap", "stop_token_ids",
+                                    "n_pages"])
+def test_engine_options_match_the_jax_engine(tree, workload, jax_outputs,
+                                             option):
+    """The engine options a launcher passes, held against the JAX engine
+    built with the same value: tokens, finish reasons and the pool."""
+    kw = _option_kw(option, jax_outputs)
+    jeng, peng = _jax_engine(tree, **kw), _pt_engine(tree, **kw)
+    want, got = _run(jeng, jax_engine, workload), _run(peng, pt_engine,
+                                                      workload)
+    assert set(got) == set(want)
+    for rid, w in want.items():
+        assert got[rid].output_ids == w.output_ids, rid
+        assert got[rid].finish_reason == w.finish_reason, rid
+    assert (peng.G, peng.n_pages, peng.global_stop_ids) == (
+        jeng.G, jeng.n_pages, jeng.global_stop_ids)
+    assert peng.kv_pool_bytes() == jeng.kv_pool_bytes()
+    if option == "max_new_tokens_cap":
+        assert max(len(o.output_ids) for o in got.values()) == 5
+    elif option == "stop_token_ids":
+        assert got["plain"].finish_reason == "stop"
+        assert len(got["plain"].output_ids) == 3
+    else:
+        assert peng.n_pages == 12 and peng.pool.n_free + len(peng.prefix) <= 12
+
+
 def test_submit_rejects_over_capacity(tree):
     eng = _pt_engine(tree)
     with pytest.raises(ValueError, match="per-slot capacity"):

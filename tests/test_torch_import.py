@@ -52,7 +52,16 @@ for n in ("areal_tpu_torch.ops.fused_sample",
           "areal_tpu_torch.gen.client", "areal_tpu_torch.system.gserver_manager",
           "areal_tpu_torch.system.rollout_worker",
           "areal_tpu_torch.system.push_pull_stream",
-          "areal_tpu_torch.agents.math_single_step"):
+          "areal_tpu_torch.agents.math_single_step",
+          "areal_tpu_torch.base.seeding", "areal_tpu_torch.base.timeutil",
+          "areal_tpu_torch.base.flops", "areal_tpu_torch.base.hbm",
+          "areal_tpu_torch.base.metrics", "areal_tpu_torch.api.dfg",
+          "areal_tpu_torch.experiments.graphs",
+          "areal_tpu_torch.experiments.config",
+          "areal_tpu_torch.system.function_executor",
+          "areal_tpu_torch.system.worker_base",
+          "areal_tpu_torch.system.trainer_worker",
+          "areal_tpu_torch.apps.launcher", "areal_tpu_torch.apps.main"):
     assert n in names, n
 """
 
@@ -123,6 +132,77 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA source"):
         build.load("no_such_kernel")
     assert not (tmp_path / "build").exists()
+
+
+_BUILD_RACE = r"""
+import json, os, sys, time
+from areal_tpu_torch.ops.cuda import build
+
+lib = build.pathlib.Path(sys.argv[1])
+log = sys.argv[2]
+start = float(sys.argv[3])
+while time.time() < start:
+    time.sleep(0.001)
+
+def compile_stub(tmps):
+    with open(log, "a") as f:
+        f.write(f"{os.getpid()}\n")
+    for n, tmp in tmps.items():
+        with open(tmp, "w") as f:
+            f.write("half")
+            f.flush()
+            time.sleep(0.5)       # a reader must never see this
+            f.write(" and whole")
+    return {}
+
+built = build.locked_build({"stub": lib}, compile_stub)
+print(json.dumps({"built": built, "content": lib.read_text()}))
+"""
+
+
+def test_kernel_build_is_safe_across_processes(tmp_path):
+    """Two processes reach the same library at once: the file lock makes
+    one of them compile it, the other wait and find it built; the library
+    appears whole (written under a temporary name, then renamed)."""
+    import json
+    import time
+
+    lib = tmp_path / "build" / "libstub-0123.so"
+    log = tmp_path / "compiles.log"
+    start = str(time.time() + 2.0)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BUILD_RACE, str(lib), str(log), start],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    results = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    assert sorted(len(r["built"]) for r in results) == [0, 1]
+    assert all(r["content"] == "half and whole" for r in results)
+    assert len(log.read_text().split()) == 1
+    assert sorted(p.name for p in lib.parent.iterdir()) == [
+        lib.name, lib.name + ".lock"]
+
+
+def test_locked_build_raises_and_keeps_what_built(tmp_path):
+    paths = {n: tmp_path / f"lib{n}.so" for n in ("good", "bad")}
+
+    def compile_half(tmps):
+        tmps["good"].write_text("ok")
+        return {"bad": "(exit 1): boom"}
+
+    with pytest.raises(RuntimeError, match="nvcc failed for bad.cu"):
+        build.locked_build(paths, compile_half)
+    assert paths["good"].read_text() == "ok"
+    assert not paths["bad"].exists()
+    # a retry compiles only what is still missing
+    def compile_rest(tmps):
+        assert set(tmps) == {"bad"}
+        tmps["bad"].write_text("fixed")
+        return {}
+
+    assert build.locked_build(paths, compile_rest) == ["bad"]
+    assert paths["bad"].read_text() == "fixed"
 
 
 def test_chip_smoke_builds_every_cuda_source():

@@ -177,6 +177,32 @@ def test_metrics_show_the_fused_sampler(monkeypatch):
     assert answers[0][1]["output_ids"] == eng.run_until_done(4)[0].output_ids
 
 
+def test_metrics_dump_at_intervals_and_on_stop(tmp_path):
+    """``metrics_dump_path``: the ``/metrics_json`` body lands in the file
+    at start, every 10 s and at stop (the reference's dump), whole."""
+    path = tmp_path / "gen_server_0.json"
+    srv = pt_server.serve(_engine(), "127.0.0.1", 0, decode_steps=4,
+                          metrics_dump_path=str(path))
+    try:
+        deadline = time.monotonic() + 30
+        while not path.exists() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        first = json.loads(path.read_text())
+        assert first["served"] == 0
+        status, answer = _call(srv.port, "/generate", {
+            "rid": "g", "input_ids": [3, 1, 4, 1, 5],
+            "sampling_params": {"max_new_tokens": 6, "greedy": True}})
+        assert status == 200
+    finally:
+        srv.stop()
+    last = json.loads(path.read_text())
+    assert last["served"] == 1 and last["gen_tokens"] == 6
+    assert last["engine_decode_steps"] > 0
+    assert set(last["kernel_launches"]) == {
+        "paged_decode", "flash_fwd", "flash_bwd", "fused_sample"}
+    assert not list(tmp_path.glob("*.tmp"))
+
+
 @pytest.fixture
 def long_server():
     """Slots long enough that a request is still running when the pause
