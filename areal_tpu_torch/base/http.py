@@ -3,10 +3,12 @@
 - Server: ``start_server(routes, host, port)`` answers each request on a
   thread of its own (``ThreadingHTTPServer``). A route is a function of
   the raw body returning ``(status, payload)`` or ``(status, payload,
-  headers)``; the payload goes out as JSON.
+  headers)``; the payload goes out as JSON, or, when it is a ``Stream``,
+  frame by frame until the stream ends, on a connection closed after it.
 - Client: ``request_json`` is one request on a connection of its own over
   ``asyncio.open_connection``, so any number of calls can be in flight on
-  one event loop without threads (what aiohttp gives the reference).
+  one event loop without threads (what aiohttp gives the reference);
+  ``open_stream`` opens a streamed answer and reads it line by line.
   Errors mirror aiohttp's: ``ClientConnectionError`` (refused, reset or
   closed before the answer; also a ``ConnectionError``) and
   ``ClientResponseError`` carrying ``status`` for a 4xx/5xx answer.
@@ -15,11 +17,13 @@
 import asyncio
 import json
 import logging
+import select
+import socket
 import sys
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 logger = logging.getLogger("areal_tpu_torch.http")
 
@@ -46,6 +50,45 @@ class ClientResponseError(ClientError):
 # ---------------------------------------------------------------------- #
 # server
 # ---------------------------------------------------------------------- #
+
+
+class Stream:
+    """A streamed answer (server-sent events): each item of ``frames``
+    (bytes) is written and flushed as it comes, and the connection closes
+    after the last. Before
+    each write the server checks that the client is still there; once it
+    has gone (its end closed, or a write failed) no more frames are taken.
+    Either way ``close()`` runs at the end: it closes ``frames`` and calls
+    ``on_close``, which can release what the stream held."""
+
+    def __init__(self, frames: Iterator[bytes],
+                 on_close: Optional[Callable[[], None]] = None):
+        self.frames = frames
+        self.on_close = on_close
+
+    def close(self):
+        close = getattr(self.frames, "close", None)
+        try:
+            if close is not None:
+                close()
+        finally:
+            if self.on_close is not None:
+                self.on_close()
+
+
+def peer_closed(sock: socket.socket) -> bool:
+    """Whether the other end of ``sock`` has closed it (readable, and a
+    peek reads end of file). A client sends its whole request before it
+    reads the answer, so nothing else makes the socket readable."""
+    try:
+        readable, _, _ = select.select([sock], [], [], 0)
+        if not readable:
+            return False
+        return sock.recv(1, socket.MSG_PEEK) == b""
+    except (BlockingIOError, InterruptedError):
+        return False
+    except (OSError, ValueError):
+        return True
 
 
 class _Server(ThreadingHTTPServer):
@@ -80,6 +123,9 @@ def make_handler(routes: Dict[Tuple[str, str], Route]):
                 status, payload, *rest = fn(body)
                 if rest:
                     headers = rest[0]
+            if isinstance(payload, Stream):
+                self._stream(status, payload, headers)
+                return
             data = json.dumps(payload).encode()
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
@@ -88,6 +134,27 @@ def make_handler(routes: Dict[Tuple[str, str], Route]):
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
+
+        def _stream(self, status: int, stream: Stream, headers: dict):
+            self.close_connection = True
+            try:
+                self.send_response(status)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Connection", "close")
+                for k, v in headers.items():
+                    self.send_header(k, v)
+                self.end_headers()
+                for frame in stream.frames:
+                    if peer_closed(self.connection):
+                        raise ConnectionResetError("the client went away")
+                    self.wfile.write(frame)
+                    self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError,
+                    ConnectionAbortedError) as e:
+                logger.debug("stream to %s ended: %r", self.client_address, e)
+            finally:
+                stream.close()
 
         def do_GET(self):
             self._dispatch("GET")
@@ -124,13 +191,19 @@ def parse_json(body: bytes) -> dict:
 # ---------------------------------------------------------------------- #
 
 
-async def _exchange(method: str, url: str, body) -> Tuple[int, dict, bytes]:
+async def _open(method: str, url: str, body):
+    """Connect, send the request and read the answer's status line and
+    headers: ``(reader, writer, status, headers)``. On an error the
+    connection is closed before it raises."""
     u = urllib.parse.urlsplit(url)
     host, port = u.hostname, u.port or 80
     path = (u.path or "/") + (f"?{u.query}" if u.query else "")
     data = b"" if body is None else json.dumps(body).encode()
     try:
-        reader, writer = await asyncio.open_connection(host, port)
+        # a streamed answer's line (one SSE frame) may outgrow the default
+        # 64 KiB line limit
+        reader, writer = await asyncio.open_connection(host, port,
+                                                       limit=1 << 22)
     except OSError as e:
         raise ClientConnectionError(f"cannot connect to {url}: {e!r}") from e
     try:
@@ -153,9 +226,25 @@ async def _exchange(method: str, url: str, body) -> Tuple[int, dict, bytes]:
                 break
             k, _, v = line.decode("latin-1").partition(":")
             headers[k.strip().lower()] = v.strip()
-        n = headers.get("content-length")
-        payload = (await reader.readexactly(int(n)) if n is not None
-                   else await reader.read())
+    except (OSError, asyncio.IncompleteReadError) as e:
+        writer.close()
+        raise ClientConnectionError(f"{url}: {e!r}") from e
+    except BaseException:
+        writer.close()
+        raise
+    return reader, writer, status, headers
+
+
+async def _read_payload(reader, headers: dict) -> bytes:
+    n = headers.get("content-length")
+    return (await reader.readexactly(int(n)) if n is not None
+            else await reader.read())
+
+
+async def _exchange(method: str, url: str, body) -> Tuple[int, dict, bytes]:
+    reader, writer, status, headers = await _open(method, url, body)
+    try:
+        payload = await _read_payload(reader, headers)
     except (OSError, asyncio.IncompleteReadError) as e:
         raise ClientConnectionError(f"{url}: {e!r}") from e
     finally:
@@ -174,3 +263,45 @@ async def request_json(method: str, url: str, body: Optional[dict] = None,
         raise ClientResponseError(status, payload.decode("utf-8", "replace"),
                                   headers)
     return json.loads(payload) if payload else {}
+
+
+class StreamResponse:
+    """An open streamed answer (``open_stream``): ``readline()`` returns
+    its next line, ``b""`` once the server has closed the connection;
+    ``close()`` closes it from this end."""
+
+    def __init__(self, url: str, reader, writer, headers: dict):
+        self.url = url
+        self.headers = headers
+        self._reader = reader
+        self._writer = writer
+
+    async def readline(self) -> bytes:
+        try:
+            return await self._reader.readline()
+        except (OSError, asyncio.IncompleteReadError, ValueError) as e:
+            raise ClientConnectionError(f"{self.url}: {e!r}") from e
+
+    def close(self):
+        self._writer.close()
+
+
+async def open_stream(method: str, url: str, body: Optional[dict] = None,
+                      timeout: Optional[float] = None) -> StreamResponse:
+    """Send one request and wait for its answer's headers (at most
+    ``timeout`` seconds). A status >= 400 reads the body and raises
+    ``ClientResponseError``; otherwise the answer's body is left to read
+    line by line from the returned ``StreamResponse``."""
+    reader, writer, status, headers = await asyncio.wait_for(
+        _open(method, url, body), timeout)
+    if status >= 400:
+        try:
+            payload = await asyncio.wait_for(
+                _read_payload(reader, headers), timeout)
+        except (OSError, asyncio.IncompleteReadError) as e:
+            raise ClientConnectionError(f"{url}: {e!r}") from e
+        finally:
+            writer.close()
+        raise ClientResponseError(status, payload.decode("utf-8", "replace"),
+                                  headers)
+    return StreamResponse(url, reader, writer, headers)

@@ -1,6 +1,7 @@
 """Async HTTP client for the generation fleet (the counterpart of
-``areal_tpu/gen/client.py``): ``generate`` and the weight-update call with
-the reference's retry and timeout posture, on the standard library
+``areal_tpu/gen/client.py``): ``generate``, ``generate_stream`` and the
+weight-update call with the reference's retry and timeout posture, on the
+standard library
 (``base/http.py``: one connection per call over ``asyncio.open_connection``,
 so the number of calls in flight is bounded by nothing but the callers).
 
@@ -14,13 +15,15 @@ so the number of calls in flight is bounded by nothing but the callers).
 - A 4xx/5xx answer raises ``ClientResponseError`` carrying ``status``, as
   ``aiohttp.ClientResponseError`` does in the reference.
 
-``generate_stream`` waits until the server has ``/generate_stream``; the
-reference's fault-injection points and tracing context are not ported.
+The reference's fault-injection points and tracing context are not
+ported.
 """
 
 import asyncio
 import dataclasses
+import json
 import random
+import time
 from typing import Dict, List, Optional
 
 from areal_tpu_torch.base import http
@@ -144,6 +147,75 @@ class GenAPIClient:
             finish_reason=d["finish_reason"],
             version=d["version"],
         )
+
+    async def generate_stream(
+        self,
+        server_url: str,
+        rid: str,
+        input_ids: List[int],
+        sampling_params: Dict,
+        deadline_s: Optional[float] = None,
+    ):
+        """Async iterator over ``/generate_stream``: one dict per SSE frame
+        (``token_ids`` / ``logprobs`` deltas; the final frame carries
+        ``finish_reason`` and ``version``), ending at ``data: [DONE]``.
+
+        The retry policy applies only to opening the stream (a refused
+        connection never reached the engine). Once it is open, a drop
+        before ``[DONE]`` raises ``ClientConnectionError``: the server may
+        have generated, and its cancel path owns the slot, so re-sending
+        would double-bill the rid (as ``generate``).
+
+        ``deadline_s`` is the request's remaining budget in seconds: the
+        backoff never sleeps past it (``DeadlineExceeded`` instead), and it
+        is forwarded in the body, so the server ends the stream with a
+        ``"deadline"`` frame and frees the slot when it runs out."""
+        body = {"rid": rid, "input_ids": input_ids,
+                "sampling_params": sampling_params}
+        t_deadline = None
+        if deadline_s is not None and deadline_s > 0:
+            body["deadline_s"] = float(deadline_s)
+            t_deadline = time.monotonic() + deadline_s
+        url = f"{server_url}/generate_stream"
+        attempt = 0
+        while True:
+            if t_deadline is not None and time.monotonic() >= t_deadline:
+                raise DeadlineExceeded(
+                    f"deadline expired before the stream for {rid} opened")
+            try:
+                stream = await http.open_stream("POST", url, body,
+                                                timeout=self.timeout)
+                break
+            except Exception as e:
+                retryable = isinstance(
+                    e, CONNECTION_ERRORS
+                ) and not isinstance(e, asyncio.TimeoutError)
+                attempt += 1
+                if not retryable or attempt >= self.retry.max_attempts:
+                    raise
+                delay = self.retry.delay(attempt - 1, self._rng)
+                if (t_deadline is not None
+                        and time.monotonic() + delay >= t_deadline):
+                    raise DeadlineExceeded(
+                        f"deadline expired during connect backoff for {rid}"
+                    ) from e
+                self.retries += 1
+                await asyncio.sleep(delay)
+        try:
+            while True:
+                line = await asyncio.wait_for(stream.readline(), self.timeout)
+                if not line:
+                    raise ClientConnectionError(
+                        f"{url}: the stream for {rid} ended before [DONE]")
+                line = line.strip()
+                if not line.startswith(b"data:"):
+                    continue          # blank separators, SSE comments
+                payload = line[len(b"data:"):].strip()
+                if payload == b"[DONE]":
+                    return
+                yield json.loads(payload)
+        finally:
+            stream.close()
 
     async def update_weights_from_disk(
         self,

@@ -4,25 +4,32 @@
 - KV memory is a POOL of fixed-size pages (``models/transformer.
   PagedKVCache`` + ``gen/pages.py``); each slot holds a page table, and
   prompts share pages for their longest common page-aligned prefix (radix
-  tree; one prefill serves a whole GRPO group). The pool can store int8
-  (``kv_dtype`` / ``cfg.kv_dtype`` / ``AREAL_KV_DTYPE``).
+  tree; one prefill serves a whole GRPO group; ``enable_prefix_cache``).
+  The pool can store int8 (``kv_dtype`` / ``cfg.kv_dtype`` /
+  ``AREAL_KV_DTYPE``).
 - Admission = CHUNKED PREFILL: prompts stream through ``[n_rows,
-  admit_chunk]`` extend calls in admit-row buckets, in two waves (cold
-  prompts first, then prefix borrowers, whose shared pages the first
-  wave wrote).
+  admit_chunk]`` extend programs in admit-row buckets (``admit_buckets``,
+  ``admit_chunk_tokens``), in two waves (cold prompts first, then prefix
+  borrowers, whose shared pages the first wave wrote); then the admitted
+  slots' decode state is written by commit programs, one per admit-row
+  bucket.
 - Decode: a chunk of N steps; stop-token detection and per-slot caps run
   on the device, so the host syncs once per chunk. Each step's attention
   is the paged decode kernel on a GPU.
-- Chunk programs (the counterpart of the reference's jitted ``lax.scan``
-  chunk, one per ``(n_steps, width, warp_bucket, fused, with_topk)``
-  key): on a GPU each key's chunk body is captured once as a
-  ``torch.cuda.CUDAGraph`` and every chunk replays it; on the CPU the
-  same body runs eagerly. Either way it reads and writes only static
-  buffers: the decode state is updated in place, the page table and the
-  warp rows are copied into fixed device buffers before each run, and
+- Programs (the counterparts of the reference's jitted programs): one
+  extend program per ``(n_rows, width, skip_pool)`` key, one commit
+  program per admit-row bucket and one decode chunk per ``(n_steps,
+  width, warp_bucket, fused, with_topk)`` key (``_jit_extend``,
+  ``_jit_commit``, ``_jit_chunk``). On a GPU each key's body is captured
+  once as a ``torch.cuda.CUDAGraph`` and every later use replays it; on
+  the CPU the same body runs eagerly. Either way a program reads and
+  writes only static buffers: the pool and the decode state are updated
+  in place; a wave's tokens, table rows and positions, a commit's slot
+  rows and a chunk's page table and warp rows are copied from pinned
+  host staging into fixed device buffers before each run (``_stage``);
   the harvest flags land in a fixed ``[4, B]`` buffer whose copy to the
   host is enqueued right behind the chunk (``_dispatch``) and waited for
-  later (``_resolve``). Admission (extend and commit) stays eager.
+  later (``_resolve``).
 - Pipelining (``pipeline_chunks`` / ``AREAL_DECODE_PIPELINE``): harvest
   each chunk one step late, after the next one is dispatched, so the
   host's harvest overlaps the device's decode (``_step_pipelined``).
@@ -89,6 +96,11 @@ class GenState:
     out_tokens: torch.Tensor    # [B, G] i64
     out_logprobs: torch.Tensor  # [B, G] f32
     sp: SamplingParams
+    # every per-slot tensor above is the first B rows of one of these,
+    # which have a trash row B past the slots: the commit programs write
+    # through them, their padding rows to row B (the counterpart of the
+    # reference's out-of-range ``mode="drop"`` index)
+    padded: Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -113,9 +125,13 @@ class GenOutput:
     version: int = 0
 
 
-# Fixed at the reference engine's default; the port's callers never set
-# it (a caller that needs another value brings the option).
-ADMIT_BUCKETS = (1, 2, 4, 8)       # rows per prefill extend call
+# The commit programs' operand row: slot, last token, resident length,
+# temperature and top-p (their float32 bits), top-k, min and max new
+# tokens, then the stop ids
+_COMMIT_COLS = 8
+# pinned staging buffers per engine: a buffer is rewritten only after the
+# copy out of it, enqueued that many stagings earlier, has run
+_STAGING_RING = 8
 # Vocab block of the streamed top-k epilogue (plain PyTorch on the engine's
 # device): every block costs a few dozen small launches, so blocks are wide;
 # the block's f32 copy of the head ([E, block]) bounds the width.
@@ -169,10 +185,11 @@ class _Clock:
 
 
 @dataclasses.dataclass
-class _ChunkProgram:
-    """One chunk key's program: ``run`` replays its CUDA graph (or runs the
-    eager body on the CPU); ``launches`` holds the kernel launches one run
-    makes, per wrapper module, as its capture recorded them."""
+class _Program:
+    """One key's program (an extend, a commit or a decode chunk): ``run``
+    replays its CUDA graph (or runs the eager body on the CPU);
+    ``launches`` holds the kernel launches one run makes, per wrapper
+    module, as its capture recorded them."""
 
     run: Callable[[], None]
     graph: Optional["torch.cuda.CUDAGraph"] = None
@@ -196,14 +213,26 @@ class _ChunkIO:
 
 
 @dataclasses.dataclass
+class _Staging:
+    """A pinned host buffer that admission operands pass through on their
+    way to a static device buffer, and the event that marks the copy out
+    of it done (plain memory and no event on the CPU, where copies are
+    synchronous)."""
+
+    buf: torch.Tensor            # [n] i64
+    done: Optional["torch.cuda.Event"] = None
+
+
+@dataclasses.dataclass
 class _InFlight:
     """A dispatched chunk: its host buffers, its device-time marks, the
-    admission marks before it (if it admitted anything) and the (slot,
-    epoch) pairs it decoded."""
+    admission's spans of marks before it (empty if it admitted nothing;
+    first captures fall between spans) and the (slot, epoch) pairs it
+    decoded."""
 
     io: _ChunkIO
     decode: tuple
-    prefill: Optional[tuple]
+    prefill: List[tuple]
     running: Tuple[Tuple[int, int], ...]
 
 
@@ -222,6 +251,9 @@ class GenerationEngine:
         kv_dtype: Optional[str] = None,
         fused_sample: Optional[bool] = None,
         pipeline_chunks: Optional[bool] = None,
+        admit_buckets: Sequence[int] = (1, 2, 4, 8),
+        enable_prefix_cache: bool = True,
+        admit_chunk_tokens: Optional[int] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -256,7 +288,17 @@ class GenerationEngine:
         self.S = self.M * page_size
         self.G = max_new_tokens_cap         # output buffer width per slot
         self.version = 0
-        self.admit_chunk = page_size   # prefill tokens per row per extend
+        # prefill streams through [n_rows, admit_chunk] extend programs;
+        # bigger chunks amortize the attention over resident KV at the
+        # cost of padding short prompts up to one chunk. Default: one page
+        if admit_chunk_tokens is None:
+            self.admit_chunk = page_size
+        else:
+            self.admit_chunk = max(
+                page_size, -(-admit_chunk_tokens // page_size) * page_size
+            )
+        self.admit_buckets = sorted(admit_buckets)
+        self.enable_prefix_cache = enable_prefix_cache
         # engine-wide stop ids, merged ahead of each request's own
         self.global_stop_ids = list(stop_token_ids)
         self.max_stop_ids = 8
@@ -321,7 +363,28 @@ class GenerationEngine:
             for _ in range(2)
         ]
         self._n_dispatched = 0
-        self._programs: Dict[tuple, _ChunkProgram] = {}
+        # admission's static operands: a wave's tokens, table rows, starts
+        # and counts (_extend_operands) and a commit's rows (_commit_body)
+        # are staged into these before each run
+        n_max, C = self.admit_buckets[-1], self.admit_chunk
+        K = self.max_stop_ids
+        self._extend_ops = torch.zeros((n_max * (C + M + 2),),
+                                       dtype=torch.int64, device=dev)
+        self._commit_ops = torch.zeros((n_max * (_COMMIT_COLS + K),),
+                                       dtype=torch.int64, device=dev)
+        n_stage = max(self._extend_ops.numel(), self._commit_ops.numel())
+        self._staging = [
+            _Staging(buf=torch.zeros((n_stage,), dtype=torch.int64,
+                                     pin_memory=pin))
+            for _ in range(_STAGING_RING)
+        ]
+        self._n_staged = 0
+        self._jit_extend: Dict[tuple, _Program] = {}
+        self._jit_commit: Dict[int, _Program] = {}
+        self._jit_chunk: Dict[tuple, _Program] = {}
+        # device-time spans of the admission under way (_span_open)
+        self._spans: List[tuple] = []
+        self._span_start = None
         if dev.type == "cuda":
             # every captured program allocates from one pool and captures
             # (and warms up) on one side stream; replays run one at a time
@@ -340,7 +403,9 @@ class GenerationEngine:
             "admitted": 0,
             # decode steps run (one kernel per layer each), warm-ups included
             "decode_steps": 0,
-            "prefill_s": 0.0,           # device time of admission (prefill)
+            # device time of admission (prefill and commit), first
+            # captures excluded
+            "prefill_s": 0.0,
             "decode_s": 0.0,            # device time of decode chunks
             "fused_sample_steps": 0,    # decode steps sampled by the fused epilogue
             "fused_topk_steps": 0,      # ... of which carried the online top-k buffer
@@ -350,31 +415,53 @@ class GenerationEngine:
             "graph_captures": 0,
             "graph_replays": 0,
             "graph_capture_s": 0.0,     # host wall time of warm-ups + captures
-            "graph_pool_bytes": 0,      # memory the captures reserved
+            # memory every capture reserved (decode chunks and admission)
+            "graph_pool_bytes": 0,
+            # admission programs, alike: CUDA graphs captured (each after
+            # one eager warm-up run that writes only trash rows) and
+            # replayed, and the runs, warm-ups included: extend waves
+            # (prefill_waves) and commit buckets (commit_waves)
+            "extend_captures": 0,
+            "extend_replays": 0,
+            "commit_captures": 0,
+            "commit_replays": 0,
+            "prefill_waves": 0,
+            "commit_waves": 0,
+            "admit_capture_s": 0.0,     # host wall time of their captures
             "chunk_flag_fetches": 0,    # chunks resolved
             "chunk_flag_blocked": 0,    # ... whose flag copy was not done yet
         }
 
     def _make_state(self, cache: tfm.PagedKVCache, width: int) -> GenState:
         """Slot state over ``cache`` with ``width`` output columns a slot,
-        every slot inactive."""
+        every slot inactive; each per-slot tensor is a view of the first
+        B rows of one with a trash row (``GenState.padded``)."""
         B, dev = self.B, self.device
+        padded = {}
 
-        def full(shape, value, dtype):
-            return torch.full(shape, value, dtype=dtype, device=dev)
+        def full(name, cols, value, dtype):
+            padded[name] = torch.full((B + 1,) + cols, value, dtype=dtype,
+                                      device=dev)
+            return padded[name][:B]
 
+        K = self.max_stop_ids
         return GenState(
             cache=cache,
-            lens=full((B,), 0, torch.int32),
-            last_tokens=full((B,), 0, torch.int64),
-            active=full((B,), False, torch.bool),
-            n_gen=full((B,), 0, torch.int32),
-            min_gen=full((B,), 0, torch.int32),
-            max_gen=full((B,), 0, torch.int32),
-            stop_ids=full((B, self.max_stop_ids), -1, torch.int64),
-            out_tokens=full((B, width), 0, torch.int64),
-            out_logprobs=full((B, width), 0.0, torch.float32),
-            sp=SamplingParams.filled(B, device=dev),
+            lens=full("lens", (), 0, torch.int32),
+            last_tokens=full("last_tokens", (), 0, torch.int64),
+            active=full("active", (), False, torch.bool),
+            n_gen=full("n_gen", (), 0, torch.int32),
+            min_gen=full("min_gen", (), 0, torch.int32),
+            max_gen=full("max_gen", (), 0, torch.int32),
+            stop_ids=full("stop_ids", (K,), -1, torch.int64),
+            out_tokens=full("out_tokens", (width,), 0, torch.int64),
+            out_logprobs=full("out_logprobs", (width,), 0.0, torch.float32),
+            sp=SamplingParams(
+                temperature=full("temperature", (), 1.0, torch.float32),
+                top_p=full("top_p", (), 1.0, torch.float32),
+                top_k=full("top_k", (), 1 << 30, torch.int64),
+            ),
+            padded=padded,
         )
 
     # ------------------------------------------------------------------ #
@@ -403,12 +490,14 @@ class GenerationEngine:
             return len(self._pending)
 
     def n_compiles(self) -> int:
-        """Decode-chunk programs built so far: one per ``(n_steps, width,
-        warp_bucket, fused, with_topk)`` key, the reference's
-        ``_jit_chunk`` keys (a CUDA graph each on a GPU). Admission
-        (extend and commit) stays eager in the port, so the reference's
-        extend and commit programs have no counterpart here."""
-        return len(self._programs)
+        """Programs built so far, as the reference counts its jitted ones
+        (spec decode aside): extend programs per ``(n_rows, width,
+        skip_pool)``, commit programs per admit-row bucket and decode
+        chunks per ``(n_steps, width, warp_bucket, fused, with_topk)``
+        (a CUDA graph each on a GPU). Bounded by the buckets and chunk
+        sizes, never by prompt lengths."""
+        return len(self._jit_extend) + len(self._jit_commit) + len(
+            self._jit_chunk)
 
     @property
     def has_inflight(self) -> bool:
@@ -564,16 +653,95 @@ class GenerationEngine:
             w *= 2
         return min(w, self.M)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def _row_bucket(self, n: int) -> int:
-        return next(b for b in ADMIT_BUCKETS if b >= min(n, ADMIT_BUCKETS[-1]))
+        return next(
+            b for b in self.admit_buckets
+            if b >= min(n, self.admit_buckets[-1])
+        )
+
+    def _stage(self, host: np.ndarray, dst: torch.Tensor):
+        """Copy the i64 operands ``host`` into the head of the static
+        device buffer ``dst`` through the next pinned staging buffer of the
+        ring, enqueued on the engine's stream (behind whatever program ran
+        before it, ahead of the one that reads it). The staging buffer is
+        rewritten only once the copy out of it, ``_STAGING_RING`` stagings
+        ago, has run."""
+        st = self._staging[self._n_staged % len(self._staging)]
+        self._n_staged += 1
+        if st.done is not None:
+            st.done.synchronize()
+        n = host.size
+        st.buf[:n].numpy()[:] = host.reshape(-1)
+        dst[:n].copy_(st.buf[:n], non_blocking=True)
+        if self.device.type == "cuda":
+            st.done = torch.cuda.Event()
+            st.done.record()
+
+    # device time of admission: spans of clock marks, closed around each
+    # first capture (its host time is not admission's device time)
+
+    def _span_open(self):
+        self._span_start = self._clock.mark()
+
+    def _span_close(self):
+        self._spans.append((self._span_start, self._clock.mark()))
+
+    def _admission_program(self, programs: dict, key, build) -> _Program:
+        """``programs[key]``, built by ``build(key)`` at its first use
+        outside the admission's device-time spans."""
+        prog = programs.get(key)
+        if prog is None:
+            self._span_close()
+            prog = programs[key] = build(key)
+            self._span_open()
+        return prog
+
+    def _extend_operands(self, key: tuple):
+        """The static operand views of an extend key ``(n_rows, width,
+        skip_pool)``: tokens ``[n, admit_chunk]``, table ``[n, width]``,
+        start ``[n]`` and n_new ``[n]``, packed in this order at the head
+        of ``_extend_ops``."""
+        n, W, _ = key
+        C = self.admit_chunk
+        ops = self._extend_ops
+        ends = np.cumsum([0, n * C, n * W, n, n]).tolist()
+        tokens, table, start, n_new = (
+            ops[lo:hi] for lo, hi in zip(ends[:-1], ends[1:])
+        )
+        return tokens.view(n, C), table.view(n, W), start, n_new
+
+    def _extend_body(self, key: tuple, n_new: Optional[torch.Tensor] = None):
+        """One wave of chunked prefill over the static operands of ``key``
+        (``n_new`` in place of the staged counts: the warm-up's zeros). It
+        writes the KV pool in place and nothing else."""
+        tokens, table, start, staged = self._extend_operands(key)
+        tfm.extend_paged(
+            self.params, self.cfg, self.state.cache, tokens, table, start,
+            staged if n_new is None else n_new, skip_pool=key[2],
+        )
+
+    def _build_extend(self, key: tuple) -> _Program:
+        """The extend program of ``key``; on a GPU captured after one eager
+        warm-up over the staged tokens, table and starts with every count
+        at zero: every write then goes to the pool's trash row."""
+        n = key[0]
+        prog, seconds = self._capture(
+            functools.partial(self._extend_body, key),
+            lambda: self._extend_body(
+                key, torch.zeros((n,), dtype=torch.int64,
+                                 device=self.device)),
+        )
+        if prog.graph is not None:
+            self.stats["extend_captures"] += 1
+            self.stats["prefill_waves"] += 1
+            self.stats["admit_capture_s"] += seconds
+        return prog
 
     def _run_extends(self, rows: List[dict]):
         """Stream each row's tokens through fixed ``[n_rows, admit_chunk]``
-        extend calls (rows padded to an admit bucket with ``n_new = 0``);
-        each wave sees only the table prefix its positions can touch."""
+        extend programs (rows padded to an admit bucket with ``n_new =
+        0``); each wave sees only the table prefix its positions can
+        touch."""
         if not rows:
             return
         C = self.admit_chunk
@@ -584,32 +752,35 @@ class GenerationEngine:
             i += len(chunk_rows)
             max_t = max(len(r["tokens"]) for r in chunk_rows)
             n_chunks = max(1, -(-max_t // C))
-            tables = np.zeros((n, self.M), np.int32)
-            starts0 = np.zeros((n,), np.int32)
+            tables = np.zeros((n, self.M), np.int64)
+            starts0 = np.zeros((n,), np.int64)
             all_tokens = np.zeros((n, n_chunks * C), np.int64)
-            counts = np.zeros((n,), np.int32)
+            counts = np.zeros((n,), np.int64)
             for j, r in enumerate(chunk_rows):
                 tables[j] = r["table_row"]
                 starts0[j] = r["start"]
                 all_tokens[j, : len(r["tokens"])] = r["tokens"]
                 counts[j] = len(r["tokens"])
             for c in range(n_chunks):
-                n_new = np.clip(counts - c * C, 0, C).astype(np.int32)
+                n_new = np.clip(counts - c * C, 0, C)
                 if not n_new.any():
                     break
                 max_pos = int(np.max(starts0 + np.minimum(counts, (c + 1) * C)))
                 W = self._table_width(max_pos)
                 # cold-prompt first waves start every row at position 0:
                 # nothing in the pool is visible, skip its gather + scan
-                skip_pool = c == 0 and not starts0.any()
-                tfm.extend_paged(
-                    self.params, self.cfg, self.state.cache,
-                    self._to_device(all_tokens[:, c * C : (c + 1) * C]),
-                    self._to_device(tables[:, :W]),
-                    self._to_device(starts0 + c * C),
-                    self._to_device(n_new),
-                    skip_pool=skip_pool,
-                )
+                key = (n, W, c == 0 and not starts0.any())
+                # staged before a first use: the warm-up reads these
+                self._stage(np.concatenate([
+                    all_tokens[:, c * C : (c + 1) * C].reshape(-1),
+                    tables[:, :W].reshape(-1), starts0 + c * C, n_new,
+                ]), self._extend_ops)
+                prog = self._admission_program(self._jit_extend, key,
+                                               self._build_extend)
+                prog.run()
+                self.stats["prefill_waves"] += 1
+                if prog.graph is not None:
+                    self.stats["extend_replays"] += 1
 
     def _admit_pending(self) -> bool:
         """Admit what fits; returns whether anything was admitted."""
@@ -634,7 +805,7 @@ class GenerationEngine:
             n_total = -(-(plen_eff + max_gen) // self.page)
             n_shared_full = plen_eff // self.page
             shared: List[int] = []
-            if n_shared_full > 0:
+            if self.enable_prefix_cache and n_shared_full > 0:
                 shared = self.prefix.lookup(ids, n_shared_full) or []
             n_owned = n_total - len(shared)
             if self.pool.n_free < n_owned:
@@ -670,7 +841,7 @@ class GenerationEngine:
                     deferred_inserts.append((ids, shared + owned[:n_new]))
             else:
                 misses.append(row)
-                if n_shared_full > 0:
+                if self.enable_prefix_cache and n_shared_full > 0:
                     # cold prompt: its pages are written in wave 1, so
                     # same-cycle group members can borrow them in wave 2
                     self.prefix.insert(ids, list(owned[:n_shared_full]))
@@ -684,7 +855,7 @@ class GenerationEngine:
         if not admitted:
             return False
         # wave 1: unique prompts compute their KV; wave 2: prefix borrowers
-        # extend only their tails
+        # extend only their tails (replays on one stream keep this order)
         self._run_extends(misses)
         self._run_extends(hits)
         for ins_ids, ins_pages in deferred_inserts:
@@ -692,61 +863,101 @@ class GenerationEngine:
         self._commit(admitted)
         return True
 
+    def _commit_body(self, ops: torch.Tensor):
+        """Write the decode state of the slots in ``ops`` ``[n, 8 + K]``
+        (rows as ``_COMMIT_COLS`` says) through ``GenState.padded``: a
+        padding row names slot B, the trash row. Everything happens in
+        place on the device."""
+        st = self.state.padded
+        slots = ops[:, 0]
+
+        def f32(col):   # a float32 column, staged as its bits
+            return ops[:, col].to(torch.int32).view(torch.float32)
+
+        for name, val in (
+            ("last_tokens", ops[:, 1]),
+            ("lens", ops[:, 2].to(torch.int32)),
+            ("temperature", f32(3)),
+            ("top_p", f32(4)),
+            ("top_k", ops[:, 5]),
+            ("min_gen", ops[:, 6].to(torch.int32)),
+            ("max_gen", ops[:, 7].to(torch.int32)),
+            ("stop_ids", ops[:, _COMMIT_COLS:]),
+        ):
+            st[name].index_copy_(0, slots, val)
+        st["active"].index_fill_(0, slots, True)
+        for name in ("n_gen", "out_tokens", "out_logprobs"):
+            st[name].index_fill_(0, slots, 0)
+
+    def _build_commit(self, n: int) -> _Program:
+        """The commit program of an ``n``-row bucket; on a GPU captured
+        after one eager warm-up whose every row is a padding row."""
+        ops = self._commit_ops[: n * (_COMMIT_COLS + self.max_stop_ids)]
+        ops = ops.view(n, -1)
+
+        def warm_up():
+            pad = ops.clone()
+            pad[:, 0] = self.B
+            self._commit_body(pad)
+
+        prog, seconds = self._capture(
+            functools.partial(self._commit_body, ops), warm_up)
+        if prog.graph is not None:
+            self.stats["commit_captures"] += 1
+            self.stats["commit_waves"] += 1
+            self.stats["admit_capture_s"] += seconds
+        return prog
+
     def _commit(self, admitted: List[Tuple[GenRequest, int]]):
-        """Write the admitted slots' decode state in one batch of small
-        host-to-device copies (slot indices are host-known, so no padding
-        rows need dropping)."""
-        n, K = len(admitted), self.max_stop_ids
-        slots = np.zeros((n,), np.int64)
-        last_toks = np.zeros((n,), np.int64)
-        lens = np.zeros((n,), np.int32)
-        temp = np.ones((n,), np.float32)
-        top_p = np.ones((n,), np.float32)
-        top_k = np.full((n,), 1 << 30, np.int64)
-        min_gen = np.zeros((n,), np.int32)
-        max_gen = np.zeros((n,), np.int32)
-        stop_ids = np.full((n, K), -1, np.int64)
-        for j, (r, slot) in enumerate(admitted):
-            ids = r.input_ids
-            slots[j] = slot
-            last_toks[j] = ids[-1]
-            lens[j] = len(ids) - 1
-            self._lens_host[slot] = len(ids) - 1
-            self._warp_host[slot] = (
-                r.top_p < 1.0 or r.top_k < self.cfg.vocab_size
-            ) and not r.greedy and r.temperature > 0.0
-            sampled = not r.greedy and r.temperature > 0.0
-            topk_on = r.top_k < self.cfg.vocab_size
-            self._fused_warp_host[slot] = sampled and (
-                r.top_p < 1.0
-                or (topk_on and r.top_k > fused_ops.TOPK_MAX)
-            )
-            self._fused_topk_host[slot] = (
-                sampled and r.top_p >= 1.0
-                and topk_on and r.top_k <= fused_ops.TOPK_MAX
-            )
-            temp[j] = 0.0 if r.greedy else r.temperature
-            top_p[j] = r.top_p
-            top_k[j] = min(r.top_k, 1 << 30)
-            min_gen[j] = r.min_new_tokens
-            max_gen[j] = min(r.max_new_tokens, self.G)
-            merged = list(
-                dict.fromkeys(self.global_stop_ids + list(r.stop_token_ids))
-            )[:K]
-            stop_ids[j, : len(merged)] = merged
-        st, idx = self.state, self._to_device(slots)
-        st.lens[idx] = self._to_device(lens)
-        st.last_tokens[idx] = self._to_device(last_toks)
-        st.active[idx] = True
-        st.n_gen[idx] = 0
-        st.min_gen[idx] = self._to_device(min_gen)
-        st.max_gen[idx] = self._to_device(max_gen)
-        st.stop_ids[idx] = self._to_device(stop_ids)
-        st.out_tokens[idx] = 0
-        st.out_logprobs[idx] = 0.0
-        st.sp.temperature[idx] = self._to_device(temp)
-        st.sp.top_p[idx] = self._to_device(top_p)
-        st.sp.top_k[idx] = self._to_device(top_k)
+        """Write the admitted slots' decode state in admit-row buckets, one
+        commit program per bucket size; each bucket's operands go to the
+        device in one staged copy."""
+        K = self.max_stop_ids
+        i = 0
+        while i < len(admitted):
+            n = self._row_bucket(len(admitted) - i)
+            group = admitted[i : i + n]
+            i += len(group)
+            ops = np.zeros((n, _COMMIT_COLS + K), np.int64)
+            ops[:, 0] = self.B               # padding rows: the trash row
+            ops[:, 3] = np.float32(1.0).view(np.int32)
+            ops[:, 4] = np.float32(1.0).view(np.int32)
+            ops[:, 5] = 1 << 30
+            ops[:, _COMMIT_COLS:] = -1
+            for j, (r, slot) in enumerate(group):
+                ids = r.input_ids
+                self._lens_host[slot] = len(ids) - 1
+                self._warp_host[slot] = (
+                    r.top_p < 1.0 or r.top_k < self.cfg.vocab_size
+                ) and not r.greedy and r.temperature > 0.0
+                sampled = not r.greedy and r.temperature > 0.0
+                topk_on = r.top_k < self.cfg.vocab_size
+                self._fused_warp_host[slot] = sampled and (
+                    r.top_p < 1.0
+                    or (topk_on and r.top_k > fused_ops.TOPK_MAX)
+                )
+                self._fused_topk_host[slot] = (
+                    sampled and r.top_p >= 1.0
+                    and topk_on and r.top_k <= fused_ops.TOPK_MAX
+                )
+                temp = 0.0 if r.greedy else r.temperature
+                merged = list(dict.fromkeys(
+                    self.global_stop_ids + list(r.stop_token_ids)))[:K]
+                ops[j, :_COMMIT_COLS] = (
+                    slot, ids[-1], len(ids) - 1,
+                    np.float32(temp).view(np.int32),
+                    np.float32(r.top_p).view(np.int32),
+                    min(r.top_k, 1 << 30), r.min_new_tokens,
+                    min(r.max_new_tokens, self.G),
+                )
+                ops[j, _COMMIT_COLS : _COMMIT_COLS + len(merged)] = merged
+            self._stage(ops, self._commit_ops)
+            prog = self._admission_program(self._jit_commit, n,
+                                           self._build_commit)
+            prog.run()
+            self.stats["commit_waves"] += 1
+            if prog.graph is not None:
+                self.stats["commit_replays"] += 1
 
     # ------------------------------------------------------------------ #
     # Decode
@@ -852,64 +1063,83 @@ class GenerationEngine:
         for i, f in enumerate((st.active, st.n_gen, st.max_gen, st.lens)):
             flags[i].copy_(f)
 
-    def _program(self, key: tuple) -> _ChunkProgram:
+    def _program(self, key: tuple) -> _Program:
         """The chunk program of ``key`` = ``(n_steps, width, warp_bucket,
         fused, with_topk)``, built at its first use."""
-        prog = self._programs.get(key)
+        prog = self._jit_chunk.get(key)
         if prog is None:
-            prog = self._programs[key] = self._build_program(key)
+            prog = self._jit_chunk[key] = self._build_program(key)
         return prog
 
-    def _build_program(self, key: tuple) -> _ChunkProgram:
-        """On the CPU: the eager body over the static buffers. On a GPU:
-        the body captured as a CUDA graph, after one eager warm-up step on
+    def _capture(self, body: Callable[[], None], warm_up: Callable[[], None],
+                 generator: Optional[torch.Generator] = None):
+        """``(program, seconds)`` for ``body``. On the CPU: the eager body
+        over the static buffers. On a GPU: ``warm_up()`` once, eagerly, on
         the capture stream (it loads cuBLAS's handle and workspace for this
         thread and stream, the kernels' libraries and modules, and grows
-        the paged-decode arrival counters) over a scratch state whose every
-        slot is inactive: the live slots, their outputs and the engine's
-        generator are untouched, and the pool gets writes only at its trash
-        row. The warm-up is a decode step like any other to the counts
-        (``decode_steps``, the fused-sampler steps, kernel launches): one
-        for each of ``graph_captures``. A capture that fails raises:
-        decode on a GPU never runs eagerly."""
-        n_steps, W, wb, _, with_topk = key
-        table = self._table_dev[:, :W]
-        warp_rows = self._warp_dev[:wb] if wb else None
-        body = functools.partial(
-            self._chunk_body, self.state, self._gen, n_steps, table,
-            warp_rows, with_topk, self._flags_dev,
-        )
+        the paged-decode arrival counters; it must write nothing but trash
+        rows), then ``body`` captured as a CUDA graph in the engine's one
+        graph pool; ``seconds`` is the host wall time of both. The body's
+        results must land in the engine's own tensors: every graph shares
+        the pool, so nothing a replay allocates outlives it. A capture that
+        fails raises: a program on a GPU never runs eagerly."""
         if self.device.type != "cuda":
-            return _ChunkProgram(run=body)
+            return _Program(run=body), 0.0
         t0 = time.perf_counter()
         dev, stream = self.device, self._capture_stream
-        scratch = self._make_state(self.state.cache, 1)
-        scratch_gen = torch.Generator(device=dev)
-        scratch_gen.manual_seed(0)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            self._chunk_body(scratch, scratch_gen, 1, table, warp_rows,
-                             with_topk, torch.empty_like(self._flags_dev))
-        self._count_steps(1, with_topk, 0)
+            warm_up()
         torch.cuda.synchronize(dev)
-        del scratch
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         captured = {m: m.captured for m in _KERNEL_MODULES}
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._gen)
+        if generator is not None:
+            graph.register_generator_state(generator)
         # thread_local: the server's handler threads may allocate (a
         # weight load) while the engine thread captures
         with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
                               capture_error_mode="thread_local"):
             body()
         launches = {m: m.captured - captured[m] for m in _KERNEL_MODULES}
-        self.stats["graph_captures"] += 1
         self.stats["graph_pool_bytes"] += (
             torch.cuda.memory_reserved(dev) - reserved
         )
-        self.stats["graph_capture_s"] += time.perf_counter() - t0
-        return _ChunkProgram(run=graph.replay, graph=graph, launches=launches)
+        prog = _Program(run=graph.replay, graph=graph, launches=launches)
+        return prog, time.perf_counter() - t0
+
+    def _build_program(self, key: tuple) -> _Program:
+        """The chunk program of ``key`` (``_capture``). Its warm-up is one
+        decode step over a scratch state whose every slot is inactive: the
+        live slots, their outputs and the engine's generator are untouched,
+        and the pool gets writes only at its trash row. The warm-up is a
+        decode step like any other to the counts (``decode_steps``, the
+        fused-sampler steps, kernel launches): one for each of
+        ``graph_captures``."""
+        n_steps, W, wb, _, with_topk = key
+        table = self._table_dev[:, :W]
+        warp_rows = self._warp_dev[:wb] if wb else None
+
+        def warm_up():
+            scratch = self._make_state(self.state.cache, 1)
+            scratch_gen = torch.Generator(device=self.device)
+            scratch_gen.manual_seed(0)
+            self._chunk_body(scratch, scratch_gen, 1, table, warp_rows,
+                             with_topk, torch.empty_like(self._flags_dev))
+            self._count_steps(1, with_topk, 0)
+
+        prog, seconds = self._capture(
+            functools.partial(
+                self._chunk_body, self.state, self._gen, n_steps, table,
+                warp_rows, with_topk, self._flags_dev,
+            ),
+            warm_up, generator=self._gen,
+        )
+        if prog.graph is not None:
+            self.stats["graph_captures"] += 1
+            self.stats["graph_capture_s"] += seconds
+        return prog
 
     def _count_steps(self, n_steps: int, with_topk: bool, n_fallback: int):
         self.stats["decode_steps"] += n_steps
@@ -939,7 +1169,7 @@ class GenerationEngine:
         return key, warp_slots
 
     def _dispatch(self, key: tuple, warp_slots: List[int],
-                  running: List[int], prefill: Optional[tuple]) -> _InFlight:
+                  running: List[int], prefill: List[tuple]) -> _InFlight:
         """Run one decode chunk and START its harvest-flag copy to the host
         in the same breath, right behind it on the stream (the next run
         overwrites the static flags). The table and warp rows go to their
@@ -984,8 +1214,8 @@ class GenerationEngine:
                 self.stats["chunk_flag_blocked"] += 1
             done.synchronize()
         self.stats["decode_s"] += self._clock.seconds(*inflight.decode)
-        if inflight.prefill is not None:
-            self.stats["prefill_s"] += self._clock.seconds(*inflight.prefill)
+        for span in inflight.prefill:
+            self.stats["prefill_s"] += self._clock.seconds(*span)
         return inflight.io.flags.numpy().copy()
 
     def _pull_outputs(self) -> dict:
@@ -1023,8 +1253,10 @@ class GenerationEngine:
         its admission then borrows every page whose KV this slot wrote
         instead of prefilling it again. KV exists for every position but
         the last output token's. A slot that ran across a weight update
-        holds KV of the old weights and caches nothing."""
-        if not out_ids or self._slots[b].n_updates != self._n_updates:
+        holds KV of the old weights and caches nothing, and neither does an
+        engine without the prefix cache."""
+        if not self.enable_prefix_cache or not out_ids or (
+                self._slots[b].n_updates != self._n_updates):
             return
         with self._pending_lock:
             req = self._req_meta.get(self._slots[b].rid)
@@ -1076,15 +1308,16 @@ class GenerationEngine:
         return self._harvest_chunk(prev)
 
     def _admit_and_dispatch(self, decode_steps: int) -> Optional[_InFlight]:
-        t0 = self._clock.mark()
+        self._spans = []
+        self._span_open()
         admitted = self._admit_pending()
+        self._span_close()
         if self.n_running() == 0:
             return None
-        t1 = self._clock.mark()
         running = [b for b, s in enumerate(self._slots) if s is not None]
         key, warp_slots = self._chunk_key(decode_steps, running)
         return self._dispatch(key, warp_slots, running,
-                              (t0, t1) if admitted else None)
+                              self._spans if admitted else [])
 
     def _harvest_chunk(self, inflight: _InFlight) -> List[GenOutput]:
         """Harvest the slots a resolved chunk finished. Its flags may be a

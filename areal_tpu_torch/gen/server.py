@@ -3,11 +3,21 @@ built on the standard library: a ``ThreadingHTTPServer`` answers each
 request on its own thread, and one engine thread drives admission and
 decode continuously.
 
-Routes (the slice's subset of the reference's route table):
+Routes (the reference's route table but ``/spec_decode``, which comes
+with speculative decoding):
 
 - ``POST /generate``: submit a request, wait for completion (or
   interruption); answers ``rid``, ``output_ids``, ``output_logprobs``,
   ``finish_reason`` and ``version``.
+- ``POST /generate_stream``: the same request as server-sent events: a
+  ``token_ids`` / ``logprobs`` delta per harvested chunk (one
+  ``partial_outputs`` pull serves every live stream; a chunk with nothing
+  new for a stream writes an SSE comment), a final frame with
+  ``finish_reason`` and ``version``, then ``data: [DONE]``. An optional
+  top-level ``deadline_s`` ends the stream with a ``finish_reason:
+  "deadline"`` frame and cancels the request; a client that goes away
+  cancels it too, freeing its slot (the server notices at the next frame
+  it would write, at most a chunk or 0.5 s later).
 - ``POST /pause_generation`` / ``POST /continue_generation``.
 - ``POST /update_weights_from_disk``: reload the weights from an HF
   checkpoint directory (the trainer's committed export): ``model_path``,
@@ -30,9 +40,12 @@ texts. If the engine fails, every waiting and later request is answered
 
 import concurrent.futures
 import contextlib
+import dataclasses
+import functools
 import json
 import logging
 import os
+import queue
 import threading
 import time
 from typing import Dict, Optional
@@ -118,6 +131,26 @@ def parse_generate_request(
     )
 
 
+@dataclasses.dataclass
+class _StreamSub:
+    """One ``/generate_stream`` request: the frames' queue (filled by the
+    engine thread, drained by the request's handler thread), the tokens
+    already sent, and whether its final frame was taken."""
+
+    queue: "queue.Queue"
+    sent: int = 0
+    finished: bool = False
+
+
+# queued to every stream when the engine fails or the server stops: the
+# stream ends without [DONE], and the client raises
+_STREAM_FAILED = object()
+
+
+def _sse(event: dict) -> bytes:
+    return b"data: " + json.dumps(event).encode() + b"\n\n"
+
+
 class GenerationHTTPServer:
     """``start()`` binds and starts the HTTP and engine threads and
     returns the port; ``stop()`` ends both."""
@@ -130,6 +163,10 @@ class GenerationHTTPServer:
         self._hbm = hbm.HBMMonitor(device=engine.device, tag="gen-server")
         self._futures: Dict[str, concurrent.futures.Future] = {}
         self._futures_lock = threading.Lock()
+        # /generate_stream subscriptions by rid (the route registers and
+        # removes them; the engine thread and pause fill their queues)
+        self._streams: Dict[str, _StreamSub] = {}
+        self._streams_lock = threading.Lock()
         # serializes engine.step against pause (the engine's own lock
         # would let a pause land between two halves of a serving round)
         self._step_lock = threading.Lock()
@@ -250,6 +287,7 @@ class GenerationHTTPServer:
                 self._fail_all(e)
                 return
             self._resolve(outs)
+            self._emit_stream_partials()
 
     def _fail_all(self, err: BaseException):
         with self._futures_lock:
@@ -257,6 +295,9 @@ class GenerationHTTPServer:
         for f in futs:
             if not f.done():
                 f.set_exception(err)
+        with self._streams_lock:
+            for sub in self._streams.values():
+                sub.queue.put(_STREAM_FAILED)
 
     def _resolve(self, outs):
         for o in outs:
@@ -266,22 +307,60 @@ class GenerationHTTPServer:
                 fut = self._futures.pop(o.rid, None)
             if fut is not None and not fut.done():
                 fut.set_result(o)
+            with self._streams_lock:
+                sub = self._streams.get(o.rid)
+                if sub is not None:
+                    sub.queue.put({
+                        "rid": o.rid,
+                        "token_ids": o.output_ids[sub.sent:],
+                        "logprobs": o.output_logprobs[sub.sent:],
+                        "finish_reason": o.finish_reason,
+                        "version": o.version,
+                    })
+                    sub.sent = len(o.output_ids)
+
+    def _emit_stream_partials(self):
+        """After a harvested chunk: each live stream's new tokens, from ONE
+        device pull for all of them, or an SSE comment where there are
+        none (a write per chunk is how the handler learns that its client
+        went away)."""
+        with self._streams_lock:
+            if not self._streams:
+                return
+            rids = [r for r, sub in self._streams.items() if not sub.finished]
+            partials = self.engine.partial_outputs(rids)
+            for rid in rids:
+                sub = self._streams[rid]
+                toks, lps = partials.get(rid, ((), ()))
+                if len(toks) > sub.sent:
+                    sub.queue.put({
+                        "rid": rid, "token_ids": toks[sub.sent:],
+                        "logprobs": lps[sub.sent:], "finish_reason": None,
+                    })
+                    sub.sent = len(toks)
+                else:
+                    sub.queue.put(None)
 
     # ------------------------------------------------------------------ #
     # handlers: each returns (status, json body)
     # ------------------------------------------------------------------ #
 
+    def _parse_request(self, body: bytes):
+        """A generate body as ``(GenRequest, the JSON object)``; raises
+        ``RequestValidationError`` naming the field."""
+        try:
+            d = json.loads(body)
+        except (ValueError, TypeError):
+            raise RequestValidationError("body is not valid JSON")
+        return parse_generate_request(
+            d, self.engine.cfg.vocab_size, self.engine.S, self.engine.G
+        ), d
+
     def generate(self, body: bytes):
         if self._error is not None:
             return 500, {"error": f"engine failed: {self._error!r}"}
         try:
-            try:
-                d = json.loads(body)
-            except (ValueError, TypeError):
-                raise RequestValidationError("body is not valid JSON")
-            req = parse_generate_request(
-                d, self.engine.cfg.vocab_size, self.engine.S, self.engine.G
-            )
+            req, _ = self._parse_request(body)
         except RequestValidationError as e:
             return 400, {"error": str(e)}
         fut: concurrent.futures.Future = concurrent.futures.Future()
@@ -304,6 +383,78 @@ class GenerationHTTPServer:
             "finish_reason": out.finish_reason,
             "version": out.version,
         }
+
+    def generate_stream(self, body: bytes):
+        """``/generate``'s request as an SSE stream (module docstring)."""
+        if self._error is not None:
+            return 500, {"error": f"engine failed: {self._error!r}"}
+        try:
+            req, d = self._parse_request(body)
+        except RequestValidationError as e:
+            return 400, {"error": str(e)}
+        try:
+            deadline_s = float(d.get("deadline_s", 0.0) or 0.0)
+        except (TypeError, ValueError):
+            return 400, {"error": "'deadline_s' must be a number"}
+        deadline_t = time.monotonic() + deadline_s if deadline_s > 0 else None
+        sub = _StreamSub(queue=queue.Queue())
+        with self._streams_lock:
+            self._streams[req.rid] = sub
+        try:
+            self.engine.submit(req)
+        except ValueError as e:
+            with self._streams_lock:
+                self._streams.pop(req.rid, None)
+            return 400, {"error": str(e)}
+        return 200, http.Stream(
+            self._stream_frames(req.rid, sub, deadline_t),
+            on_close=functools.partial(self._close_stream, req.rid, sub),
+        )
+
+    def _stream_frames(self, rid: str, sub: _StreamSub,
+                       deadline_t: Optional[float]):
+        """The stream's frames, as the engine thread queues them; a
+        keep-alive comment after 0.5 s without any."""
+        while True:
+            now = time.monotonic()
+            if deadline_t is not None and now >= deadline_t:
+                yield _sse({"rid": rid, "token_ids": [], "logprobs": [],
+                            "finish_reason": "deadline"})
+                yield b"data: [DONE]\n\n"
+                return
+            wait = 0.5 if deadline_t is None else min(0.5, deadline_t - now)
+            try:
+                ev = sub.queue.get(timeout=wait)
+            except queue.Empty:
+                yield b": keep-alive\n\n"
+                continue
+            if ev is _STREAM_FAILED:
+                return
+            if ev is None:
+                yield b": chunk\n\n"
+                continue
+            if ev["finish_reason"]:
+                # harvested by the engine: nothing left to cancel
+                sub.finished = True
+            yield _sse(ev)
+            if sub.finished:
+                yield b"data: [DONE]\n\n"
+                return
+
+    def _close_stream(self, rid: str, sub: _StreamSub):
+        """The stream's end, however it came: drop the subscription and,
+        unless the engine finished the request, cancel it (the client went
+        away, or its deadline passed)."""
+        with self._streams_lock:
+            if self._streams.get(rid) is sub:
+                del self._streams[rid]
+        if not sub.finished:
+            # between two steps: the engine thread re-takes its own lock
+            # at once, so a bare cancel could wait out many chunks; and no
+            # admission is under way, so the request is pending, in a
+            # slot, or already finished (then there is nothing to cancel)
+            with self._between_steps():
+                self.engine.cancel(rid)
 
     def pause(self, body: bytes):
         with self._between_steps():
@@ -458,6 +609,7 @@ class GenerationHTTPServer:
     def routes(self):
         return {
             ("POST", "/generate"): self.generate,
+            ("POST", "/generate_stream"): self.generate_stream,
             ("POST", "/pause_generation"): self.pause,
             ("POST", "/continue_generation"): self.resume,
             ("POST", "/update_weights_from_disk"): self.update_weights,

@@ -51,8 +51,12 @@ Phases, each printing one JSON line:
      every pair of the [T, T] square, ~16x the pairs the mask keeps at the
      trainer's shape), forward and backward.
 3. ``parity``: a tiny float32 model served by the engine on the card
-   (decoding from CUDA graphs, unpipelined and pipelined) and on the CPU
-   (eagerly) must give the same greedy tokens, plain and fused sampler.
+   (admitting and decoding from CUDA graphs, unpipelined and pipelined)
+   and on the CPU (eagerly) must give the same greedy tokens, plain and
+   fused sampler, over staggered arrivals (three bursts while decoding:
+   prefix hits, a partial hit, prompts of several 16-token waves); on
+   the card every admission wave and commit must be a graph replay or
+   its key's first use.
 4. ``serve``: the engine at the full width of the R1-Distill-Qwen-1.5B
    profile (28 layers, random weights from a seed, bf16) behind the
    port's HTTP server answers 32 concurrent /generate requests (4 prompts
@@ -61,15 +65,22 @@ Phases, each printing one JSON line:
    is checked, the prefix cache must have been hit, the paged-decode
    launch count must equal layers x decode steps, and every chunk must
    have replayed a captured CUDA graph: replays x 16 + warm-up steps (one
-   per capture) = decode steps. ``--profile`` also holds the profiler's
-   own count of paged-decode kernels to layers x decode steps and reports
-   the card's busy share.
+   per capture) = decode steps. Admission alike: extend and commit
+   replays + captures (one eager warm-up wave each) = waves, over exactly
+   the extend keys ``(n_rows, width, skip_pool)`` and commit buckets the
+   traffic implies (``extend_keys``). Then ``/generate_stream``: a
+   greedy request's deltas must equal its ``/generate`` twin's answer,
+   and a client that hangs up after the first frame must free its slot.
+   ``--profile`` also holds the profiler's own count of paged-decode
+   kernels to layers x decode steps and reports the card's busy share.
 5. ``serve_fused``: ``serve`` with the fused sampler (two fused engines
    with one seed must draw the same tokens first); ``serve_int8``: with an
    int8 KV pool and 8 requests; ``serve_pipelined``: ``serve`` with
    pipelined chunks, whose greedy tokens must equal ``serve``'s. A
    ``weight_sync`` phase reloads a trainer's export into a running server
-   and checks that the replayed graphs decode with the new weights.
+   and checks that the replayed graphs decode with the new weights and
+   that admission after the update replays extend graphs captured before
+   it, with greedy tokens equal to a fresh engine's on the new weights.
 6. ``async_rollout``: AReaL's async loop closed once at the 1.5B profile's
    widths (full depth where two f32 exports fit on the disk, else cut
    only as far as they do): a bf16 server behind the gserver manager
@@ -1203,6 +1214,45 @@ def sweep_phase(torch):
 # --------------------------------------------------------------------------- #
 
 
+def admission_graphed(name, stats, eng=None):
+    """Every admission program run on the card was a graph replay, or the
+    eager warm-up of its key's capture (a wave like the rest to the
+    counts): replays + captures = waves, for extends and for commits, one
+    capture per program built."""
+    ok = (stats["extend_replays"] + stats["extend_captures"]
+          == stats["prefill_waves"] > 0) and (
+        stats["commit_replays"] + stats["commit_captures"]
+        == stats["commit_waves"] > 0)
+    if eng is not None:
+        ok = ok and stats["extend_captures"] == len(eng._jit_extend) and (
+            stats["commit_captures"] == len(eng._jit_commit))
+    if not ok:
+        raise AssertionError(f"{name}: admission not all graph replays: "
+                             f"{stats}")
+
+
+def extend_keys(rows, chunk=128, page=128, width_cap=16, buckets=(1, 2, 4, 8)):
+    """The extend programs ``(n_rows, width, skip_pool)`` that one wave of
+    admission rows needs, each row ``(start, n_tokens)``: the engine's
+    bucketing and table-width rule written out independently."""
+    keys, i = set(), 0
+    while i < len(rows):
+        n = next(b for b in buckets if b >= min(len(rows) - i, buckets[-1]))
+        grp = rows[i:i + n]
+        i += len(grp)
+        for c in range(-(-max(t for _, t in grp) // chunk)):
+            max_pos = max(s + min(t, (c + 1) * chunk) for s, t in grp)
+            width = 32
+            while width < -(-max_pos // page):
+                width *= 2
+            keys.add((n, min(width, width_cap),
+                      c == 0 and not any(s for s, _ in grp)))
+    return keys
+
+
+PARITY_STEPS = 8
+
+
 def parity_phase(torch):
     from areal_tpu_torch.gen.engine import GenerationEngine, GenRequest
     from areal_tpu_torch.models import transformer as tfm
@@ -1216,36 +1266,58 @@ def parity_phase(torch):
     shared = rng.integers(0, 512, size=40).tolist()
     prompts = [shared + rng.integers(0, 512, size=int(n)).tolist()
                for n in (1, 5, 17, 30)] + [rng.integers(0, 512, 9).tolist()]
+    # staggered admission while decoding: arrivals by engine step; group
+    # members borrow the shared pages (prefix hits), every prompt but the
+    # last runs several 16-token waves, one member diverges inside a page
+    # it borrows from (a partial hit)
+    later = shared[:32] + rng.integers(0, 512, size=21).tolist()
+    schedule = {
+        0: [(str(i), p, 24) for i, p in enumerate(prompts)],
+        2: [("s0", prompts[3], 12), ("s1", later, 16)],
+        5: [("s2", shared + [7], 10), ("s3", later, 9),
+            ("s4", rng.integers(0, 512, size=70).tolist(), 6)],
+    }
     outs = {}
-    # the card decodes from CUDA graphs, the CPU eagerly; the card also
-    # pipelined (each chunk harvested one step late)
+    # the card decodes and admits from CUDA graphs, the CPU eagerly; the
+    # card also pipelined (each chunk harvested one step late)
     for dev, pipelined in (("cuda", False), ("cuda", True), ("cpu", False)):
         for fused in (False, True):
             eng = GenerationEngine(cfg, params, max_slots=4, max_seqlen=128,
                                    page_size=16, fused_sample=fused,
                                    pipeline_chunks=pipelined, device=dev)
-            for i, p in enumerate(prompts):
-                eng.submit(GenRequest(rid=str(i), input_ids=p,
-                                      max_new_tokens=24, greedy=True))
-            outs[dev, fused, pipelined] = {o.rid: o.output_ids
-                                           for o in eng.run_until_done(8)}
+            got = {}
+            for step in range(max(schedule) + 1):
+                for rid, p, n in schedule.get(step, ()):
+                    eng.submit(GenRequest(rid=rid, input_ids=p,
+                                          max_new_tokens=n, greedy=True))
+                got.update({o.rid: o.output_ids
+                            for o in eng.step(PARITY_STEPS)})
+            got.update({o.rid: o.output_ids
+                        for o in eng.run_until_done(PARITY_STEPS)})
+            outs[dev, fused, pipelined] = got
             if fused and eng.stats["fused_sample_steps"] <= 0:
                 raise AssertionError("parity: the fused engine took no "
                                      "fused step")
             st = eng.stats
-            graphed = st["graph_captures"] == eng.n_compiles() > 0 and (
-                st["graph_replays"] * 8 + st["graph_captures"]
+            if st["prefix_hits"] < 6 or len(got) != 10:
+                raise AssertionError(f"parity: traffic {st} {sorted(got)}")
+            graphed = st["graph_captures"] == len(eng._jit_chunk) > 0 and (
+                st["graph_replays"] * PARITY_STEPS + st["graph_captures"]
                 == st["decode_steps"])
             if graphed != (dev == "cuda"):
                 raise AssertionError(f"parity: {dev} engine graphs: {st}")
+            if dev == "cuda":
+                admission_graphed("parity", st, eng)
+            elif st["extend_captures"] or st["commit_captures"]:
+                raise AssertionError(f"parity: the cpu engine captured: {st}")
     # float32: the fused and the unfused epilogue agree on every argmax
     want = outs["cpu", False, False]
     for key, got in outs.items():
         if got != want:
             raise AssertionError(f"greedy {key} != cpu unfused: {got} {want}")
-    emit(phase="parity", requests=len(prompts), tokens_each=24,
+    emit(phase="parity", requests=len(want), staggered_arrivals=len(schedule),
          token_exact=True, fused_token_exact=True,
-         pipelined_token_exact=True)
+         pipelined_token_exact=True, admission_graphed=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -1307,16 +1379,68 @@ TOPK_NEW_TOKENS = 32   # serve_fused: top-k requests leave early
 DECODE_STEPS = 16      # decode steps per chunk in the serve phases
 
 
+def stream_check(port, eng, vocab):
+    """``/generate_stream`` at the served widths: a greedy request's deltas
+    equal its ``/generate`` twin's answer (both run alone, the prompt under
+    one page so neither borrows a page), and a client that hangs up after
+    the first frame frees its slot."""
+    import socket
+
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, vocab, size=100).tolist()
+    sp = {"max_new_tokens": 64, "greedy": True}
+    _, want = post(port, "/generate", {"rid": "twin", "input_ids": ids,
+                                       "sampling_params": sp})
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate_stream",
+        data=json.dumps({"rid": "stream", "input_ids": ids,
+                         "sampling_params": sp}).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        ctype, raw = r.headers.get("Content-Type"), r.read()
+    frames = [ln[5:].strip() for ln in raw.split(b"\n")
+              if ln.startswith(b"data:")]
+    events = [json.loads(f) for f in frames[:-1]]
+    toks = [t for e in events for t in e["token_ids"]]
+    if ctype != "text/event-stream" or frames[-1] != b"[DONE]" or (
+            toks != want["output_ids"]) or len(events) < 2 or (
+            events[-1]["finish_reason"] != want["finish_reason"]):
+        raise AssertionError(f"stream: {toks} != {want['output_ids']}; "
+                             f"{raw[-300:]!r}")
+    free = eng.free_slots()
+    sock = socket.create_connection(("127.0.0.1", port))
+    data = json.dumps({"rid": "gone", "input_ids": ids, "sampling_params": {
+        "max_new_tokens": 1000, "greedy": True}}).encode()
+    sock.sendall(b"POST /generate_stream HTTP/1.1\r\nHost: x\r\n"
+                 + f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+    got = b""
+    while b"data: {" not in got:
+        chunk = sock.recv(4096)
+        if not chunk:
+            raise AssertionError(f"stream: no first frame: {got!r}")
+        got += chunk
+    steps = eng.stats["decode_steps"]
+    sock.close()
+    deadline = time.time() + 60
+    while eng.free_slots() < free or eng.n_running():
+        if time.time() > deadline:
+            raise AssertionError("stream: a disconnect kept its slot")
+        time.sleep(0.005)
+    return dict(stream_frames=len(events), stream_tokens=len(toks),
+                disconnect_steps=eng.stats["decode_steps"] - steps)
+
+
 def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
                 group, plen=1024, max_new=128, profile=False, fused=False,
-                pipelined=False):
+                pipelined=False, stream=False):
     """Serve ``n_prompts`` x ``group`` requests over HTTP. ``fused`` runs
     the engine with the fused sampling epilogue and turns the group's last
     member into a top-k 20 request of TOPK_NEW_TOKENS tokens: while it is
     resident the streamed top-k route runs, afterwards the kernel.
     ``pipelined`` harvests each decode chunk one step late. The requests
     queue while the server is paused and are admitted together, so two
-    runs batch their prefills alike."""
+    runs batch their prefills alike. Every admission wave must replay a
+    graph (or be its key's first use), over the extend keys the traffic
+    implies. ``stream`` then runs ``stream_check`` on the same server."""
     from areal_tpu_torch.gen.engine import GenerationEngine
     from areal_tpu_torch.gen.server import serve
     from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
@@ -1386,6 +1510,14 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
         fused_launches = cuda_fused.launches
         steps = eng.stats["decode_steps"] - steps0
         metrics = get(srv.port, "/metrics_json")
+        stats = dict(eng.stats)
+        keys = (set(eng._jit_extend), set(eng._jit_commit))
+        n_chunk_programs = len(eng._jit_chunk)
+        admission_graphed(name, stats, eng)
+        streamed = stream_check(srv.port, eng, cfg.vocab_size) if stream \
+            else {}
+        if stream:
+            admission_graphed(f"{name} stream", eng.stats, eng)
     finally:
         srv.stop()
     by_rid = {}
@@ -1406,16 +1538,23 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
         by_rid[body["rid"]] = ids
     if metrics["engine_prefix_hits"] <= 0:
         raise AssertionError(f"{name}: no prefix hits: {metrics}")
+    # one admission: the groups' first members cold, the rest borrowing
+    # their full pages and prefilling the tail
+    shared = (plen - 1) // 128 * 128
+    want_keys = extend_keys([(0, plen - 1)] * n_prompts) | extend_keys(
+        [(shared, plen - 1 - shared)] * (n_prompts * (group - 1)))
+    if keys != (want_keys, {8}):
+        raise AssertionError(f"{name}: extend and commit keys {keys}, the "
+                             f"traffic implies {want_keys}, {{8}}")
     if steps <= 0 or launches != cfg.n_layers * steps:
         raise AssertionError(
             f"{name}: paged_decode launched {launches} times over {steps} "
             f"decode steps of {cfg.n_layers} layers"
         )
-    stats = eng.stats
     # every chunk replayed a captured graph; each capture followed one
     # eager warm-up step over no active slot, a decode step like the rest
     if stats["graph_replays"] <= 0 or (
-            stats["graph_captures"] != eng.n_compiles()) or (
+            stats["graph_captures"] != n_chunk_programs) or (
             stats["graph_replays"] * DECODE_STEPS + stats["graph_captures"]
             != steps):
         raise AssertionError(f"{name}: {steps} decode steps from graph "
@@ -1479,6 +1618,14 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
         graph_pool_gb=stats["graph_pool_bytes"] / 1e9,
         chunk_flag_fetches=stats["chunk_flag_fetches"],
         chunk_flag_blocked=stats["chunk_flag_blocked"],
+        prefill_waves=stats["prefill_waves"],
+        extend_captures=stats["extend_captures"],
+        extend_replays=stats["extend_replays"],
+        commit_captures=stats["commit_captures"],
+        commit_replays=stats["commit_replays"],
+        admit_capture_s=stats["admit_capture_s"],
+        extend_keys=sorted(keys[0]),
+        **streamed,
     )
     if prof is not None:
         pr = row["profile"] = device_profile(
@@ -1491,10 +1638,10 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
                 f"paged-decode kernels over {steps} steps of {cfg.n_layers} "
                 f"layers; {json.dumps(pr)}")
         row["paged_decode_ms_per_step"] = pr["paged_decode_ms"] / steps
-        # the window holds the one-time captures (host time, the card
-        # idles): the share over the rest of it
+        # the window holds the one-time captures, decode and admission
+        # (host time, the card idles): the share over the rest of it
         pr["busy_share_after_capture"] = pr["device_ms"] / 1e3 / max(
-            wall - stats["graph_capture_s"], 1e-9)
+            wall - stats["graph_capture_s"] - stats["admit_capture_s"], 1e-9)
     emit(phase=name, **{k: v for k, v in row.items() if k != "greedy_tokens"})
     del eng
     torch.cuda.empty_cache()
@@ -1626,6 +1773,12 @@ def weight_sync_phase(torch):
         rng = np.random.default_rng(4)
         prompts = [rng.integers(0, cfg.vocab_size, size=256).tolist()
                    for _ in range(4)]
+        # one 256-token prompt admitted alone before the update captures
+        # the extend programs the checks after it admit through
+        post(srv.port, "/generate", {
+            "rid": "warm", "input_ids": rng.integers(
+                0, cfg.vocab_size, size=256).tolist(),
+            "sampling_params": {"max_new_tokens": 4, "greedy": True}})
         bodies = [{"rid": f"inflight{i}", "input_ids": p,
                    "sampling_params": {"max_new_tokens": 1000, "greedy": True}}
                   for i, p in enumerate(prompts)]
@@ -1643,6 +1796,7 @@ def weight_sync_phase(torch):
                     raise AssertionError("weight_sync: decode did not start")
                 time.sleep(0.01)
             before = get(srv.port, "/metrics_json")
+            keys_before = set(eng._jit_extend)
             t0 = time.perf_counter()
             upd = ex.submit(post, srv.port, "/update_weights_from_disk", {
                 "model_path": path, "version": trainer.version,
@@ -1691,6 +1845,8 @@ def weight_sync_phase(torch):
         # both prompts' pages were cached before the update, which must
         # have dropped them (no page of the old weights seeds a request)
         hits_before = eng.stats["prefix_hit_tokens"]
+        ext_before = (eng.stats["extend_captures"],
+                      eng.stats["extend_replays"])
         for i, p in enumerate(prompts[:2]):
             _, got = post(srv.port, "/generate", {
                 "rid": f"after{i}", "input_ids": p,
@@ -1706,6 +1862,16 @@ def weight_sync_phase(torch):
         if eng.stats["prefix_hit_tokens"] != hits_before:
             raise AssertionError(f"weight_sync: a page cached before the "
                                  f"update seeded a request: {eng.stats}")
+        # ... and their prefill replayed extend graphs captured before the
+        # update: the new weights were copied into the tensors they read
+        if not extend_keys([(0, 255)]) <= keys_before or (
+                eng.stats["extend_captures"] != ext_before[0]
+                or eng.stats["extend_replays"] != ext_before[1] + 4):
+            raise AssertionError(
+                f"weight_sync: admission after the update did not replay "
+                f"the extend graphs captured before it: {keys_before} -> "
+                f"{set(eng._jit_extend)}; {eng.stats}")
+        admission_graphed("weight_sync", eng.stats, eng)
         # the graphs captured before the reload must decode with the new
         # weights: a temperature-1 request's logprobs (greedy ones are 0
         # at the temperature floor) against its tokens scored by a packed
@@ -1720,7 +1886,7 @@ def weight_sync_phase(torch):
         diff_old = np.abs(got_lp - score_tokens(
             torch, tfm, cfg, old_params, ids, len(prompts[2]))).mean()
         if not err_new <= WEIGHT_SYNC_LP_TOL < diff_old or (
-                eng.stats["graph_captures"] != eng.n_compiles()):
+                eng.stats["graph_captures"] != len(eng._jit_chunk)):
             raise AssertionError(
                 f"weight_sync: logprobs after the reload are {err_new} from "
                 f"the export's and {diff_old} from the old weights' (limit "
@@ -1748,7 +1914,10 @@ def weight_sync_phase(torch):
          logprob_err_vs_export=float(err_new),
          logprob_diff_vs_old=float(diff_old),
          graph_captures=eng.stats["graph_captures"],
-         graph_replays=eng.stats["graph_replays"])
+         graph_replays=eng.stats["graph_replays"],
+         extend_keys_before_update=sorted(keys_before),
+         extend_replays=eng.stats["extend_replays"],
+         extend_captures=eng.stats["extend_captures"])
     del trainer, eng, fresh, old_params
     torch.cuda.empty_cache()
 
@@ -2181,6 +2350,7 @@ def async_rollout_phase(torch):
             + stats_e["graph_captures"] != steps):
         raise AssertionError(f"async_rollout: paged_decode launched "
                              f"{launches} times over {steps} steps: {stats_e}")
+    admission_graphed("async_rollout", stats_e, eng)
     L = cfg.n_layers
     if fwd != L * (n_inf + 2 * n_train) or bwd != L * n_train:
         raise AssertionError(
@@ -2208,6 +2378,11 @@ def async_rollout_phase(torch):
         gen_tok_per_s=gen_window / window, gen_tokens=gen_tokens,
         server_gen_tokens=metrics["gen_tokens"],
         decode_s=stats_e["decode_s"], prefill_s=stats_e["prefill_s"],
+        prefill_waves=stats_e["prefill_waves"],
+        extend_programs=len(eng._jit_extend),
+        commit_programs=len(eng._jit_commit),
+        admit_capture_s=stats_e["admit_capture_s"],
+        graph_pool_gb=stats_e["graph_pool_bytes"] / 1e9,
         decode_steps=steps, prefill_tokens=pre, prefix_hit_tokens=hit,
         prefix_hit_share=hit / max(hit + pre, 1),
         chunks=worker.prm.stats["chunks"],
@@ -2417,6 +2592,10 @@ def async_ppo_phase(torch, keep_logs=None):
                 != steps) or (srv["kernel_launches"]["paged_decode"]
                               != cfg.n_layers * steps):
             raise AssertionError(f"async_ppo: server dump {srv}")
+        admission_graphed("async_ppo", {
+            k: srv[f"engine_{k}"] for k in (
+                "extend_replays", "extend_captures", "prefill_waves",
+                "commit_replays", "commit_captures", "commit_waves")})
         ckpt = os.path.join(save_root, "recover", "trainer", "actor")
         manifest = recover.read_manifest(ckpt)
         info = recover.load(os.path.join(save_root, "recover"))
@@ -2486,6 +2665,9 @@ def async_ppo_phase(torch, keep_logs=None):
         server_gen_tokens=srv["gen_tokens"],
         server_decode_s=srv["engine_decode_s"],
         server_prefill_s=srv["engine_prefill_s"],
+        server_prefill_waves=srv["engine_prefill_waves"],
+        server_admit_capture_s=srv["engine_admit_capture_s"],
+        server_graph_pool_gb=srv["engine_graph_pool_bytes"] / 1e9,
         paged_decode_launches=srv["kernel_launches"]["paged_decode"],
         flash_fwd_launches=sum(ln["ppo/kernel/flash_fwd_launches"]
                                for ln in lines),
@@ -2819,7 +3001,7 @@ def main(argv=None) -> int:
         if "serve" in phases:
             served["bfloat16"] = serve_phase(
                 torch, "serve", params, cfg, kv_dtype=None, n_prompts=4,
-                group=8, profile=args.profile,
+                group=8, profile=args.profile, stream=True,
             )
         if "serve_fused" in phases:
             n_same = fused_determinism(torch, params, cfg)

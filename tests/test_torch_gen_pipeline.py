@@ -243,12 +243,14 @@ def test_chunk_program_keys_equal_the_reference(tree, fused):
     want = _run(jeng, jax_engine, MIXED)
     eng = _pt_engine(tree, fused_sample=fused)
     got = _run(eng, pt_engine, MIXED)
-    assert set(eng._programs) == set(jeng._jit_chunk)
-    assert eng.n_compiles() == len(jeng._jit_chunk) > 1
-    assert {k[3] for k in eng._programs} == {fused}
+    assert set(eng._jit_chunk) == set(jeng._jit_chunk)
+    assert set(eng._jit_extend) == set(jeng._jit_extend)
+    assert set(eng._jit_commit) == set(jeng._jit_commit)
+    assert eng.n_compiles() == jeng.n_compiles() > len(jeng._jit_chunk) > 1
+    assert {k[3] for k in eng._jit_chunk} == {fused}
     if fused:
-        assert any(k[4] for k in eng._programs)   # the online top-k buffer
-    assert any(k[2] for k in eng._programs)       # a warp-row bucket
+        assert any(k[4] for k in eng._jit_chunk)   # the online top-k buffer
+    assert any(k[2] for k in eng._jit_chunk)       # a warp-row bucket
     for rid in ("g", "g2"):
         assert got[rid].output_ids == want[rid].output_ids, rid
     assert {r: len(o.output_ids) for r, o in got.items()} == {
@@ -326,7 +328,11 @@ def test_update_params_copies_into_the_engine_tensors(tree):
     torch.testing.assert_close(wq, new["layers"][0]["attn"]["wq"],
                                rtol=0, atol=0)
     after = _run(eng, pt_engine, [req])["x"]
-    assert after.version == 2 and eng.n_compiles() == 1
+    # nothing was rebuilt for the new weights: one chunk, one extend and
+    # one commit program read them
+    assert after.version == 2 and eng.n_compiles() == 3
+    assert len(eng._jit_chunk) == len(eng._jit_extend) == 1
+    assert list(eng._jit_commit) == [1]
     ids = prompt + after.output_ids
     np.testing.assert_allclose(after.output_logprobs,
                                _score(new, ids, len(prompt)), atol=1e-4)
