@@ -1,5 +1,6 @@
 """Local multiprocess launcher and the worker entry functions of the
-async-PPO world (the counterpart of ``areal_tpu/apps/launcher.py``).
+async-PPO world, and the in-process recipes (sync PPO, SFT, paired
+reward-model training): the counterpart of ``areal_tpu/apps/launcher.py``.
 
 Each worker role runs as a spawned process: the generation servers, the
 gserver manager, the rollout workers and the trainer. They rendezvous
@@ -21,10 +22,14 @@ host code and are started with ``CUDA_VISIBLE_DEVICES`` empty, so they
 never create a CUDA context. On one card the servers and the trainer are
 separate CUDA processes that time-slice it.
 
+``run_sync_ppo``, ``run_sft`` and ``run_rw`` run in the calling process
+on ``trainer_device``: generation on the trainer's own params
+(``train/generation.py``), no fleet, no weight publish.
+
 Not ported yet, and raising ``NotImplementedError``: the serving gateway
-and the evaluator roles, a trained reward model, tensor-parallel or
-speculative-decoding servers, the TCP name-resolve backend and the
-elastic trainer world (``ROADMAP.md``).
+and the evaluator roles, a trained reward model as a node of the PPO
+graph, tensor-parallel or speculative-decoding servers, the TCP
+name-resolve backend and the elastic trainer world (``ROADMAP.md``).
 """
 
 import asyncio
@@ -110,8 +115,8 @@ def _check_ported(cfg):
             "the evaluator (evaluator_main) is not ported yet (ROADMAP.md)")
     if cfg.reward is not None:
         raise NotImplementedError(
-            "a trained reward model needs interfaces/reward.py, which is not "
-            "ported yet (ROADMAP.md)")
+            "a trained reward model as a node of the PPO graph is not ported "
+            "yet (ROADMAP.md)")
     _check_gen_ported(cfg.gen)
 
 
@@ -556,3 +561,151 @@ def run_async_ppo(cfg) -> int:
         # would hide it
         rc = 1
     return rc
+
+
+# --------------------------------------------------------------------------- #
+# in-process recipes
+# --------------------------------------------------------------------------- #
+
+
+def _tokenizer(cfg):
+    if not cfg.tokenizer_path:
+        return None
+    import transformers
+
+    return transformers.AutoTokenizer.from_pretrained(cfg.tokenizer_path)
+
+
+def run_sync_ppo(cfg) -> int:
+    """Sync PPO runs in-process: generation happens on the trainer's own
+    params on ``trainer_device`` (no fleet, no weight publish)."""
+    if cfg.evaluator.enabled:
+        raise NotImplementedError(
+            "the evaluator (evaluator_main) is not ported yet (ROADMAP.md)")
+    _setup_worker_env(cfg, cfg.trainer_device)
+    from areal_tpu_torch.api.dataset import DatasetUtility, make_dataset
+    from areal_tpu_torch.base import constants
+    from areal_tpu_torch.base.metrics import MetricLogger
+    from areal_tpu_torch.system import worker_base
+    from areal_tpu_torch.system.sync_trainer import SyncPPOTrainerWorker
+    from areal_tpu_torch.system.trainer_worker import TrainerControl
+
+    worker_base.mark_experiment_running(cfg.experiment_name, cfg.trial_name)
+    tokenizer = _tokenizer(cfg)
+    util = DatasetUtility(
+        seed=cfg.dataset.seed, dp_rank=0, world_size=1, tokenizer=tokenizer
+    )
+    dataset = make_dataset(
+        cfg.dataset.name, util, path=cfg.dataset.path,
+        max_length=cfg.dataset.max_length,
+    )
+    total = cfg.control.total_train_steps
+    actor, ref, critic = _load_ppo_engines(cfg, total)
+    decode_fn = None
+    if tokenizer is not None:
+        def decode_fn(ids):
+            return tokenizer.decode(ids, skip_special_tokens=True)
+    metrics = MetricLogger(constants.get_log_root())
+    worker = SyncPPOTrainerWorker(
+        experiment_name=cfg.experiment_name,
+        trial_name=cfg.trial_name,
+        actor_engine=actor,
+        dataset=dataset,
+        hp=cfg.ppo,
+        ghp=cfg.gconfig,
+        control=TrainerControl(
+            total_train_steps=total,
+            save_freq_steps=cfg.control.save_freq_steps,
+        ),
+        batch_size=cfg.batch_size,
+        mb_spec=cfg.mb_spec,
+        ref_engine=ref,
+        critic_engine=critic,
+        ema_ref_eta=cfg.ema_ref_eta,
+        decode_fn=decode_fn,
+        hf_family=cfg.hf_family,
+        metric_logger=metrics,
+        seed=cfg.seed,
+    )
+    try:
+        worker.run()
+    finally:
+        metrics.close()
+        worker_base.mark_experiment_stopped(cfg.experiment_name, cfg.trial_name)
+    return 0
+
+
+def _run_supervised(cfg, *, is_critic: bool, interface_name: str,
+                    dataset_kwargs=None, interface_kwargs=None) -> int:
+    """Shared body of the in-process supervised recipes (SFT / paired RW):
+    one trainer, no fleet; only the objective differs."""
+    _setup_worker_env(cfg, cfg.trainer_device)
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.dataset import DatasetUtility, make_dataset
+    from areal_tpu_torch.base import constants
+    from areal_tpu_torch.base.metrics import MetricLogger
+    from areal_tpu_torch.system.trainer_worker import (
+        SFTTrainerWorker,
+        TrainerControl,
+    )
+
+    dataset_kwargs = dataset_kwargs or {}
+    util = DatasetUtility(
+        seed=cfg.dataset.seed, dp_rank=0, world_size=1,
+        tokenizer=_tokenizer(cfg),
+    )
+    dataset = make_dataset(
+        cfg.dataset.name, util, path=cfg.dataset.path,
+        max_length=cfg.dataset.max_length, **dataset_kwargs,
+    )
+    eval_ds = None
+    if cfg.eval_dataset is not None:
+        eval_ds = make_dataset(
+            cfg.eval_dataset.name, util, path=cfg.eval_dataset.path,
+            max_length=cfg.eval_dataset.max_length, **dataset_kwargs,
+        )
+    engine = _load_engine(
+        cfg.model, is_critic=is_critic,
+        total_steps=cfg.control.total_train_steps, device=cfg.trainer_device,
+    )
+    metrics = MetricLogger(constants.get_log_root())
+    worker = SFTTrainerWorker(
+        experiment_name=cfg.experiment_name,
+        trial_name=cfg.trial_name,
+        engine=engine,
+        dataset=dataset,
+        eval_dataset=eval_ds,
+        control=TrainerControl(
+            total_train_steps=cfg.control.total_train_steps,
+            save_freq_steps=cfg.control.save_freq_steps,
+        ),
+        batch_size=cfg.batch_size,
+        mb_spec=MicroBatchSpec(max_tokens_per_mb=cfg.max_tokens_per_mb),
+        hf_family=cfg.hf_family,
+        metric_logger=metrics,
+        interface_name=interface_name,
+        interface_kwargs=interface_kwargs,
+    )
+    try:
+        worker.run()
+    finally:
+        metrics.close()
+    return 0
+
+
+def run_rw(cfg) -> int:
+    """Paired reward-model training: a critic-architecture model and the
+    Bradley-Terry pairwise loss over ``rw_paired`` data; its HF exports
+    keep the trained value head."""
+    return _run_supervised(
+        cfg,
+        is_critic=True,
+        interface_name="reward",
+        dataset_kwargs={"max_pairs_per_prompt": cfg.max_pairs_per_prompt},
+        interface_kwargs={"max_pairs_per_prompt": cfg.max_pairs_per_prompt},
+    )
+
+
+def run_sft(cfg) -> int:
+    """SFT runs in-process: one trainer, no fleet."""
+    return _run_supervised(cfg, is_critic=False, interface_name="sft")

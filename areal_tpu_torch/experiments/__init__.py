@@ -11,6 +11,9 @@ from areal_tpu_torch.experiments.config import (  # noqa: F401
     ManagerSpec,
     ModelSpec,
     RolloutSpec,
+    RWExperiment,
+    SFTExperiment,
+    SyncPPOExperiment,
     TrainerControlSpec,
     load_config,
 )

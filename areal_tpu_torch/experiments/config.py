@@ -1,13 +1,15 @@
-"""Experiment config dataclasses (the async-PPO part of
-``areal_tpu/experiments/config.py``): one trainer, a generation fleet,
-rollout workers and the gserver manager, loaded from YAML with dotted-path
-overrides (``a.b.c=v``). The launcher compiles them into worker
-processes.
+"""Experiment config dataclasses (a copy of
+``areal_tpu/experiments/config.py``): the async-PPO experiment (one
+trainer, a generation fleet, rollout workers and the gserver manager) and
+the in-process ones (sync PPO, SFT, paired reward-model training), loaded
+from YAML with dotted-path overrides (``a.b.c=v``). The launcher compiles
+them into worker processes.
 
 ``GatewaySpec`` and ``EvaluatorSpec`` are accepted so configs carry over;
 the launcher raises ``NotImplementedError`` when either is enabled (their
-workers are not ported yet). The ``sft`` / ``sync-ppo`` / ``rw``
-experiments wait for their entry points.
+workers are not ported yet). ``SFTExperiment`` and ``RWExperiment`` carry
+one field the reference's do not: ``trainer_device``, as the PPO
+experiments have it (``""`` = the card, ``"cpu"``).
 """
 
 import dataclasses
@@ -220,6 +222,93 @@ class AsyncPPOExperiment:
         return MicroBatchSpec(max_tokens_per_mb=self.max_tokens_per_mb)
 
 
+@dataclasses.dataclass
+class SyncPPOExperiment:
+    """Sync PPO: generate on the trainer's own weights, then update (zero
+    off-policyness); the staleness-ablation control for async
+    experiments."""
+
+    experiment_name: str = "sync-ppo"
+    trial_name: str = "trial0"
+    fileroot: str = ""
+    seed: int = 1
+    actor: ModelSpec = dataclasses.field(default_factory=ModelSpec)
+    critic: Optional[ModelSpec] = None
+    use_ref_model: bool = True
+    ema_ref_eta: Optional[float] = None
+    hf_family: str = "qwen2"
+    tokenizer_path: Optional[str] = None
+    dataset: DatasetSpec = dataclasses.field(default_factory=DatasetSpec)
+    ppo: PPOHyperparameters = dataclasses.field(
+        default_factory=lambda: PPOHyperparameters(
+            use_decoupled_loss=False, recompute_logprob=False
+        )
+    )
+    gconfig: GenerationHyperparameters = dataclasses.field(
+        default_factory=GenerationHyperparameters
+    )
+    control: TrainerControlSpec = dataclasses.field(
+        default_factory=TrainerControlSpec
+    )
+    batch_size: int = 32              # prompts per step
+    max_tokens_per_mb: int = 16384
+    trainer_device: str = ""
+    evaluator: EvaluatorSpec = dataclasses.field(default_factory=EvaluatorSpec)
+
+    @property
+    def mb_spec(self) -> MicroBatchSpec:
+        return MicroBatchSpec(max_tokens_per_mb=self.max_tokens_per_mb)
+
+
+@dataclasses.dataclass
+class RWExperiment:
+    """Paired reward-model training (the reference's rw experiment over
+    ``rw_paired``): a critic-architecture model and the Bradley-Terry
+    loss."""
+
+    experiment_name: str = "rw"
+    trial_name: str = "trial0"
+    fileroot: str = ""
+    seed: int = 1
+    model: ModelSpec = dataclasses.field(default_factory=ModelSpec)
+    hf_family: str = "qwen2"
+    dataset: DatasetSpec = dataclasses.field(
+        default_factory=lambda: DatasetSpec(name="rw_paired")
+    )
+    eval_dataset: Optional[DatasetSpec] = None
+    control: TrainerControlSpec = dataclasses.field(
+        default_factory=TrainerControlSpec
+    )
+    batch_size: int = 32
+    max_tokens_per_mb: int = 16384
+    max_pairs_per_prompt: int = 2
+    tokenizer_path: Optional[str] = None
+    trainer_device: str = ""              # "" = the card; "cpu"
+
+
+@dataclasses.dataclass
+class SFTExperiment:
+    """Supervised fine-tuning (the reference's ``SFTConfig``)."""
+
+    experiment_name: str = "sft"
+    trial_name: str = "trial0"
+    fileroot: str = ""
+    seed: int = 1
+    model: ModelSpec = dataclasses.field(default_factory=ModelSpec)
+    hf_family: str = "qwen2"
+    dataset: DatasetSpec = dataclasses.field(
+        default_factory=lambda: DatasetSpec(name="prompt_answer")
+    )
+    eval_dataset: Optional[DatasetSpec] = None
+    control: TrainerControlSpec = dataclasses.field(
+        default_factory=TrainerControlSpec
+    )
+    batch_size: int = 32
+    max_tokens_per_mb: int = 16384
+    tokenizer_path: Optional[str] = None
+    trainer_device: str = ""              # "" = the card; "cpu"
+
+
 # --------------------------------------------------------------------------- #
 # YAML loading with dotted overrides
 # --------------------------------------------------------------------------- #
@@ -268,8 +357,8 @@ def _register_nested(cls):
 
 
 for _cls in (
-    AsyncPPOExperiment, ModelSpec, RolloutSpec, GenFleetSpec,
-    PPOHyperparameters, EvaluatorSpec,
+    AsyncPPOExperiment, SyncPPOExperiment, SFTExperiment, RWExperiment,
+    ModelSpec, RolloutSpec, GenFleetSpec, PPOHyperparameters, EvaluatorSpec,
 ):
     _register_nested(_cls)
 

@@ -49,13 +49,13 @@ def build_ppo_graph(
     ``ref_logprobs_in_batch``: the data source itself ships
     ``packed_ref_logprobs``; without a ref model the actor loss falls back
     to zero KL penalty. ``use_reward_model`` (a trained RM's ``reward_inf``
-    node) raises ``NotImplementedError``: the reward interface is not
-    ported yet.
+    node) raises ``NotImplementedError``: ``interfaces/reward.py`` is
+    ported, its node in this graph is not wired yet.
     """
     if use_reward_model:
         raise NotImplementedError(
-            "the reward-model graph node needs interfaces/reward.py, which "
-            "is not ported yet (ROADMAP.md)")
+            "the reward-model graph node (reward_inf) is not ported yet "
+            "(ROADMAP.md)")
     mb_spec = mb_spec or MicroBatchSpec()
     actor_if = make_interface("ppo_actor", hp=hp, hf_family=hf_family)
     interfaces: Dict[str, ModelInterface] = {}

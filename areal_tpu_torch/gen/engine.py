@@ -184,6 +184,37 @@ class _Clock:
         return a.elapsed_time(b) / 1e3 if self.cuda else b - a
 
 
+def capture_graph(body: Callable[[], None], warm_up: Callable[[], None], *,
+                  stream: "torch.cuda.Stream", pool=None,
+                  generator: Optional[torch.Generator] = None):
+    """``(graph, pool bytes, seconds)``: ``warm_up()`` once, eagerly, on
+    ``stream`` (it loads cuBLAS's handle and workspace for this thread and
+    stream and the kernels' libraries and modules), then ``body`` captured
+    as a CUDA graph on ``stream`` into ``pool``. ``generator``, where
+    given, is registered, so that each replay draws from its state of the
+    moment and advances it. Pool bytes are what the capture reserved;
+    seconds the host wall time of warm-up and capture. A capture that
+    fails raises."""
+    dev = stream.device
+    t0 = time.perf_counter()
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        warm_up()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    # thread_local: the server's handler threads may allocate (a weight
+    # load) while the engine thread captures
+    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                          capture_error_mode="thread_local"):
+        body()
+    return (graph, torch.cuda.memory_reserved(dev) - reserved,
+            time.perf_counter() - t0)
+
+
 @dataclasses.dataclass
 class _Program:
     """One key's program (an extend, a commit or a decode chunk): ``run``
@@ -1074,40 +1105,23 @@ class GenerationEngine:
     def _capture(self, body: Callable[[], None], warm_up: Callable[[], None],
                  generator: Optional[torch.Generator] = None):
         """``(program, seconds)`` for ``body``. On the CPU: the eager body
-        over the static buffers. On a GPU: ``warm_up()`` once, eagerly, on
-        the capture stream (it loads cuBLAS's handle and workspace for this
-        thread and stream, the kernels' libraries and modules, and grows
-        the paged-decode arrival counters; it must write nothing but trash
-        rows), then ``body`` captured as a CUDA graph in the engine's one
-        graph pool; ``seconds`` is the host wall time of both. The body's
-        results must land in the engine's own tensors: every graph shares
-        the pool, so nothing a replay allocates outlives it. A capture that
-        fails raises: a program on a GPU never runs eagerly."""
+        over the static buffers. On a GPU: ``capture_graph`` on the
+        engine's capture stream into its one graph pool; the warm-up also
+        grows the paged-decode arrival counters and must write nothing but
+        trash rows. The body's results must land in the engine's own
+        tensors: every graph shares the pool, so nothing a replay allocates
+        outlives it. A program on a GPU never runs eagerly."""
         if self.device.type != "cuda":
             return _Program(run=body), 0.0
-        t0 = time.perf_counter()
-        dev, stream = self.device, self._capture_stream
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            warm_up()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
+        # the warm-up runs eagerly, so it adds nothing to ``captured``
         captured = {m: m.captured for m in _KERNEL_MODULES}
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
-        # thread_local: the server's handler threads may allocate (a
-        # weight load) while the engine thread captures
-        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            body()
+        graph, pool_bytes, seconds = capture_graph(
+            body, warm_up, stream=self._capture_stream, pool=self._graph_pool,
+            generator=generator)
         launches = {m: m.captured - captured[m] for m in _KERNEL_MODULES}
-        self.stats["graph_pool_bytes"] += (
-            torch.cuda.memory_reserved(dev) - reserved
-        )
+        self.stats["graph_pool_bytes"] += pool_bytes
         prog = _Program(run=graph.replay, graph=graph, launches=launches)
-        return prog, time.perf_counter() - t0
+        return prog, seconds
 
     def _build_program(self, key: tuple) -> _Program:
         """The chunk program of ``key`` (``_capture``). Its warm-up is one

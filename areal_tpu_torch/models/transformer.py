@@ -1,6 +1,7 @@
 """The transformer as plain PyTorch functions (counterpart of
 ``areal_tpu/models/transformer.py``): the packed training / logprob
-forward and the paged-KV generation path.
+forward, the dense-KV generation path (``KVCache``, ``prefill``,
+``decode_step``: the synchronous generator's) and the paged-KV one.
 
 Parameters are a plain dict. The JAX package stacks layer params on a
 leading ``[L, ...]`` axis for its ``lax.scan``; the port keeps one dict
@@ -16,7 +17,9 @@ layer, as the reference does — so bf16 compute sends its gradients to the
 f32 masters and no bf16 copy of the weights persists. The paged path
 expects params already in ``cfg.dtype`` (:func:`cast_params`; the
 generation engine casts once when it takes params), where those casts are
-no-ops. Logits come out in float32.
+no-ops. The dense path casts per layer as the reference does; its
+caller (``train/generation.py``) hands it params cast once, where those
+casts are no-ops too. Logits come out in float32.
 """
 
 import dataclasses
@@ -394,6 +397,138 @@ def chunked_next_token_logprobs(
     lp = torch.cat(lps)
     has_next = (segment_ids > 0) & ~ppo_ops.is_segment_end(segment_ids)
     return torch.where(has_next, lp, 0.0)
+
+
+# --------------------------------------------------------------------------- #
+# Dense KV-cache generation (the synchronous generator)
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-layer KV cache: ``k, v: [L, B, S, Hkv, D]``; ``lens: [B]`` i32
+    counts valid entries per row (0 = free row). :func:`prefill` and
+    :func:`decode_step` write ``k`` and ``v`` in place (the reference
+    returns new arrays) and return a cache with the new ``lens``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lens: torch.Tensor
+
+    @classmethod
+    def empty(cls, cfg: ModelConfig, batch: int, capacity: int,
+              device=None) -> "KVCache":
+        device = resolve_device(device)
+        shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+        dt = torch_dtype(cfg.dtype)
+        return cls(
+            k=torch.zeros(shape, dtype=dt, device=device),
+            v=torch.zeros(shape, dtype=dt, device=device),
+            lens=torch.zeros(batch, dtype=torch.int32, device=device),
+        )
+
+
+def prefill(
+    params: Params,
+    cfg: ModelConfig,
+    cache: KVCache,
+    input_ids: torch.Tensor,     # [B, Sp] right-padded prompts
+    prompt_lens: torch.Tensor,   # [B]
+) -> Tuple[torch.Tensor, KVCache]:
+    """Batched prompt processing: fills the cache at positions ``[0, len)``
+    of each row and returns the f32 logits of each row's LAST prompt token
+    ``[B, vocab]``.
+
+    Rows flatten onto one packed ``[B * Sp]`` token axis with one segment
+    per row, the padding tail inside the segment, through
+    ``ops/attention.py::packed_attention`` (the flash kernel on the card,
+    the plain version on the CPU): a prompt token never attends the tail
+    (causal, the tail comes later), and the tail's rows give finite values
+    that nothing reads. Each layer's K/V land straight in the cache's first
+    ``Sp`` positions under the ``pos < len`` mask."""
+    B, Sp = input_ids.shape
+    cap = cache.k.shape[2]
+    if Sp > cap:
+        raise ValueError("prompt longer than cache capacity")
+    dev = input_ids.device
+    positions = torch.arange(Sp, dtype=torch.int32, device=dev)[None].expand(
+        B, Sp)
+    keep = (positions < prompt_lens[:, None])[:, :, None, None]
+    flat_pos = positions.reshape(B * Sp)
+    flat_seg = (torch.arange(B, dtype=torch.int32, device=dev) + 1)[
+        :, None].expand(B, Sp).reshape(B * Sp)
+    x = _embed(cfg, params, input_ids.reshape(B * Sp).long(), flat_pos)
+    rot = _rotary(cfg, flat_pos)
+    for li, lp in enumerate(params["layers"]):
+        lp = _cast(cfg, lp)
+        q, k, v = _qkv(cfg, lp["attn"], _norm(cfg, lp["ln1"], x))
+        if rot is not None:
+            q = apply_rotary(q, *rot)
+            k = apply_rotary(k, *rot)
+        ctx = attn_ops.packed_attention(
+            q, k, v, flat_seg,
+            softmax_scale=cfg.softmax_scale,
+            soft_cap=cfg.attn_logits_soft_cap,
+            sliding_window=cfg.sliding_window,
+            max_seqlen=Sp,
+        )
+        for dst, src in ((cache.k[li, :, :Sp], k), (cache.v[li, :, :Sp], v)):
+            dst.copy_(torch.where(keep, src.reshape(B, Sp, *src.shape[1:]).to(
+                dst.dtype), dst))
+        x = x + _attn_out(lp["attn"], ctx.to(x.dtype))
+        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+    x = _norm(cfg, _cast(cfg, params["final_ln"]), x).reshape(B, Sp, -1)
+    last = x[torch.arange(B, device=dev), (prompt_lens - 1).clamp_min(0).long()]
+    cache = KVCache(k=cache.k, v=cache.v, lens=prompt_lens.to(torch.int32))
+    return _head(cfg, params, last), cache
+
+
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    cache: KVCache,
+    tokens: torch.Tensor,                  # [B] current tokens
+    active: Optional[torch.Tensor] = None,  # [B] bool; inactive rows untouched
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step for every cache row. Returns f32 logits ``[B,
+    vocab]`` and the cache with ``lens`` incremented where ``active``.
+
+    Each layer writes its new K/V with one indexed write at ``lens``: an
+    active row writes its fresh values, an inactive row writes back what
+    its slot already holds (the reference selects over the whole cache
+    with ``jnp.where``; the result is the same)."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    if active is None:
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+    S = cache.k.shape[2]
+    positions = cache.lens
+    x = _embed(cfg, params, tokens, positions)       # [B, E]
+    rot = _rotary(cfg, positions)
+    rows = torch.arange(B, device=dev)
+    write_at = positions.long().clamp(max=S - 1)
+    new_lens = torch.where(active, cache.lens + 1, cache.lens)
+    put = active[:, None, None]
+    for li, lp in enumerate(params["layers"]):
+        lp = _cast(cfg, lp)
+        q, k, v = _qkv(cfg, lp["attn"], _norm(cfg, lp["ln1"], x))
+        if rot is not None:
+            q = apply_rotary(q, *rot)
+            k = apply_rotary(k, *rot)
+        kc, vc = cache.k[li], cache.v[li]
+        for c, new in ((kc, k), (vc, v)):
+            c[rows, write_at] = torch.where(put, new.to(c.dtype),
+                                            c[rows, write_at])
+        ctx = attn_ops.decode_attention(
+            q, kc, vc, new_lens,
+            softmax_scale=cfg.softmax_scale,
+            soft_cap=cfg.attn_logits_soft_cap,
+            sliding_window=cfg.sliding_window,
+        )
+        x = x + _attn_out(lp["attn"], ctx.to(x.dtype))
+        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+    x = _norm(cfg, _cast(cfg, params["final_ln"]), x)
+    return _head(cfg, params, x), KVCache(k=cache.k, v=cache.v, lens=new_lens)
 
 
 # --------------------------------------------------------------------------- #

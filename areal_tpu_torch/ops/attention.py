@@ -14,8 +14,11 @@ kernels take the band contract stated in that module (ids non-decreasing
 over real tokens, padding at the tail). :func:`attention_tiled` and
 :func:`attention_tiled_backward` mirror the kernels' tiling (rows, key
 and query tiles, online softmax, the dk/dv parts summed in part order)
-on the CPU, so that the schedule is tested against the reference. ``decode_attention`` (the dense
-KV-cache decode path) is not ported yet.
+on the CPU, so that the schedule is tested against the reference.
+
+:func:`decode_attention` is the dense KV-cache decode path of the
+synchronous generator (``train/generation.py``). The reference runs it as
+XLA, not Pallas, so its port is plain PyTorch on every device.
 """
 
 from typing import Optional, Tuple
@@ -236,6 +239,53 @@ def attention_tiled_backward(
     for part in range(1, sp.parts):
         total = total + parts[part]
     return (dq.to(dt), (total[0] * softmax_scale).to(dt), total[1].to(dt))
+
+
+def decode_attention(
+    q: torch.Tensor,            # [B, H, D] one new token per sequence
+    k_cache: torch.Tensor,      # [B, S, Hkv, D]
+    v_cache: torch.Tensor,      # [B, S, Hkv, D]
+    cache_lens: torch.Tensor,   # [B] valid entries, the new token included
+    *,
+    softmax_scale: Optional[float] = None,
+    soft_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token decode attention against a per-sequence KV cache (the
+    reference's ``decode_attention``): the new token's K/V must already sit
+    at ``cache_lens - 1``. f32 scores, keys at ``[lens - window, lens)``
+    (all of ``[0, lens)`` without a window), probabilities rounded to V's
+    dtype before PV, and an all-zero output for a row with ``cache_lens ==
+    0``. Returns ``[B, H, D]`` in V's dtype.
+
+    GQA never repeats K/V: the queries fold as ``[B, Hkv, n_rep, D]``, and
+    each kv head's two products are batched matmuls over the cache in its
+    own layout (a kv head's ``[B, S, D]`` slice is a strided batch of
+    row-major matrices), so no transposed copy of K or V is made; K is
+    read as f32 one kv head at a time for the f32 scores."""
+    B, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if softmax_scale is None:
+        softmax_scale = D ** -0.5
+    qg = q.reshape(B, Hkv, H // Hkv, D).float()
+    scores = torch.stack([
+        torch.bmm(qg[:, g], k_cache[:, :, g].float().transpose(1, 2))
+        for g in range(Hkv)
+    ], dim=1) * softmax_scale                          # [B, Hkv, n_rep, S]
+    if soft_cap is not None:
+        scores = soft_cap * torch.tanh(scores / soft_cap)
+    pos = torch.arange(S, device=q.device)[None, :]
+    lens = cache_lens[:, None]
+    mask = pos < lens
+    if sliding_window is not None:
+        mask &= pos >= lens - sliding_window
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where((cache_lens > 0)[:, None, None, None], probs, 0.0)
+    probs = probs.to(v_cache.dtype)
+    out = torch.stack([torch.bmm(probs[:, g], v_cache[:, :, g])
+                       for g in range(Hkv)], dim=1)
+    return out.reshape(B, H, D)
 
 
 def packed_attention(

@@ -1,6 +1,8 @@
-"""The async PPO trainer worker (the counterpart of
-``areal_tpu/system/trainer_worker.py``): it consumes the rollout stream
-and runs one traversal of the declared MFC graph per step.
+"""The trainer workers (the counterpart of
+``areal_tpu/system/trainer_worker.py``): ``AsyncPPOTrainerWorker``
+consumes the rollout stream and runs one traversal of the declared MFC
+graph per step; ``SFTTrainerWorker`` is the synchronous supervised loop
+(SFT, or the paired reward model's Bradley-Terry objective).
 
     rollout stream -> staleness-ordered buffer -> [ref_inf, critic_inf,
     actor_inf] -> [actor_train, critic_train] -> training_samples ->
@@ -36,8 +38,9 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
-from areal_tpu_torch.api.model import PPOHyperparameters
+from areal_tpu_torch.api.model import PPOHyperparameters, make_interface
 from areal_tpu_torch.base import constants, hbm, name_resolve, names, recover
+from areal_tpu_torch.base import flops as flops_mod
 from areal_tpu_torch.base.metrics import MetricLogger
 from areal_tpu_torch.base.timeutil import EpochStepTimeFreqCtl
 from areal_tpu_torch.experiments import graphs
@@ -574,3 +577,100 @@ class AsyncPPOTrainerWorker:
             self.step, self.actor_engine.version, self.samples_consumed,
         )
         return True
+
+
+class SFTTrainerWorker:
+    """Sync supervised loop (the reference's ``main_sft.py`` path; BASELINE
+    config #1). ``interface_name`` selects the training objective: "sft"
+    (next-token) or "reward" (Bradley-Terry paired RM, the reference's rw
+    experiment)."""
+
+    def __init__(
+        self,
+        experiment_name: str,
+        trial_name: str,
+        engine: TrainEngine,
+        dataset,
+        control: TrainerControl,
+        batch_size: int = 32,
+        mb_spec: Optional[MicroBatchSpec] = None,
+        eval_dataset=None,
+        hf_family: str = "qwen2",
+        metric_logger: Optional[MetricLogger] = None,
+        shuffle_seed: int = 1,
+        interface_name: str = "sft",
+        interface_kwargs: Optional[Dict] = None,
+    ):
+        self.experiment_name = experiment_name
+        self.trial_name = trial_name
+        self.engine = engine
+        self.dataset = dataset
+        self.eval_dataset = eval_dataset
+        self.control = control
+        self.batch_size = batch_size
+        self.mb_spec = mb_spec or MicroBatchSpec(max_tokens_per_mb=16384)
+        self.hf_family = hf_family
+        self.metrics = metric_logger
+        self.interface = make_interface(interface_name, **(interface_kwargs or {}))
+        self._log_prefix = interface_name
+        self._hbm = hbm.HBMMonitor(device=engine.device, tag=interface_name)
+        self.step = 0
+        self.epoch = 0
+        self._shuffle_seed = shuffle_seed
+
+    def _batches(self, dataset, order):
+        """Batch-sized gathered chunks of ``dataset`` in the given index
+        order (each chunk is packed into micro-batches by the engine)."""
+        for lo in range(0, len(order), self.batch_size):
+            items = [dataset[i] for i in order[lo : lo + self.batch_size]]
+            if items:
+                yield SequenceSample.gather(items)
+
+    def _epoch_batches(self):
+        idx = np.random.RandomState(self._shuffle_seed + self.epoch).permutation(
+            len(self.dataset)
+        )
+        yield from self._batches(self.dataset, list(idx))
+
+    def _eval_batches(self):
+        yield from self._batches(self.eval_dataset, range(len(self.eval_dataset)))
+
+    def run(self):
+        if len(self.dataset) == 0:
+            logger.warning("empty SFT dataset; nothing to train")
+            return 0
+        while self.step < self.control.total_train_steps:
+            for batch in self._epoch_batches():
+                t0 = time.perf_counter()
+                stats = self.interface.train_step(self.engine, batch, self.mb_spec)
+                dt = time.perf_counter() - t0
+                lens = [
+                    int(n)
+                    for inner in batch.seqlens[batch.main_key()]
+                    for n in inner
+                ]
+                stats["tflops_per_sec"] = (
+                    flops_mod.train_flops(self.engine.cfg, sum(lens), lens)
+                    / max(dt, 1e-9) / 1e12
+                )
+                stats.update(self._hbm.check())
+                self.step += 1
+                if self.metrics is not None:
+                    self.metrics.log(stats, self.step, prefix=self._log_prefix)
+                if (
+                    self.control.save_freq_steps
+                    and self.step % self.control.save_freq_steps == 0
+                ):
+                    self.engine.save_hf(
+                        os.path.join(constants.get_save_root(), f"step{self.step}"),
+                        self.hf_family,
+                    )
+                if self.step >= self.control.total_train_steps:
+                    break
+            self.epoch += 1
+            if self.eval_dataset is not None:
+                ev = self.interface.evaluate(self.engine, list(self._eval_batches()))
+                logger.info("epoch %d eval: %s", self.epoch, ev)
+                if self.metrics is not None:
+                    self.metrics.log(ev, self.step, prefix=f"{self._log_prefix}_eval")
+        return self.step

@@ -37,7 +37,9 @@ Phases, each printing one JSON line:
      materialized logits.
    - flash attention forward and backward (dq, dk, dv), at the trainer's
      shape (T 8192, H 12, Hkv 2, D 128, bf16, 8 segments of 512-1536
-     tokens plus tail padding) and at small shapes in f32 and bf16 with
+     tokens plus tail padding), at SyncGenerator's prefill (32 rows of 512
+     and 33 of 64, one whole segment a row; the plain version segment by
+     segment, no SDPA) and at small shapes in f32 and bf16 with
      soft cap, sliding window, GQA groups of 1, 6, 8 and 16, D 64 and 256
      (bf16 with D 64 or 128 runs the v4 tensor-core kernels, the rest the
      CUDA-core ones), one segment of 4096 tokens (the dk/dv kernel's
@@ -128,6 +130,33 @@ Phases, each printing one JSON line:
    tokens/s, seconds per optimizer step and peak memory; ``--profile``
    adds the busy share and device time by kernel over the second round.
 
+9. ``sync_ppo``: sync PPO at the 1.5B profile's widths in this process
+   (f32 master weights from seed 0, bf16 compute): first a tiny f32
+   model's SyncGenerator greedy tokens on the card equal to the CPU's,
+   and a tiny model with position-free logits sampled at temperature 1
+   (one seed reproduces its tokens, another does not, the draws hold to
+   softmax by chi-square and a row's replays draw fresh numbers: its
+   consecutive tokens repeat only as often as independent draws do);
+   then the SyncGenerator of an engine built by the launcher's
+   ``_load_engine`` generates 8 prompts of 512 tokens x 4 samples, 256 new
+   tokens at temperature 1, twice with two seeds: shapes, one CUDA graph
+   captured for the key and none on the second call (replays + captures
+   = decode steps), 28 flash forward launches per call (prefill), and
+   ``gen_logprobs`` within 0.1 mean absolute error of the same tokens
+   scored by a packed forward; every layer's flash output in prefill
+   (this layout, and short prompts with a padding row) within FLASH_TOL
+   of the plain version on that layer's q/k/v; then two ``SyncPPOTrainerWorker``
+   ``run_step``s (a ref engine, the math reward, PPO with 4 minibatches)
+   through the same generator with no new capture: finite stats, rewards
+   in [-1, 1], 32 sequences a step, the step-2 HF export committed; then
+   ``sft`` (3 steps and a save), ``rw`` (2 steps), ``sync-ppo`` (2 steps
+   and a save) and ``profile --seqlens 1024x8 --n-steps 3`` through
+   ``areal_tpu_torch.apps.main.main`` at 2 layers of the same widths on
+   the card: each returns 0 with finite metrics lines and a finite MFU.
+   Prints the generation's device time (prefill and decode), generated
+   tokens/s, capture seconds, graph pool, seconds and trained tokens/s
+   per step, peak memory and the profile's tokens/s, TFLOP/s and MFU.
+
 Extra phases, run only when named: ``decode_time`` and ``flash_time``
 time the paged-decode and flash kernels of the package imported (with
 ``--package DIR``, an earlier commit's) through their public signatures,
@@ -151,7 +180,7 @@ import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
           "serve_pipelined", "weight_sync", "async_rollout", "async_ppo",
-          "train_parity", "train")
+          "train_parity", "train", "sync_ppo")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -746,6 +775,47 @@ def flash_compare(torch, got, want, dtype):
     return diff.max().item(), over
 
 
+def plain_slices(seg, limit):
+    """``(start, end)`` token ranges of at most ``limit`` tokens (a longer
+    segment alone) that cut ``seg`` only between segments: no query
+    attends across a cut, so the plain version over each range is the
+    plain version over the whole, without its ``[T, T]`` scores."""
+    cuts = np.flatnonzero(np.diff(seg)) + 1
+    edges = np.concatenate([[0], cuts, [len(seg)]])
+    out, a = [], 0
+    for e0, e1 in zip(edges[:-1], edges[1:]):
+        if e1 - a > limit and e0 > a:
+            out.append((a, int(e0)))
+            a = int(e0)
+    out.append((a, len(seg)))
+    return out
+
+
+def flash_plain_sliced(torch, q, k, v, seg, seg_np, scale, kw, limit, do=None):
+    """The plain version (``attention_plain``) over ``plain_slices``:
+    ``(out, lse)``, plus ``(dq, dk, dv)`` for the cotangent ``do``."""
+    from areal_tpu_torch.ops.attention import attention_plain
+
+    outs, lses, grads = [], [], ([], [], [])
+    for a, b in plain_slices(seg_np, limit):
+        qs, ks, vs = (t[a:b].detach().requires_grad_(do is not None)
+                      for t in (q, k, v))
+        with torch.set_grad_enabled(do is not None):
+            o, lse = attention_plain(qs, ks, vs, seg[a:b], scale,
+                                     kw.get("soft_cap"),
+                                     kw.get("sliding_window"))
+        if do is not None:
+            for acc, g in zip(grads, torch.autograd.grad(o, (qs, ks, vs),
+                                                         do[a:b])):
+                acc.append(g)
+        outs.append(o.detach())
+        lses.append(lse.detach())
+    out, lse = torch.cat(outs), torch.cat(lses, 1)
+    if do is None:
+        return out, lse
+    return out, lse, tuple(torch.cat(g) for g in grads)
+
+
 def flash_kernels_phase(torch):
     from areal_tpu_torch.ops.attention import attention_plain
     from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
@@ -766,6 +836,15 @@ def flash_kernels_phase(torch):
         ("bf16_odd_t", dict(v4, T=1001, H=6, Hkv=2, D=128, lens=[333, 1, 500, 97]),
          dict(sliding_window=150)),
         ("slice_bf16", dict(slice_shape, dtype="bfloat16"), {}),
+        # SyncGenerator's prefill: one segment per row of Sp tokens, a row's
+        # padding tail and a padding row inside their segments (so every
+        # row is a whole segment to the kernel), T = B * Sp: the sync_ppo
+        # generation's 32 x 512, and 33 rows of the narrowest Sp (64), T a
+        # multiple of no tile; the plain version segment by segment
+        ("prefill_bf16", dict(slice_shape, T=32 * 512, lens=[512] * 32,
+                              dtype="bfloat16", plain_slice=4096), {}),
+        ("prefill_sp64_bf16", dict(slice_shape, T=33 * 64, lens=[64] * 33,
+                                   dtype="bfloat16", plain_slice=512), {}),
         ("f32", dict(small, dtype="float32"), {}),
         ("f32_soft_cap", dict(small, dtype="float32"), dict(soft_cap=5.0)),
         ("f32_window", dict(small, dtype="float32"), dict(sliding_window=40)),
@@ -802,15 +881,24 @@ def flash_kernels_phase(torch):
             raise AssertionError(f"flash {name}: arrival counters not 0 after "
                                  "a launch")
         del again
+        sliced = spec.get("plain_slice")
         qp, kp, vp = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        pout, plse = attention_plain(qp, kp, vp, seg, spec["D"] ** -0.5,
-                                     kw.get("soft_cap"), kw.get("sliding_window"))
-        pgrads = torch.autograd.grad(pout, (qp, kp, vp), do, retain_graph=True)
+        if sliced:
+            pout, plse, pgrads = flash_plain_sliced(
+                torch, q, k, v, seg, x["seg_np"], spec["D"] ** -0.5, kw,
+                sliced, do=do)
+        else:
+            pout, plse = attention_plain(qp, kp, vp, seg, spec["D"] ** -0.5,
+                                         kw.get("soft_cap"),
+                                         kw.get("sliding_window"))
+            pgrads = torch.autograd.grad(pout, (qp, kp, vp), do,
+                                         retain_graph=True)
         torch.cuda.synchronize()
         row = {"atol_or_rel": FLASH_TOL[spec["dtype"]][1],
                "rtol_or_rms": FLASH_TOL[spec["dtype"]][2],
                "mode": FLASH_TOL[spec["dtype"]][0],
-               "bit_identical_rerun": True, "counters_zero": True}
+               "bit_identical_rerun": True, "counters_zero": True,
+               "plain_in_slices_of": sliced}
         live = seg > 0
         checks = [("out", out, pout), ("lse", lse[:, live], plse[:, live]),
                   ("dq", dq, pgrads[0]), ("dk", dk, pgrads[1]),
@@ -842,15 +930,23 @@ def flash_kernels_phase(torch):
         row["bwd_ms"] = cuda_ms(
             lambda: cuda_flash.flash_backward(q, k, v, seg, out, lse, do, **kw),
             it)
-        row["plain_fwd_ms"] = cuda_ms(
-            lambda: attention_plain(q, k, v, seg, spec["D"] ** -0.5,
-                                    kw.get("soft_cap"),
-                                    kw.get("sliding_window")), 3)
-        row["plain_bwd_ms"] = cuda_ms(
-            lambda: torch.autograd.grad(pout, (qp, kp, vp), do,
-                                        retain_graph=True), 3)
+        if sliced:
+            # the sliced plain version's forward; its backward is timed
+            # nowhere, and SDPA's [T, T] mask is left out alike
+            row["plain_fwd_ms"] = cuda_ms(
+                lambda: flash_plain_sliced(torch, q, k, v, seg, x["seg_np"],
+                                           spec["D"] ** -0.5, kw, sliced), 3)
+            row["plain_bwd_ms"] = None
+        else:
+            row["plain_fwd_ms"] = cuda_ms(
+                lambda: attention_plain(q, k, v, seg, spec["D"] ** -0.5,
+                                        kw.get("soft_cap"),
+                                        kw.get("sliding_window")), 3)
+            row["plain_bwd_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(pout, (qp, kp, vp), do,
+                                            retain_graph=True), 3)
         del pout, plse, pgrads
-        lib_fwd, lib_bwd = flash_sdpa(torch, x, kw)
+        lib_fwd, lib_bwd = (None, None) if sliced else flash_sdpa(torch, x, kw)
         row["library_fwd_ms"] = cuda_ms(lib_fwd, it) if lib_fwd else None
         row["library_bwd_ms"] = cuda_ms(lib_bwd, it) if lib_bwd else None
         del lib_fwd, lib_bwd
@@ -1325,15 +1421,18 @@ def parity_phase(torch):
 # --------------------------------------------------------------------------- #
 
 
+# R1-Distill-Qwen-1.5B widths (the repo's generation bench profile)
+QWEN_1P5B_ARCH = dict(
+    n_layers=28, n_q_heads=12, n_kv_heads=2, head_dim=128,
+    hidden_dim=1536, intermediate_dim=8960, vocab_size=151936,
+    use_attention_bias=True, dtype="bfloat16",
+)
+
+
 def qwen_1p5b_cfg():
-    """R1-Distill-Qwen-1.5B widths (the repo's generation bench profile)."""
     from areal_tpu_torch.models.config import ModelConfig
 
-    return ModelConfig(
-        n_layers=28, n_q_heads=12, n_kv_heads=2, head_dim=128,
-        hidden_dim=1536, intermediate_dim=8960, vocab_size=151936,
-        use_attention_bias=True, dtype="bfloat16",
-    )
+    return ModelConfig(**QWEN_1P5B_ARCH)
 
 
 def post(port, path, body, timeout=900):
@@ -1351,11 +1450,11 @@ def get(port, path):
         return json.loads(r.read())
 
 
-def device_profile(prof, wall_s, kernels):
+def device_profile(prof, wall_s, kernels, top=10):
     """Device time by kernel from a ``torch.profiler`` window: total, the
     busy share of the wall time, each named kernel's time, share and
     number of runs the profiler saw (``kernels``: label -> substring of the
-    kernel's name), and the top kernels."""
+    kernel's name), and the ``top`` kernels."""
     rows = []
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
@@ -1371,7 +1470,7 @@ def device_profile(prof, wall_s, kernels):
         out[f"{label}_ms"] = ms
         out[f"{label}_share"] = ms / max(total, 1e-9)
         out[f"{label}_runs"] = sum(r[2] for r in rows if needle in r[0])
-    out["top"] = [[k[:80], ms, n] for k, ms, n in rows[:10]]
+    out["top"] = [[k[:80], ms, n] for k, ms, n in rows[:top]]
     return out
 
 
@@ -2908,6 +3007,496 @@ def train_phase(torch, profile=False):
     return row
 
 
+# --------------------------------------------------------------------------- #
+# sync PPO: generation on the trainer's params, and the in-process entry points
+# --------------------------------------------------------------------------- #
+
+SYNC_PPO = dict(n_prompts=8, prompt_len=512, n=4, max_new=256, mb_tokens=8192,
+                entry_layers=2)
+
+
+class PromptSet:
+    """Prompt samples for the sync-PPO worker, graded against a boxed
+    solution by the math reward."""
+
+    def __init__(self, prompts):
+        self.prompts = prompts
+        self.metadata = {f"q{i}": {"solutions": ["\\boxed{7}"]}
+                         for i in range(len(prompts))}
+
+    def __len__(self):
+        return len(self.prompts)
+
+    def __getitem__(self, i):
+        from areal_tpu_torch.api.data import SequenceSample
+
+        ids = np.asarray(self.prompts[i], np.int64)
+        return SequenceSample(keys={"packed_prompts"}, ids=[f"q{i}"],
+                              seqlens={"packed_prompts": [[len(ids)]]},
+                              data={"packed_prompts": ids})
+
+
+def sync_gen_parity(torch):
+    """A tiny f32 model's SyncGenerator greedy tokens on the card (prefill
+    through the flash kernel, decode from a CUDA graph) and on the CPU
+    (plain, eager) must be equal, token for token."""
+    from areal_tpu_torch.api.model import GenerationHyperparameters
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.models.config import ModelConfig
+    from areal_tpu_torch.train.engine import TrainEngine
+    from areal_tpu_torch.train.generation import SyncGenerator
+
+    cfg = ModelConfig(n_layers=2, n_q_heads=4, n_kv_heads=2, head_dim=64,
+                      hidden_dim=128, intermediate_dim=256, vocab_size=512,
+                      use_attention_bias=True, dtype="float32")
+    host = tfm.params_to_numpy(tfm.init_params(cfg, seed=7, device="cpu"))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (1, 9, 40, 70)]
+    ghp = GenerationHyperparameters(n=2, max_new_tokens=24, greedy=True,
+                                    min_new_tokens=2, stop_token_ids=[3, 77])
+    out, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        gen = SyncGenerator(TrainEngine(cfg, device=dev).load_params(host))
+        out[dev] = [o for seed in (0, 1)
+                    for g in gen.generate(prompts, ghp, seed=seed) for o in g]
+        stats[dev] = dict(gen.stats)
+    lp_err = 0.0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        if not np.array_equal(a.tokens, b.tokens) or a.no_eos != b.no_eos:
+            raise AssertionError(f"sync_ppo parity: cuda {a.tokens} != cpu "
+                                 f"{b.tokens}")
+        lp_err = max(lp_err, float(np.abs(a.gen_logprobs
+                                          - b.gen_logprobs).max()))
+    st = stats["cuda"]
+    if not (st["graph_captures"] == 1 and st["graph_replays"]
+            + st["graph_captures"] == st["decode_steps"] == 2 * 23):
+        raise AssertionError(f"sync_ppo parity: card graphs {st}")
+    return dict(sequences=len(out["cpu"]), token_exact=True,
+                gen_logprob_max_abs_err=lp_err,
+                stopped=sum(not o.no_eos for o in out["cpu"]))
+
+
+def sync_gen_sampling(torch, device="cuda"):
+    """The graphed sampler's randomness, at a tiny f32 model whose every
+    position gives the same logits (all embedding rows equal, so every
+    hidden state is the same): 64 rows x 128 tokens at temperature 1, no
+    stop. One seed twice gives the same tokens and another seed others;
+    the token counts hold to softmax(logits) (chi-square, df 15, limit 45,
+    p ~ 1e-4, as ``fused_chi_square``); and a row's consecutive tokens are
+    equal as often as independent draws are (sum p^2 of the pairs, within
+    6 sd): a replay that drew the last step's numbers again would repeat
+    its token nearly always."""
+    from areal_tpu_torch.api.model import GenerationHyperparameters
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.models.config import ModelConfig
+    from areal_tpu_torch.train.engine import TrainEngine
+    from areal_tpu_torch.train.generation import SyncGenerator
+
+    V, rows, new = 16, 64, 128
+    cfg = ModelConfig(n_layers=2, n_q_heads=4, n_kv_heads=2, head_dim=64,
+                      hidden_dim=128, intermediate_dim=256, vocab_size=V,
+                      dtype="float32")
+    host = tfm.params_to_numpy(tfm.init_params(cfg, seed=11, device="cpu"))
+    host["embed"]["weight"][:] = host["embed"]["weight"][:1]
+    host["head"]["weight"] *= 5.0       # logits ~ N(0, 1.1): p far from flat
+    cpu = tfm.params_from_numpy(host, device="cpu")
+    with torch.no_grad():
+        logits, _ = tfm.prefill(cpu, cfg, tfm.KVCache.empty(cfg, 1, 64,
+                                                              device="cpu"),
+                                torch.zeros(1, 64, dtype=torch.int64),
+                                torch.ones(1, dtype=torch.int32))
+    p = torch.softmax(logits[0].double(), -1).numpy()
+    gen = SyncGenerator(TrainEngine(cfg, device=device).load_params(host))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, V, 5).tolist() for _ in range(8)]
+    ghp = GenerationHyperparameters(n=rows // 8, max_new_tokens=new,
+                                    temperature=1.0)
+    runs = {}
+    for name, seed in (("a", 5), ("again", 5), ("b", 6)):
+        outs = [o for g in gen.generate(prompts, ghp, seed=seed) for o in g]
+        if any(len(o.gen_logprobs) != new for o in outs):
+            raise AssertionError("sync_ppo sampling: a row stopped early")
+        runs[name] = (np.stack([o.tokens[5:] for o in outs]),
+                      np.stack([o.gen_logprobs for o in outs]))
+    tok, lp = runs["a"]
+    if not (np.array_equal(tok, runs["again"][0])
+            and np.array_equal(lp, runs["again"][1])):
+        raise AssertionError("sync_ppo sampling: one seed, two draws")
+    if np.array_equal(tok, runs["b"][0]):
+        raise AssertionError("sync_ppo sampling: two seeds, one draw")
+    lp_err = float(np.abs(lp - np.log(p[tok])).max())
+    if not lp_err < 1e-3:
+        raise AssertionError(f"sync_ppo sampling: gen_logprobs off "
+                             f"log softmax by {lp_err}")
+    n = tok.size
+    counts = np.bincount(tok.ravel(), minlength=V)
+    chi2 = float(((counts - n * p) ** 2 / (n * p)).sum())
+    q = float((p ** 2).sum())
+    pairs = tok[:, 1:] == tok[:, :-1]
+    z = float((pairs.sum() - pairs.size * q)
+              / np.sqrt(pairs.size * q * (1 - q)))
+    if not (chi2 < 45.0 and abs(z) < 6.0):
+        raise AssertionError(f"sync_ppo sampling: chi-square {chi2}, "
+                             f"repeats z {z} (share {pairs.mean()}, "
+                             f"independent draws {q})")
+    st = gen.stats
+    if device == "cuda" and not (
+            st["graph_captures"] == 1
+            and st["graph_replays"] + st["graph_captures"]
+            == st["decode_steps"] == 3 * (new - 1)):
+        raise AssertionError(f"sync_ppo sampling: card graphs {st}")
+    return dict(draws=n, chi_square=chi2, repeat_share=float(pairs.mean()),
+                independent_repeat_share=q, repeat_z=z,
+                gen_logprob_max_abs_err=lp_err, same_seed_equal=True)
+
+
+def prefill_flash_check(torch, params, cfg, expanded, n_rows):
+    """SyncGenerator's prefill (``pad_batch`` layout) on the card, every
+    layer's flash output held against the plain version (segment by
+    segment, ``flash_plain_sliced``) on the q/k/v that layer gave the
+    kernel, under FLASH_TOL. These launches are checks: they are not the
+    main path's."""
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.ops import attention as attn_ops
+    from areal_tpu_torch.train.generation import pad_batch
+
+    ids, plens, _ = pad_batch(expanded, n_rows)
+    B, Sp = ids.shape
+    seen = []
+    real = attn_ops.packed_attention
+
+    def spy(q, k, v, seg, **kw):
+        out = real(q, k, v, seg, **kw)
+        seen.append((q, k, v, seg, kw, out))
+        return out
+
+    attn_ops.packed_attention = spy
+    try:
+        with torch.no_grad():
+            tfm.prefill(params, cfg,
+                        tfm.KVCache.empty(cfg, B, Sp, device="cuda"),
+                        torch.from_numpy(ids).to("cuda"),
+                        torch.from_numpy(plens).to("cuda"))
+    finally:
+        attn_ops.packed_attention = real
+    if len(seen) != cfg.n_layers:
+        raise AssertionError(f"prefill: {len(seen)} attention calls")
+    worst = (0.0, 0.0)
+    for li, (q, k, v, seg, kw, out) in enumerate(seen):
+        want, _ = flash_plain_sliced(torch, q, k, v, seg, seg.cpu().numpy(),
+                                     kw["softmax_scale"] or q.shape[-1] ** -0.5,
+                                     kw, 4096)
+        err, over = flash_compare(torch, out, want, "bfloat16")
+        if not (np.isfinite(over) and over <= 1.0):
+            raise AssertionError(
+                f"prefill {B} x {Sp} layer {li}: |flash - plain| reaches "
+                f"{over} x its limit {FLASH_TOL['bfloat16']}; max abs err "
+                f"{err}")
+        worst = max(worst, (over, err))
+    return dict(rows=B, sp=Sp, padding_rows=B - len(expanded),
+                plens_min=int(plens.min()), layers=len(seen),
+                max_abs_err=worst[1], err_over_tol=worst[0])
+
+
+def sync_ppo_phase(torch, profile=False):
+    """Sync PPO at the 1.5B profile's widths, in this process: (a) the
+    SyncGenerator on the trainer's f32 masters (cast to bf16 once per
+    call), 8 prompts of 512 tokens x 4 samples, 256 new tokens, twice with
+    two seeds; (b) two ``SyncPPOTrainerWorker.run_step``s (PPO with a ref
+    engine and the math reward) through the same generator; (c) the
+    ``sft``, ``rw``, ``sync-ppo`` and ``profile`` entry points through
+    ``main.main`` at 2 layers of the same widths, on the card.
+    ``profile`` traces a third generation call (after the counted two)
+    with ``torch.profiler`` and reports device time by kernel."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model import (GenerationHyperparameters,
+                                           PPOHyperparameters)
+    from areal_tpu_torch.apps import launcher
+    from areal_tpu_torch.apps import main as entry
+    from areal_tpu_torch.base import constants
+    from areal_tpu_torch.experiments.config import ModelSpec
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+    from areal_tpu_torch.system.sync_trainer import SyncPPOTrainerWorker
+    from areal_tpu_torch.system.trainer_worker import TrainerControl
+    from areal_tpu_torch.train.generation import SyncGenerator
+
+    P = SYNC_PPO
+    parity = sync_gen_parity(torch)
+    parity["sampling"] = sync_gen_sampling(torch)
+    overrides = {"remat_policy": "full", "loss_chunk_size": 2048}
+    spec = ModelSpec(arch=dict(QWEN_1P5B_ARCH), overrides=overrides)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = launcher._load_engine(spec, total_steps=100)   # "" = the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, L = eng.cfg, eng.cfg.n_layers
+    if eng.device.type != "cuda":
+        raise AssertionError(f"sync_ppo: the engine is on {eng.device}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, P["prompt_len"]).tolist()
+               for _ in range(P["n_prompts"])]
+    ghp = GenerationHyperparameters(n=P["n"], max_new_tokens=P["max_new"],
+                                    temperature=1.0)
+    B, steps = P["n_prompts"] * P["n"], P["max_new"] - 1
+
+    # (a) generation, counted from here on
+    gen = SyncGenerator(eng)
+    cuda_flash.reset_launches()
+    calls = []
+    for seed in (1, 2):
+        fwd0 = cuda_flash.fwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        groups = gen.generate(prompts, ghp, seed=seed)
+        calls.append(dict(groups=groups, wall_s=time.perf_counter() - t0,
+                          flash_fwd=cuda_flash.fwd_launches - fwd0,
+                          stats=dict(gen.stats), **gen.last_call))
+    gen_fwd = cuda_flash.fwd_launches
+    for i, c in enumerate(calls):
+        outs = [o for g in c["groups"] for o in g]
+        if len(c["groups"]) != P["n_prompts"] or len(outs) != B or any(
+                len(g) != P["n"] for g in c["groups"]):
+            raise AssertionError(f"sync_ppo: groups {len(c['groups'])}")
+        for j, o in enumerate(outs):
+            n = len(o.gen_logprobs)
+            if not (1 <= n <= P["max_new"]
+                    and len(o.tokens) == P["prompt_len"] + n
+                    and o.tokens[:P["prompt_len"]].tolist()
+                    == prompts[j // P["n"]]
+                    and np.isfinite(o.gen_logprobs).all()
+                    and (o.gen_logprobs <= 0).all()):
+                raise AssertionError(f"sync_ppo: call {i} sequence {j}")
+        st = c["stats"]
+        want = dict(graph_captures=1, decode_steps=(i + 1) * steps,
+                    graph_replays=(i + 1) * steps - 1)
+        if any(st[k] != v for k, v in want.items()) or c["flash_fwd"] != L:
+            raise AssertionError(f"sync_ppo: call {i} stats {st}, flash "
+                                 f"forward launches {c['flash_fwd']} (want "
+                                 f"{want} and {L})")
+    if gen.n_compiles() != 1 or all(
+            np.array_equal(a.tokens, b.tokens) for a, b in zip(
+                calls[0]["groups"][0], calls[1]["groups"][0])):
+        raise AssertionError("sync_ppo: one key, two seeds expected")
+    errs = []
+    for o in (o for g in calls[1]["groups"] for o in g):
+        lp = score_tokens(torch, tfm, cfg, gen._params, o.tokens.tolist(),
+                          P["prompt_len"])
+        errs.append(np.abs(lp - o.gen_logprobs))
+    # gen_logprobs (bf16 decode over the dense cache) against a packed
+    # forward (flash, bf16) on the same cast weights: WEIGHT_SYNC_LP_TOL's
+    # reasoning holds
+    errs = np.concatenate(errs)
+    if not errs.mean() <= WEIGHT_SYNC_LP_TOL:
+        raise AssertionError(f"sync_ppo: gen vs scored logprobs "
+                             f"{errs.mean()} > {WEIGHT_SYNC_LP_TOL}")
+    # prefill's flash calls against the plain version: this layout, and
+    # short prompts with a padding row (7 prompts over rows of 4)
+    prefill_rows = [
+        prefill_flash_check(torch, gen._params, cfg,
+                            [p for p in prompts for _ in range(P["n"])],
+                            eng.n_rows),
+        prefill_flash_check(torch, gen._params, cfg,
+                            [rng.integers(0, cfg.vocab_size, n).tolist()
+                             for n in (1, 37, 130, 300, 511, 64, 200)], 4),
+    ]
+    if prefill_rows[1]["padding_rows"] != 1:
+        raise AssertionError(f"sync_ppo: prefill layouts {prefill_rows}")
+    c = calls[1]
+    generated = sum(len(o.gen_logprobs) for g in c["groups"] for o in g)
+    gen_row = dict(
+        rows=B, prompt_len=P["prompt_len"], max_new=P["max_new"],
+        generated_tokens=generated, prefill_s=c["prefill_s"],
+        decode_s=c["decode_s"], event_s=c["prefill_s"] + c["decode_s"],
+        gen_tok_per_s=generated / (c["prefill_s"] + c["decode_s"]),
+        decode_ms_per_step=1e3 * c["decode_s"] / steps, wall_s=c["wall_s"],
+        first_call_wall_s=calls[0]["wall_s"],
+        capture_s=gen.stats["graph_capture_s"],
+        graph_pool_gb=gen.stats["graph_pool_bytes"] / 1e9,
+        decode_steps=gen.stats["decode_steps"],
+        graph_replays=gen.stats["graph_replays"],
+        graph_captures=gen.stats["graph_captures"],
+        flash_fwd_per_call=[c["flash_fwd"] for c in calls],
+        lp_mean_abs_err=float(errs.mean()), lp_max_abs_err=float(errs.max()),
+        lp_tol=WEIGHT_SYNC_LP_TOL, prefill_flash=prefill_rows,
+    )
+
+    if profile:
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof:
+            gen.generate(prompts, ghp, seed=3)
+            torch.cuda.synchronize()
+        gen_row["profile"] = device_profile(
+            prof, time.perf_counter() - t0, {"flash_fwd": "flash_fwd_v4"},
+            top=20)
+
+    # (b) two sync-PPO steps through the same generator (no new capture)
+    replays0 = gen.stats["graph_replays"]
+    ref = launcher._load_engine(spec, with_optimizer=False)
+    root = tempfile.mkdtemp(prefix="areal_sync_ppo_")
+    old_root = os.environ.get("AREAL_FILEROOT")
+    constants.set_fileroot(root)
+    constants.set_experiment_trial_names("chip-sync-ppo", "t0")
+    worker = SyncPPOTrainerWorker(
+        "chip-sync-ppo", "t0", actor_engine=eng, dataset=PromptSet(prompts),
+        hp=PPOHyperparameters(use_decoupled_loss=False,
+                              recompute_logprob=False),
+        ghp=ghp, control=TrainerControl(total_train_steps=2, save_freq_steps=2),
+        batch_size=P["n_prompts"],
+        mb_spec=MicroBatchSpec(max_tokens_per_mb=P["mb_tokens"]),
+        ref_engine=ref, seed=1,
+    )
+    worker.generator = gen
+    tokens = []
+    run = worker.executor.run
+
+    def counted(batch):
+        tokens.append(batch.total_len("packed_input_ids"))
+        return run(batch)
+
+    worker.executor.run = counted
+    fwd0, bwd0 = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+    step_rows = []
+    for _ in range(2):
+        st = worker.run_step()
+        torch.cuda.synchronize()
+        bad = {k: v for k, v in st.items()
+               if np.isscalar(v) and not np.isfinite(v)}
+        if bad or not -1.0 <= st["reward_mean"] <= 1.0 or (
+                st["n_seqs_consumed"] != B):
+            raise AssertionError(f"sync_ppo: step stats {st}")
+        step_rows.append({k: st[k] for k in (
+            "actor_loss", "reward_mean", "grad_norm", "timeperf/gen",
+            "timeperf/e2e", "n_seqs_consumed")})
+        step_rows[-1]["trained_tok_per_s"] = tokens[-1] / (
+            st["timeperf/e2e"] - st["timeperf/gen"])
+    save = os.path.join(constants.get_save_root(), "step2")
+    committed = all(os.path.exists(os.path.join(save, f))
+                    for f in ("COMMIT.json", "model.safetensors",
+                              "config.json"))
+    if not committed or worker.step != 2:
+        raise AssertionError(f"sync_ppo: step2 export at {save}: "
+                             f"{os.listdir(save) if os.path.isdir(save) else None}")
+    if gen.stats["graph_captures"] != 1 or gen.stats["graph_replays"] != (
+            replays0 + 2 * steps):
+        raise AssertionError(f"sync_ppo: the steps recaptured: {gen.stats}")
+    train_fwd = cuda_flash.fwd_launches - fwd0
+    train_bwd = cuda_flash.bwd_launches - bwd0
+    # per step: one prefill, the ref engine's inference micro-batches, and
+    # each train micro-batch's forward twice (full remat) and backward once
+    ref_fwd = train_fwd - 2 * L - 2 * train_bwd
+    if train_bwd <= 0 or train_bwd % L or ref_fwd < 2 * L or ref_fwd % L:
+        raise AssertionError(f"sync_ppo: step flash launches fwd {train_fwd} "
+                             f"bwd {train_bwd}")
+    train_row = dict(steps=step_rows, tokens_per_step=tokens,
+                     flash_fwd_launches=train_fwd,
+                     flash_bwd_launches=train_bwd, init_s=init_s,
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    shutil.rmtree(root, ignore_errors=True)
+    del worker, eng, ref, gen, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the in-process entry points, on the card at 2 layers
+    arch = json.dumps(dict(QWEN_1P5B_ARCH, n_layers=P["entry_layers"]))
+    over = json.dumps(overrides)
+    root = tempfile.mkdtemp(prefix="areal_entry_")
+    with open(os.path.join(root, "sft.jsonl"), "w") as f:
+        for i in range(16):
+            f.write(json.dumps({"qid": f"s{i}",
+                                "prompt_ids": rng.integers(0, cfg.vocab_size, 256).tolist(),
+                                "answer_ids": rng.integers(0, cfg.vocab_size, 256).tolist()}) + "\n")
+    with open(os.path.join(root, "rw.jsonl"), "w") as f:
+        for i in range(8):
+            p = rng.integers(0, cfg.vocab_size, 128).tolist()
+            ans = [[p + rng.integers(0, cfg.vocab_size, 128).tolist()
+                    for _ in range(2)] for _ in range(2)]
+            f.write(json.dumps({"qid": f"r{i}", "prompt_ids": p,
+                                "pos_answer_ids": ans[0],
+                                "neg_answer_ids": ans[1]}) + "\n")
+    with open(os.path.join(root, "math.jsonl"), "w") as f:
+        for i in range(8):
+            f.write(json.dumps({"query_id": f"m{i}", "task": "math",
+                                "prompt_ids": rng.integers(0, cfg.vocab_size, 256).tolist(),
+                                "solutions": ["\\boxed{7}"]}) + "\n")
+    common = [f"fileroot={root}", "trial_name=t0",
+              f"max_tokens_per_mb={P['mb_tokens']}"]
+    runs = {
+        "sft": ["sft", "experiment_name=chip-sft", "dataset.name=prompt_answer",
+                f"dataset.path={root}/sft.jsonl", "batch_size=8",
+                "control.total_train_steps=3", "control.save_freq_steps=3",
+                f"model.arch={arch}", f"model.overrides={over}", *common],
+        "rw": ["rw", "experiment_name=chip-rw", "dataset.name=rw_paired",
+               f"dataset.path={root}/rw.jsonl", "batch_size=4",
+               "control.total_train_steps=2", f"model.arch={arch}",
+               f"model.overrides={over}", *common],
+        "sync-ppo": ["sync-ppo", "experiment_name=chip-sppo",
+                     f"dataset.path={root}/math.jsonl", "batch_size=4",
+                     "control.total_train_steps=2",
+                     "control.save_freq_steps=2", "use_ref_model=true",
+                     'gconfig={"n": 4, "max_new_tokens": 64}',
+                     f"actor.arch={arch}", f"actor.overrides={over}", *common],
+        "profile": ["profile", "--seqlens", "1024x8", "--n-steps", "3",
+                    f"arch={arch}", f"overrides={over}"],
+    }
+    entry_rows = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = entry.main(argv)
+        row = dict(rc=rc, wall_s=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rc != 0:
+            raise AssertionError(f"sync_ppo: {name} returned {rc}")
+        if name == "profile":
+            out = json.loads(buf.getvalue().strip().splitlines()[-1])
+            if not (np.isfinite(out["mfu"]) and 0 < out["mfu"] <= 1):
+                raise AssertionError(f"sync_ppo: profile {out}")
+            row.update({k: out[k] for k in ("step_time_s", "tokens_per_s",
+                                            "tflops_per_s", "mfu",
+                                            "n_params")})
+        else:
+            exp = argv[1].partition("=")[2]
+            key, n = {"sft": ("sft/loss", 3), "rw": ("reward/rw_loss", 2),
+                      "sync-ppo": ("sync_ppo/actor_loss", 2)}[name]
+            path = os.path.join(root, "logs", exp, "t0", "metrics.jsonl")
+            vals = [json.loads(ln)[key] for ln in open(path)]
+            if len(vals) != n or not np.isfinite(vals).all():
+                raise AssertionError(f"sync_ppo: {name} metrics {vals}")
+            row[key] = vals
+        entry_rows[name] = row
+    saves = {n: os.path.exists(os.path.join(root, "checkpoints", e, "t0", s,
+                                            "COMMIT.json"))
+             for n, e, s in (("sft", "chip-sft", "step3"),
+                             ("sync-ppo", "chip-sppo", "step2"))}
+    if not all(saves.values()):
+        raise AssertionError(f"sync_ppo: entry-point saves {saves}")
+    shutil.rmtree(root, ignore_errors=True)
+    if old_root is None:
+        os.environ.pop("AREAL_FILEROOT", None)
+    else:
+        os.environ["AREAL_FILEROOT"] = old_root
+    row = dict(parity=parity, generation=gen_row, train=train_row,
+               entry_points=entry_rows,
+               flash_fwd_launches=gen_fwd + train_fwd,
+               flash_bwd_launches=train_bwd)
+    emit(phase="sync_ppo", **row)
+    return row
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -2924,7 +3513,7 @@ def main(argv=None) -> int:
                     help="also time the paged-decode kernel against pages "
                          "per slot")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve and train phases with "
+                    help="trace the serve, train and sync_ppo phases with "
                          "torch.profiler and report device time by kernel")
     ap.add_argument("--kernels", default=",".join(SOURCES),
                     help="the kernels the build and kernels phases cover "
@@ -3049,6 +3638,8 @@ def main(argv=None) -> int:
     if "train_parity" in phases:
         train_parity_phase(torch)
     trained = train_phase(torch, args.profile) if "train" in phases else {}
+    synced = (sync_ppo_phase(torch, args.profile) if "sync_ppo" in phases
+              else {})
     kernels = []
     for variant, case in (("bfloat16", "slice_bf16"), ("int8", "slice_int8")):
         k = kern.get(case, {})
@@ -3073,7 +3664,8 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": cuda_flash.SOURCE,
             "replaces": replaces,
-            "launches": trained.get(f"flash_{part}_launches", 0),
+            "launches": (trained.get(f"flash_{part}_launches", 0)
+                         + synced.get(f"flash_{part}_launches", 0)),
             "max_abs_err": fcase.get(f"{part}_max_abs_err"),
             "ms": fcase.get(f"{part}_ms"),
             "plain_ms": fcase.get(f"plain_{part}_ms"),

@@ -187,6 +187,10 @@ def _mask(seg, window):
         (250, 6, [250], 40),
         (1001, 16, [333, 1, 500, 97], 150),
         (8192, 6, chip_smoke.SLICE_LENS, None),
+        # the dense prefill's rectangular batch: one segment of Sp tokens
+        # per row, its padding tail inside (the sync_ppo phase's shape)
+        (16384, 6, [512] * 32, None),
+        (512, 6, [64] * 8, 6),
     ],
 )
 def test_schedule_covers_each_kept_pair_once(T, n_rep, lens, window):

@@ -61,7 +61,12 @@ for n in ("areal_tpu_torch.ops.fused_sample",
           "areal_tpu_torch.system.function_executor",
           "areal_tpu_torch.system.worker_base",
           "areal_tpu_torch.system.trainer_worker",
-          "areal_tpu_torch.apps.launcher", "areal_tpu_torch.apps.main"):
+          "areal_tpu_torch.apps.launcher", "areal_tpu_torch.apps.main",
+          "areal_tpu_torch.train.generation",
+          "areal_tpu_torch.system.sync_trainer",
+          "areal_tpu_torch.interfaces.reward", "areal_tpu_torch.apps.profile",
+          "areal_tpu_torch.datasets.prompt_answer",
+          "areal_tpu_torch.datasets.rw_paired"):
     assert n in names, n
 """
 

@@ -11,6 +11,10 @@ experiments``, ``apps/launcher.py``, ``apps/main.py``) against
 - entry points refuse to fall back: with no GPU and no device asked for,
   ``_load_engine`` raises, and a world whose server is designated for the
   card exits non-zero;
+- ``sft``, ``sync-ppo``, ``rw`` and ``profile`` run in-process through
+  ``main.main`` on the CPU and raise without a device; their configs
+  equal the reference's; ``run_sync_ppo`` takes two steps and a save
+  (the port of ``tests/test_experiment_e2e.py::test_sync_ppo_experiment``);
 - ``python -m areal_tpu_torch.apps.main async-ppo`` on the CPU with a tiny
   model for 2 steps (the counterpart of
   ``tests/test_experiment_e2e.py::test_async_ppo_experiment``): rc 0, two
@@ -131,13 +135,142 @@ def test_gen_server_main_raises_for_tp_and_spec_decode(option, value):
         launcher.gen_server_main(cfg, 0)
 
 
+def _write_jsonl(path, records):
+    with open(path, "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+
+
+def _entry_point_args(cmd, tmp_path):
+    """``main.main`` arguments that run ``cmd`` on the CPU with the tiny
+    arch, over a small dataset written from a seed."""
+    rng = np.random.default_rng(0)
+    ids = lambda n: [int(x) for x in rng.integers(1, 128, n)]  # noqa: E731
+    if cmd == "profile":
+        return ["profile", "--seqlens", "16x2", "--n-steps", "1",
+                "--device", "cpu", f"arch={json.dumps(TINY_ARCH)}"]
+    data = str(tmp_path / f"{cmd}.jsonl")
+    common = [f"experiment_name={cmd}-main", "trial_name=t0",
+              f"fileroot={tmp_path}/files", f"dataset.path={data}",
+              "control.total_train_steps=2", "batch_size=2",
+              "max_tokens_per_mb=256", "trainer_device=cpu"]
+    if cmd == "sft":
+        _write_jsonl(data, [{"prompt_ids": ids(4), "answer_ids": ids(5)}
+                            for _ in range(4)])
+        return [cmd, *common, "dataset.name=prompt_answer",
+                f"model.arch={json.dumps(TINY_ARCH)}"]
+    if cmd == "rw":
+        _write_jsonl(data, [{"prompt_ids": ids(3), "pos_answer_ids": [ids(5)],
+                             "neg_answer_ids": [ids(4)]} for _ in range(4)])
+        return [cmd, *common, "dataset.name=rw_paired",
+                f"model.arch={json.dumps(TINY_ARCH)}"]
+    _write_prompt_dataset(data, n=4)
+    return [cmd, *common, f"actor.arch={json.dumps(TINY_ARCH)}",
+            'gconfig={"n": 2, "max_new_tokens": 4}',
+            'ppo={"ppo_n_minibatches": 1, "disable_value": true}']
+
+
 @pytest.mark.parametrize("cmd", ["sft", "sync-ppo", "rw", "profile"])
-def test_unported_entry_points_exit_with_an_error(cmd):
+def test_in_process_entry_points_run_on_the_cpu(cmd, tmp_path, capsys):
+    """``sft``, ``sync-ppo``, ``rw`` and ``profile`` through ``main.main``
+    on the CPU: each returns 0 and leaves its record (two finite metrics
+    lines, or the profile's JSON line)."""
     from areal_tpu_torch.apps import main
 
-    with pytest.raises(SystemExit) as e:
-        main.main([cmd])
-    assert e.value.code == 2
+    assert main.main(_entry_point_args(cmd, tmp_path)) == 0
+    if cmd == "profile":
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["metric"] == "profile_step" and np.isfinite(out["mfu"])
+        return
+    key = {"sft": "sft/loss", "rw": "reward/rw_loss",
+           "sync-ppo": "sync_ppo/actor_loss"}[cmd]
+    logs = tmp_path / "files" / "logs" / f"{cmd}-main" / "t0"
+    lines = [json.loads(l) for l in open(logs / "metrics.jsonl")]
+    assert [ln["step"] for ln in lines] == [1, 2]
+    assert all(np.isfinite(ln[key]) for ln in lines)
+
+
+@pytest.mark.parametrize("cmd", ["sft", "sync-ppo", "rw", "profile"])
+def test_in_process_entry_points_refuse_to_fall_back(cmd, tmp_path,
+                                                     monkeypatch):
+    """With no device named and no GPU, each entry point raises."""
+    from areal_tpu_torch.apps import main
+
+    args = [a for a in _entry_point_args(cmd, tmp_path)
+            if not a.startswith("trainer_device=")
+            and a not in ("--device", "cpu")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main.main(args)
+
+
+@pytest.mark.parametrize("name", ["SyncPPOExperiment", "SFTExperiment",
+                                  "RWExperiment"])
+def test_in_process_configs_match_the_reference(name):
+    """The reference's defaults and overrides, field by field; the port's
+    SFT and RW experiments add ``trainer_device`` and nothing else."""
+    import areal_tpu.experiments as jax_exps
+    import areal_tpu_torch.experiments as exps
+
+    role = "actor" if name == "SyncPPOExperiment" else "model"
+    overrides = [f"{role}.arch={json.dumps(TINY_ARCH)}", "batch_size=3",
+                 "control.save_freq_steps=2", "dataset.max_length=64"]
+    if name == "SyncPPOExperiment":
+        overrides += ['gconfig={"n": 4}', "ppo.kl_ctl=0.0"]
+    ours = load_config(getattr(exps, name), None, overrides)
+    theirs = jax_load_config(getattr(jax_exps, name), None, overrides)
+    a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)
+    if name != "SyncPPOExperiment":
+        assert a.pop("trainer_device") == ""
+    assert a == b
+
+
+def test_sync_ppo_experiment(tmp_path):
+    """Port of ``tests/test_experiment_e2e.py::test_sync_ppo_experiment``:
+    in-process sync PPO for 2 steps with a save, on one device and
+    ``trainer_device=cpu``."""
+    from areal_tpu_torch.experiments import SyncPPOExperiment
+
+    data = str(tmp_path / "math.jsonl")
+    _write_prompt_dataset(data)
+    cfg = load_config(SyncPPOExperiment, None, [
+        "experiment_name=sppo-test",
+        "trial_name=t0",
+        f"fileroot={tmp_path}/files",
+        f"dataset.path={data}",
+        "batch_size=2",
+        "max_tokens_per_mb=512",
+        "control.total_train_steps=2",
+        "control.save_freq_steps=2",
+        f"actor.arch={json.dumps(TINY_ARCH)}",
+        "actor.parallel=d1m1",
+        "actor.optimizer.lr=0.0001",
+        "use_ref_model=true",
+        "trainer_device=cpu",
+        'gconfig={"n": 2, "max_new_tokens": 12}',
+        'ppo={"ppo_n_minibatches": 1, "disable_value": true,'
+        ' "use_decoupled_loss": false, "recompute_logprob": false}',
+    ])
+    assert launcher.run_sync_ppo(cfg) == 0
+    metrics = os.path.join(
+        f"{tmp_path}/files", "logs", "sppo-test", "t0", "metrics.jsonl"
+    )
+    lines = [json.loads(l) for l in open(metrics)]
+    assert len(lines) == 2
+    assert np.isfinite(lines[-1]["sync_ppo/actor_loss"])
+    assert "sync_ppo/reward_mean" in lines[-1]
+    save_dir = os.path.join(
+        f"{tmp_path}/files", "checkpoints", "sppo-test", "t0", "step2"
+    )
+    assert os.path.exists(os.path.join(save_dir, "model.safetensors"))
+
+
+def test_sync_ppo_evaluator_raises_before_anything_starts():
+    from areal_tpu_torch.experiments import SyncPPOExperiment
+
+    cfg = load_config(SyncPPOExperiment, None, ["evaluator.enabled=true"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        launcher.run_sync_ppo(cfg)
 
 
 # --------------------------------------------------------------------------- #
