@@ -26,10 +26,14 @@ separate CUDA processes that time-slice it.
 on ``trainer_device``: generation on the trainer's own params
 (``train/generation.py``), no fleet, no weight publish.
 
+A ``reward`` model spec puts a trained reward model into the async
+trainer's PPO graph (``reward_inf``); ``run_sync_ppo`` ignores it, as the
+reference does.
+
 Not ported yet, and raising ``NotImplementedError``: the serving gateway
-and the evaluator roles, a trained reward model as a node of the PPO
-graph, tensor-parallel or speculative-decoding servers, the TCP
-name-resolve backend and the elastic trainer world (``ROADMAP.md``).
+and the evaluator roles, tensor-parallel or speculative-decoding servers,
+the TCP name-resolve backend and the elastic trainer world
+(``ROADMAP.md``).
 """
 
 import asyncio
@@ -113,10 +117,6 @@ def _check_ported(cfg):
     if cfg.evaluator.enabled:
         raise NotImplementedError(
             "the evaluator (evaluator_main) is not ported yet (ROADMAP.md)")
-    if cfg.reward is not None:
-        raise NotImplementedError(
-            "a trained reward model as a node of the PPO graph is not ported "
-            "yet (ROADMAP.md)")
     _check_gen_ported(cfg.gen)
 
 
@@ -319,8 +319,10 @@ def rollout_worker_main(cfg, worker_idx: int):
 
 
 def _load_ppo_engines(cfg, total_steps):
-    """actor / optional ref / optional critic from an experiment config:
-    ONE place for the gating rules."""
+    """actor / optional ref / optional critic / optional reward model from
+    an experiment config: ONE place for the gating rules. The reward model
+    is a critic-architecture engine without an optimizer; only the async
+    trainer takes it (``run_sync_ppo`` drops it, as the reference does)."""
     dev = cfg.trainer_device
     actor = _load_engine(cfg.actor, total_steps=total_steps, device=dev)
     ref = None
@@ -330,7 +332,11 @@ def _load_ppo_engines(cfg, total_steps):
     if cfg.critic is not None and not cfg.ppo.disable_value:
         critic = _load_engine(cfg.critic, is_critic=True,
                               total_steps=total_steps, device=dev)
-    return actor, ref, critic
+    reward = None
+    if getattr(cfg, "reward", None) is not None:
+        reward = _load_engine(cfg.reward, is_critic=True,
+                              with_optimizer=False, device=dev)
+    return actor, ref, critic, reward
 
 
 def trainer_main(cfg):
@@ -354,7 +360,7 @@ def trainer_main(cfg):
     stream = PullerStreamDataset(
         cfg.experiment_name, cfg.trial_name, 0, offline_dataset_size=10_000
     )
-    actor, ref, critic = _load_ppo_engines(cfg, total)
+    actor, ref, critic, reward = _load_ppo_engines(cfg, total)
     worker = AsyncPPOTrainerWorker(
         experiment_name=cfg.experiment_name,
         trial_name=cfg.trial_name,
@@ -373,6 +379,7 @@ def trainer_main(cfg):
         mb_spec=cfg.mb_spec,
         ref_engine=ref,
         critic_engine=critic,
+        reward_engine=reward,
         hf_family=cfg.hf_family,
         metric_logger=MetricLogger(constants.get_log_root()),
         ema_ref_eta=cfg.ema_ref_eta,
@@ -600,7 +607,7 @@ def run_sync_ppo(cfg) -> int:
         max_length=cfg.dataset.max_length,
     )
     total = cfg.control.total_train_steps
-    actor, ref, critic = _load_ppo_engines(cfg, total)
+    actor, ref, critic, _ = _load_ppo_engines(cfg, total)
     decode_fn = None
     if tokenizer is not None:
         def decode_fn(ids):

@@ -101,6 +101,19 @@ def env_float(name: str, default: float) -> float:
         return default
 
 
+def env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        _logger.warning(
+            "ignoring malformed %s=%r (using %s)", name, raw, default
+        )
+        return default
+
+
 def env_knob(name: str, default_depth: int) -> int:
     """Pipeline-depth knob: unset/"true"/"on" -> the default depth,
     "false"/"off" -> 0 (disabled), an integer -> exactly that depth."""
@@ -120,6 +133,41 @@ def train_prefetch_enabled() -> bool:
     stats once per ``stats_log_freq_steps`` steps instead of every step
     (the reference's deferred-stats cadence)."""
     return env_knob(TRAIN_PREFETCH_ENV, 1) > 0
+
+
+# --------------------------------------------------------------------- #
+# the remote reward sandbox (rewards/remote.py)
+# --------------------------------------------------------------------- #
+
+
+def function_call_enabled() -> bool:
+    """``AREAL_ENABLE_FUNCTION_CALL``: route math/code verification to the
+    remote sandboxed function-call service."""
+    return env_flag("AREAL_ENABLE_FUNCTION_CALL", False)
+
+
+def functioncall_service_domain() -> str:
+    """``AREAL_FUNCTIONCALL_SERVICE_DOMAIN``: base URL of the remote
+    verification service ("" = unset)."""
+    return env_str("AREAL_FUNCTIONCALL_SERVICE_DOMAIN", "") or ""
+
+
+def functioncall_concurrency_override() -> Optional[int]:
+    """``AREAL_FUNCTIONCALL_CONCURRENCY``: explicit per-process request
+    cap; None -> derive from the shared budget / DP split."""
+    raw = env_str("AREAL_FUNCTIONCALL_CONCURRENCY")
+    if raw is None or raw.strip() == "":
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        return None
+
+
+def functioncall_dp() -> int:
+    """``AREAL_FUNCTIONCALL_DP`` (default 16): data-parallel caller count
+    the shared sandbox budget is split across."""
+    return env_int("AREAL_FUNCTIONCALL_DP", 16)
 
 
 # --------------------------------------------------------------------- #

@@ -5,10 +5,12 @@
   the raw body returning ``(status, payload)`` or ``(status, payload,
   headers)``; the payload goes out as JSON, or, when it is a ``Stream``,
   frame by frame until the stream ends, on a connection closed after it.
-- Client: ``request_json`` is one request on a connection of its own over
+- Client: ``request`` is one request on a connection of its own over
   ``asyncio.open_connection``, so any number of calls can be in flight on
-  one event loop without threads (what aiohttp gives the reference);
-  ``open_stream`` opens a streamed answer and reads it line by line.
+  one event loop without threads (what aiohttp gives the reference), and
+  returns the answer's status, headers and body; ``request_json`` returns
+  its JSON and raises for an error status; ``open_stream`` opens a
+  streamed answer and reads it line by line.
   Errors mirror aiohttp's: ``ClientConnectionError`` (refused, reset or
   closed before the answer; also a ``ConnectionError``) and
   ``ClientResponseError`` carrying ``status`` for a 4xx/5xx answer.
@@ -252,13 +254,20 @@ async def _exchange(method: str, url: str, body) -> Tuple[int, dict, bytes]:
     return status, headers, payload
 
 
+async def request(method: str, url: str, body: Optional[dict] = None,
+                  timeout: Optional[float] = None) -> Tuple[int, dict, bytes]:
+    """One HTTP request; the answer's ``(status, headers, body)`` whatever
+    its status. Raises ``ClientConnectionError`` when no answer came and
+    ``asyncio.TimeoutError`` past ``timeout`` seconds."""
+    return await asyncio.wait_for(_exchange(method, url, body), timeout)
+
+
 async def request_json(method: str, url: str, body: Optional[dict] = None,
                        timeout: Optional[float] = None) -> dict:
     """One HTTP request; the answer's JSON. Raises ``ClientResponseError``
     for a status >= 400, ``ClientConnectionError`` when no answer came and
     ``asyncio.TimeoutError`` past ``timeout`` seconds."""
-    status, headers, payload = await asyncio.wait_for(
-        _exchange(method, url, body), timeout)
+    status, headers, payload = await request(method, url, body, timeout)
     if status >= 400:
         raise ClientResponseError(status, payload.decode("utf-8", "replace"),
                                   headers)

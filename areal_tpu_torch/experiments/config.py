@@ -193,7 +193,7 @@ class AsyncPPOExperiment:
     seed: int = 1
     actor: ModelSpec = dataclasses.field(default_factory=ModelSpec)
     critic: Optional[ModelSpec] = None
-    reward: Optional[ModelSpec] = None   # a trained RM (not ported: raises)
+    reward: Optional[ModelSpec] = None   # trained RM scores rollouts when set
     use_ref_model: bool = True
     hf_family: str = "qwen2"
     dataset: DatasetSpec = dataclasses.field(default_factory=DatasetSpec)

@@ -36,6 +36,7 @@ def build_ppo_graph(
     """The async / sync PPO training graph.
 
     Nodes (conditional on config):
+      reward_inf  trained-RM sequence scores        (use_reward_model)
       ref_inf     frozen reference logprobs         (use_ref, kl_ctl != 0)
       critic_inf  value estimates                   (use_critic)
       actor_inf   proximal logprob recompute        (decoupled loss)
@@ -46,16 +47,15 @@ def build_ppo_graph(
     actor interface drives ref_inf / actor_inf / actor_train so the KL
     controller state is singular; the critic interface shares it).
 
+    With ``use_reward_model`` the ``reward_inf`` node (engine "reward", a
+    critic-architecture model scored through ``interfaces/reward.py``)
+    produces the ``rewards`` key, which supersedes the rollout's
+    rule-based rewards: the key leaves the batch keys.
+
     ``ref_logprobs_in_batch``: the data source itself ships
     ``packed_ref_logprobs``; without a ref model the actor loss falls back
-    to zero KL penalty. ``use_reward_model`` (a trained RM's ``reward_inf``
-    node) raises ``NotImplementedError``: ``interfaces/reward.py`` is
-    ported, its node in this graph is not wired yet.
+    to zero KL penalty.
     """
-    if use_reward_model:
-        raise NotImplementedError(
-            "the reward-model graph node (reward_inf) is not ported yet "
-            "(ROADMAP.md)")
     mb_spec = mb_spec or MicroBatchSpec()
     actor_if = make_interface("ppo_actor", hp=hp, hf_family=hf_family)
     interfaces: Dict[str, ModelInterface] = {}
@@ -69,6 +69,20 @@ def build_ppo_graph(
 
     have_ref_lp = use_ref_inf or "packed_ref_logprobs" in batch_keys
     ref_lp_key = ("packed_ref_logprobs",) if have_ref_lp else ()
+
+    if use_reward_model:
+        mfcs.append(
+            MFCDef(
+                name="reward_inf",
+                model_name="reward",
+                interface_type="inference",
+                interface_impl="reward",
+                input_keys=("packed_input_ids",),
+                output_keys=("rewards",),
+                mb_spec=mb_spec,
+            )
+        )
+        batch_keys = tuple(k for k in batch_keys if k != "rewards")
 
     if use_ref_inf:
         mfcs.append(

@@ -11,8 +11,9 @@ s_neg`` for a complete pair, with no host-side pair bookkeeping. Tokens
 that are not a sequence's end add into one spare bucket past the others,
 which is dropped (the reference's out-of-range ``mode="drop"`` index).
 
-As a node of the PPO graph (``reward_inf``) it is not wired yet:
-``experiments/graphs.py`` raises for ``use_reward_model`` (``ROADMAP.md``).
+As the PPO graph's ``reward_inf`` node (``experiments/graphs.py``,
+``use_reward_model``) its ``inference`` scores each rollout sequence, and
+the scores replace the rollout's rule-based ``rewards``.
 """
 
 import dataclasses

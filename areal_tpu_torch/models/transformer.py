@@ -27,7 +27,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from areal_tpu_torch.base.device import resolve_device, torch_dtype
 from areal_tpu_torch.models.config import ModelConfig
@@ -306,6 +307,38 @@ def _rotary(cfg: ModelConfig, positions):
 # Packed forward (training / logprob inference)
 # --------------------------------------------------------------------------- #
 
+REMAT_POLICIES = ("full", "dots", "dots_attn", "none")
+# what the ``dots`` policy saves: the outputs of 2-D matmuls, as
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves the
+# dot products without batch dimensions (attention's are batched by head)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_OUT_PROJ = ("wo", "bo")
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(list(_DOTS))
+
+
+def _remat(fn, *args, dots: bool):
+    """``fn(*args)`` checkpointed (non-reentrant): the backward recomputes
+    every intermediate (``dots=False``) or all but the 2-D matmul outputs
+    (``dots=True``)."""
+    if dots:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _split_at_attention(lp):
+    """A layer's params as (before attention: ln1 and the q/k/v
+    projections; after it: the out-projection, ln2 and the MLP)."""
+    attn = lp["attn"]
+    before = {"ln1": lp["ln1"],
+              "attn": {k: v for k, v in attn.items() if k not in _OUT_PROJ}}
+    after = {"attn": {k: v for k, v in attn.items() if k in _OUT_PROJ},
+             "ln2": lp["ln2"], "mlp": lp["mlp"]}
+    return before, after
+
 
 def forward_packed(
     params: Params,
@@ -323,45 +356,74 @@ def forward_packed(
     applies the head per token block). Padding rows are garbage — mask
     downstream with ``segment_ids > 0``.
 
-    ``cfg.remat_policy``: ``"full"`` checkpoints each layer
-    (``torch.utils.checkpoint``, non-reentrant), ``"none"`` keeps every
-    activation; ``remat=False`` or a run without autograd (inference)
-    takes the ``"none"`` path. Layer params are cast to ``cfg.dtype``
-    inside the checkpointed region, so the recompute casts again and no
-    cast copy is saved."""
+    ``cfg.remat_policy``, as the reference's (a run without autograd,
+    inference, or ``remat=False`` takes ``"none"``):
+
+    - ``"full"``: each layer is one non-reentrant checkpoint, so the
+      backward reruns the whole layer, attention's forward included;
+    - ``"dots"``: the same region, but a selective policy keeps the 2-D
+      matmul outputs (``aten.mm`` / ``aten.addmm``) and recomputes the
+      rest, attention's forward included;
+    - ``"dots_attn"``: two checkpointed regions under the ``dots`` policy,
+      before attention (q, k, v) and after it (out-projection, residual,
+      MLP); attention sits between them outside any checkpoint, so the
+      flash kernel keeps its own residuals (q, k, v, out, lse) and the
+      backward runs no attention forward;
+    - ``"none"``: every activation is kept.
+
+    Layer params are cast to ``cfg.dtype`` inside each checkpointed
+    region, so the recompute casts again and no cast copy is saved.
+    """
     policy = cfg.remat_policy if remat else "none"
-    if policy in ("dots", "dots_attn"):
-        raise NotImplementedError(
-            f"remat_policy {policy!r} is not ported yet (use 'full' or 'none')"
-        )
-    if policy not in ("full", "none"):
+    if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}")
     x = _embed(cfg, params, input_ids, positions)
     rot = _rotary(cfg, positions)
 
-    def layer(x, lp):
-        lp = _cast(cfg, lp)
+    def pre(x, lp):
         h = _norm(cfg, lp["ln1"], x)
         q, k, v = _qkv(cfg, lp["attn"], h)
         if rot is not None:
             q = apply_rotary(q, *rot)
             k = apply_rotary(k, *rot)
-        ctx = attn_ops.packed_attention(
+        return q, k, v
+
+    def attend(q, k, v):
+        return attn_ops.packed_attention(
             q, k, v, segment_ids,
             softmax_scale=cfg.softmax_scale,
             soft_cap=cfg.attn_logits_soft_cap,
             sliding_window=cfg.sliding_window,
             max_seqlen=cfg.attn_max_seqlen,
         )
+
+    def post(x, ctx, lp):
         x = x + _attn_out(lp["attn"], ctx)
         return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
 
-    remat_layers = policy == "full" and torch.is_grad_enabled()
+    def layer(x, lp):
+        lp = _cast(cfg, lp)
+        return post(x, attend(*pre(x, lp)), lp)
+
+    def split_layer(x, lp):
+        # attention between two checkpointed regions: the kernel keeps its
+        # own residuals, the regions recompute everything but their matmuls
+        lp_pre, lp_post = _split_at_attention(lp)
+        q, k, v = _remat(lambda x, lp: pre(x, _cast(cfg, lp)), x, lp_pre,
+                         dots=True)
+        ctx = attend(q, k, v)
+        return _remat(lambda x, ctx, lp: post(x, ctx, _cast(cfg, lp)),
+                      x, ctx, lp_post, dots=True)
+
+    if not torch.is_grad_enabled() or policy == "none":
+        run = layer
+    elif policy == "dots_attn":
+        run = split_layer
+    else:
+        def run(x, lp):
+            return _remat(layer, x, lp, dots=policy == "dots")
     for lp in params["layers"]:
-        if remat_layers:
-            x = checkpoint(layer, x, lp, use_reentrant=False)
-        else:
-            x = layer(x, lp)
+        x = run(x, lp)
     x = _norm(cfg, _cast(cfg, params["final_ln"]), x)
     return _head(cfg, params, x) if with_head else x
 

@@ -1,2 +1,4 @@
-"""Reward computation: the local math verifier and the local code runner
-(copies of ``areal_tpu/rewards/{math,code}_verify.py``)."""
+"""Reward computation: the local math verifier, the local code runner and
+the tool-use grader (copies of ``areal_tpu/rewards/{math_verify,
+code_verify,tool_use}.py``), and the remote sandbox client (``remote.py``,
+on ``base/http.py``)."""

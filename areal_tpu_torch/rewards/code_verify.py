@@ -4,7 +4,7 @@ import).
 
 Execute the solution in a subprocess per test case (stdin/stdout protocol),
 with a wall-clock timeout; reward 1 iff all cases pass. The remote sandbox
-client (``areal_tpu/rewards/remote.py``) is not ported yet.
+route is ``rewards/remote.py``.
 """
 
 import re

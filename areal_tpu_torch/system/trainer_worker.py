@@ -127,6 +127,8 @@ class AsyncPPOTrainerWorker:
             engines["ref"] = ref_engine
         if critic_engine is not None:
             engines["critic"] = critic_engine
+        if reward_engine is not None:
+            engines["reward"] = reward_engine
         self.executor = FunctionExecutor(
             graph, engines, interfaces, default_mb_spec=self.mb_spec
         )

@@ -115,6 +115,28 @@ Phases, each printing one JSON line:
    recover checkpoint (version 2, 16 groups consumed) and, loaded into a
    fresh trainer on the card, its params equal to the v2 export bit for
    bit. ``--keep-logs DIR`` keeps the run's log.
+6c. ``agentic_ppo``: RM-scored async PPO with the multi-turn agent at the
+   1.5B widths in one process: a bf16 32-slot server behind the gserver
+   manager, one rollout worker running ``math-multi-turn`` (3 turns, 16
+   feedback tokens, discount 0.9) over 24 prompts of 512 random tokens (8
+   each of math, tool_use and gpqa, 256 new tokens a turn at temperature
+   1), and the trainer worker of an f32-master actor under ``dots_attn``
+   with a 28-layer critic-shaped reward model as ``reward_engine`` (no ref
+   engine): one step on 8 turns. Checks: each task's grader scores a
+   correct answer >= 0.5 on the host; every conversation ran its 3 turns
+   ``<qid>-t0..t2``, each turn's input the turn before and the feedback
+   ids, rewards -1, -0.9, -0.81, logprobs finite at the reference's
+   offsets; later turns hit the prefix cache; the trained batch's rewards
+   are the RM's (within 1e-5 of a separate RM forward, not the agent's);
+   the graph's levels are the reference's; flash forward = layers x (RM +
+   actor inference + train micro-batches) with no recompute, backward =
+   layers x train micro-batches; paged decode = layers x steps, replays x
+   16 + captures = steps; step 1 with finite stats and a committed export
+   the server reloads. Then the same configuration at 2 layers through
+   ``python -m areal_tpu_torch.apps.main async-ppo`` (``reward=...``,
+   ``rollout.agent=math-multi-turn``, ``remat_policy=dots_attn``), one
+   step: exit 0 in 600 s, no process left, one finite metrics line, flash
+   launches = 2 x (RM + inference + train micro-batches).
 7. ``train_parity``: a tiny float32 model trained two SFT optimizer steps
    on the card and on the CPU from the same numpy params and batch; loss,
    grad norm and weights must agree.
@@ -129,6 +151,12 @@ Phases, each printing one JSON line:
    remat re-runs each layer's forward in the backward). Prints trained
    tokens/s, seconds per optimizer step and peak memory; ``--profile``
    adds the busy share and device time by kernel over the second round.
+   Then the ``dots`` and ``dots_attn`` remat policies (``train_remat``
+   lines): one forward and backward each on the same weights and batch
+   (loss equal to ``full``'s, every gradient within rtol 1e-5), then one
+   timed round each, with flash forward launches layers x (inference + 2
+   x train micro-batches) under ``dots`` and layers x (inference + train
+   micro-batches) under ``dots_attn``.
 
 9. ``sync_ppo``: sync PPO at the 1.5B profile's widths in this process
    (f32 master weights from seed 0, bf16 compute): first a tiny f32
@@ -180,7 +208,7 @@ import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
           "serve_pipelined", "weight_sync", "async_rollout", "async_ppo",
-          "train_parity", "train", "sync_ppo")
+          "agentic_ppo", "train_parity", "train", "sync_ppo")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -2781,6 +2809,606 @@ def async_ppo_phase(torch, keep_logs=None):
 
 
 # --------------------------------------------------------------------------- #
+# RM-scored async PPO with the multi-turn agent (the slice's path)
+# --------------------------------------------------------------------------- #
+
+AGENTIC = dict(
+    n_per_task=8, prompt_len=512, max_new_tokens=256, max_turns=3,
+    turn_discount=0.9, n_feedback=16, train_batch_size=8,
+    max_head_offpolicyness=4, max_concurrent_tasks=24, mb_tokens=8192,
+    ppo_n_minibatches=2, limit_s=600.0,
+    # the entry point: 2 layers at full widths (for time and disk), one
+    # step; micro-batches of 16384 tokens hold the 8 trained turns (at
+    # most 8 x 1312 tokens) whole, so each inference is one micro-batch
+    # and each of the 2 PPO minibatches one more
+    entry_layers=2, entry_mb_tokens=16384, entry_limit_s=600.0,
+)
+AGENTIC_TASKS = ("math", "tool_use", "gpqa")
+# the levels of the reference's build_ppo_graph(use_reward_model=True,
+# use_ref=False, use_critic=False) with the decoupled loss, as
+# tests/test_torch_agentic.py reads them from the JAX package
+AGENTIC_LEVELS = [["actor_inf", "reward_inf"], ["actor_train"]]
+# a correct answer per task, graded on the host (each must score >= 0.5)
+AGENTIC_CORRECT = {
+    "math": r"so the answer is \boxed{\frac{1}{2}}",
+    "tool_use": '{"function": {"name": "answer", "arguments": '
+                '{"answer": "Eiffel Tower"}}}',
+    "gpqa": "Answer: C",
+}
+
+
+def agentic_records(rng, vocab, n_per_task, prompt_len):
+    """Prompts of random tokens, ``n_per_task`` per task, with the
+    metadata each task's grader reads. Random token ids decode to a list
+    of integers, which no gold here matches: a half, two words, a
+    letter."""
+    out = []
+    for task in AGENTIC_TASKS:
+        for i in range(n_per_task):
+            r = {"query_id": f"{task}{i}", "task": task,
+                 "prompt_ids": rng.integers(0, vocab, prompt_len).tolist()}
+            if task == "math":
+                r["solutions"] = [r"\boxed{\frac{1}{2}}"]
+            elif task == "tool_use":
+                r["answer"] = "Eiffel Tower"
+            else:
+                r["solutions"] = ["C"]
+            out.append(r)
+    return out
+
+
+def agentic_turns(samples, feedback):
+    """The streamed turn samples grouped by prompt, each prompt's turns
+    checked: ids ``<qid>-t0..`` in order, turn t+1's input the whole of
+    turn t followed by the feedback ids. Returns qid -> [turn samples]."""
+    by_qid = {}
+    for s in samples:
+        qid, _, turn = s.ids[0].rpartition("-t")
+        by_qid.setdefault(qid, {})[int(turn)] = s
+    turns = {}
+    for qid, got in by_qid.items():
+        if sorted(got) != list(range(len(got))):
+            raise AssertionError(f"agentic_ppo: {qid} has turns {sorted(got)}")
+        turns[qid] = [got[t] for t in range(len(got))]
+        for a, b in zip(turns[qid], turns[qid][1:]):
+            want = np.concatenate([a.data["packed_input_ids"], feedback])
+            plen = int(b.data["prompt_mask"].sum())
+            if plen != len(want) or not np.array_equal(
+                    b.data["packed_input_ids"][:plen], want):
+                raise AssertionError(f"agentic_ppo: {b.ids} does not extend "
+                                     f"{a.ids} by the feedback ids")
+    return turns
+
+
+def agentic_ppo_phase(torch, keep_logs=None):
+    """RM-scored async PPO with the multi-turn agent in this process, then
+    the same configuration through the entry point (``agentic_in_process``,
+    ``agentic_entry_point``), this process holding nothing on the card
+    meanwhile but what earlier phases left."""
+    import gc
+
+    row, records, feedback = agentic_in_process(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["entry"] = agentic_entry_point(
+        torch, records, feedback, keep_logs,
+        allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    return row
+
+
+def agentic_in_process(torch):
+    """RM-scored async PPO with the multi-turn agent, in one process at the
+    1.5B profile's widths: a bf16 32-slot server behind the gserver
+    manager, one rollout worker running ``math-multi-turn`` (3 turns, 16
+    feedback tokens, discount 0.9) over math, tool_use and gpqa prompts,
+    and the trainer worker of an f32-master actor under ``dots_attn`` with
+    a critic-shaped reward model as ``reward_engine`` (no ref engine). All
+    24 conversations run every turn (random tokens earn 0); then one
+    trainer-worker step on 8 turns, whose rewards are the RM's. Returns
+    the phase's row, its prompt records and its feedback ids."""
+    import asyncio
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from areal_tpu_torch.agents.math_multi_turn import MathMultiTurnAgent
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.dataset import DatasetUtility
+    from areal_tpu_torch.api.model import (
+        GenerationHyperparameters, PPOHyperparameters, make_interface)
+    from areal_tpu_torch.base import constants, name_resolve, names, recover
+    from areal_tpu_torch.base.metrics import MetricLogger
+    from areal_tpu_torch.datasets.prompt import MathCodePromptDataset
+    from areal_tpu_torch.envs.math_code_single_step import MathCodeSingleStepEnv
+    from areal_tpu_torch.gen.engine import GenerationEngine
+    from areal_tpu_torch.gen.server import serve
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+    from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
+    from areal_tpu_torch.system.gserver_manager import (
+        GserverManager, GserverManagerConfig, serve_manager)
+    from areal_tpu_torch.system.push_pull_stream import JsonPuller, JsonPusher
+    from areal_tpu_torch.system.rollout_worker import RolloutWorker
+    from areal_tpu_torch.system.stream_dataset import PullerStreamDataset
+    from areal_tpu_torch.system.trainer_worker import (
+        AsyncPPOTrainerWorker, TrainerControl)
+    from areal_tpu_torch.train import batching
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
+    c = AGENTIC
+    exp, trial = "chip_smoke", "agentic_ppo"
+    t_phase = time.perf_counter()
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    full = qwen_1p5b_cfg()
+    export_parent, n_layers, free = export_dir_and_depth(full, root_dir)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    actor_cfg = dataclasses.replace(cfg, remat_policy="dots_attn",
+                                    loss_chunk_size=2048)
+    rm_cfg = dataclasses.replace(cfg, is_critic=True)
+    spec = MicroBatchSpec(max_tokens_per_mb=c["mb_tokens"])
+    deadline = time.time() + c["limit_s"]
+    n_prompts = c["n_per_task"] * len(AGENTIC_TASKS)
+    rng = np.random.default_rng(0)
+    records = agentic_records(rng, cfg.vocab_size, c["n_per_task"],
+                              c["prompt_len"])
+    feedback = rng.integers(0, cfg.vocab_size, c["n_feedback"]).astype(
+        np.int64)
+
+    def wait(what, cond, poll=0.02):
+        while not cond():
+            if time.time() > deadline:
+                raise AssertionError(f"agentic_ppo: {what} did not happen "
+                                     f"within {c['limit_s']} s")
+            time.sleep(poll)
+
+    torch.cuda.reset_peak_memory_stats()
+    name_resolve.reset()
+    work = tempfile.mkdtemp(prefix="areal_agentic_ppo_", dir=export_parent)
+    old_fileroot = os.environ.get("AREAL_FILEROOT")
+    constants.set_fileroot(work)
+    constants.set_experiment_trial_names(exp, trial)
+    log_dir = constants.get_log_root()
+    actor_eng = TrainEngine(actor_cfg, optimizer=OptimizerConfig(lr=1e-5),
+                            device="cuda").init_random(0).setup_optimizer(100)
+    rm = TrainEngine(rm_cfg, device="cuda").init_random(1)
+    eng = GenerationEngine(cfg, actor_eng.params, max_slots=32,
+                           max_seqlen=2048, page_size=128, seed=0,
+                           device="cuda")
+    srv = manager = stream = pusher = loop = ex = None
+    try:
+        srv = serve(eng, "127.0.0.1", 0, decode_steps=DECODE_STEPS)
+        name_resolve.add(names.gen_server(exp, trial, 0),
+                         f"http://127.0.0.1:{srv.port}", replace=True)
+        manager = GserverManager(GserverManagerConfig(
+            experiment_name=exp, trial_name=trial,
+            train_batch_size=c["train_batch_size"],
+            max_head_offpolicyness=c["max_head_offpolicyness"],
+            max_concurrent_rollouts=n_prompts))
+        manager.discover_servers()
+        serve_manager(manager, "127.0.0.1", 0)
+        data_path = os.path.join(work, "agentic.jsonl")
+        with open(data_path, "w") as f:
+            for r in records:
+                f.write(json.dumps(r) + "\n")
+        dataset = MathCodePromptDataset(
+            util=DatasetUtility(seed=0, dp_rank=0, world_size=1),
+            path=data_path)
+        env = MathCodeSingleStepEnv(dataset.load_metadata())
+        # the graders on the host: a correct answer per task scores >= 0.5,
+        # so the zeros the rollout earns are not a grader stuck at 0
+        graded = {}
+        for task, answer in AGENTIC_CORRECT.items():
+            qid = next(r["query_id"] for r in records if r["task"] == task)
+            _, score, *_ = asyncio.run(env.step((qid, [answer, "1 2 3"])))
+            graded[task] = [float(x) for x in score]
+            if not (graded[task][0] >= 0.5 and graded[task][1] < 0.5):
+                raise AssertionError(f"agentic_ppo: the {task} grader gave "
+                                     f"{graded[task]}")
+        puller = JsonPuller("127.0.0.1", 0, default_timeout_ms=100)
+        stream = PullerStreamDataset(exp, trial, 0,
+                                     offline_dataset_size=len(dataset),
+                                     puller=puller)
+        pusher = JsonPusher("127.0.0.1", puller.port)
+        worker = RolloutWorker(
+            experiment_name=exp, trial_name=trial, worker_index=0,
+            n_workers=1, n_pullers=1,
+            agent=MathMultiTurnAgent(
+                gconfig=GenerationHyperparameters(
+                    n=1, max_new_tokens=c["max_new_tokens"],
+                    temperature=1.0, top_p=1.0),
+                max_turns=c["max_turns"], turn_discount=c["turn_discount"],
+                feedback_token_ids=feedback.tolist()),
+            env=env, dataset=dataset,
+            new_tokens_per_chunk=c["max_new_tokens"],
+            max_concurrent_tasks=c["max_concurrent_tasks"], pusher=pusher,
+            manager_url=f"http://127.0.0.1:{manager.port}",
+        )
+        hp = PPOHyperparameters(disable_value=True, adv_norm=True,
+                                use_decoupled_loss=True,
+                                ppo_n_minibatches=c["ppo_n_minibatches"])
+        collected = []
+
+        class Feed:
+            """The trainer worker's stream: the turns streamed before it,
+            in arrival order."""
+
+            def __init__(self):
+                self.taken = []
+
+            def get_batch(self, n, timeout=0.1):
+                got = collected[len(self.taken):len(self.taken) + n]
+                self.taken.extend(got)
+                return got
+
+            def clear(self):
+                return 0
+
+        feed = Feed()
+        trainer_worker = AsyncPPOTrainerWorker(
+            experiment_name=exp, trial_name=trial, actor_engine=actor_eng,
+            stream=feed, hp=hp,
+            control=TrainerControl(total_train_steps=1,
+                                   weight_sync_freq_steps=1,
+                                   ckpt_freq_steps=None, ckpt_freq_secs=None),
+            train_batch_size=c["train_batch_size"], mb_spec=spec,
+            hf_family="qwen2", reward_engine=rm,
+            metric_logger=MetricLogger(log_dir),
+            max_head_offpolicyness=c["max_head_offpolicyness"],
+        )
+        levels = [[m.name for m in lvl]
+                  for lvl in trainer_worker.executor.graph.levels]
+        if levels != AGENTIC_LEVELS:
+            raise AssertionError(f"agentic_ppo: graph levels {levels}, the "
+                                 f"reference's {AGENTIC_LEVELS}")
+        ex = trainer_worker.executor
+        trained, rm_s = [], []
+        run_graph, rm_inference = ex.run, ex.interfaces["reward_inf"].inference
+
+        def run_and_keep(sample):
+            stats = run_graph(sample)
+            trained.append(sample)
+            return stats
+
+        def timed_rm(engine, sample, mb_spec):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rm_inference(engine, sample, mb_spec)
+            torch.cuda.synchronize()
+            rm_s.append(time.perf_counter() - t0)
+            return out
+
+        # instance attributes over the bound methods, removed in the
+        # finally below (the closures would hold the engines in a cycle)
+        ex.run = run_and_keep
+        ex.interfaces["reward_inf"].inference = timed_rm
+
+        loop = asyncio.new_event_loop()
+        threading.Thread(target=loop.run_forever, daemon=True,
+                         name="rollout-worker").start()
+        n_turns = n_prompts * c["max_turns"]
+
+        # the main path's run: every launch counted from here on
+        cuda_paged.reset_launches()
+        cuda_flash.reset_launches()
+        t_start = time.perf_counter()
+        # one pass over the prompts: the worker stops allocating once each
+        # has its conversation, then drains them
+        run = asyncio.run_coroutine_threadsafe(worker.run_async(
+            should_stop=lambda: manager.counters["allocated"] >= n_prompts),
+            loop)
+        run.result(timeout=max(deadline - time.time(), 1))
+        asyncio.run_coroutine_threadsafe(
+            worker.drain(timeout=max(deadline - time.time(), 1)),
+            loop).result()
+
+        def all_turns():
+            collected.extend(stream.get_batch(n_turns, timeout=0.05))
+            return len(collected) >= n_turns
+
+        wait(f"{n_turns} turns of {n_prompts} conversations", all_turns)
+        window = time.perf_counter() - t_start
+
+        stats = trainer_worker.run_step()
+        if stats is None:
+            raise AssertionError("agentic_ppo: the trainer worker took no "
+                                 "batch")
+        trainer_worker._join_publish()   # raises if the export failed
+        trainer_worker.flush_stats()
+        torch.cuda.synchronize()
+        launches = cuda_paged.launches
+        fwd, bwd = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+        metrics = get(srv.port, "/metrics_json")
+        stats_e = dict(eng.stats)
+        bad = {k: v for k, v in stats.items() if not np.isfinite(v)}
+        if bad or stats["guard/step_ok"] != 1.0:
+            raise AssertionError(f"agentic_ppo: PPO step stats {stats}")
+        path = os.path.join(constants.get_param_sync_root(), "v1")
+        mv = name_resolve.get(names.model_version(exp, trial, "actor"))
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        if trainer_worker.step != 1 or mv != f"1:{path}" or not (
+                recover.is_committed(path)) or len(lines) != 1:
+            raise AssertionError(f"agentic_ppo: step {trainer_worker.step}, "
+                                 f"model_version {mv}, metrics {lines}")
+
+        # the trained batch's rewards: the RM's scores, against a separate
+        # RM forward on the same packed sequences
+        (batch,) = trained
+        n_inf = len(batching.split_into_micro_batches(
+            batch, spec.n_mbs, spec.max_tokens_per_mb, 1))
+        n_train = sum(len(batching.split_into_micro_batches(
+            mb, spec.n_mbs, spec.max_tokens_per_mb, 1))
+            for mb in batch.split(hp.ppo_n_minibatches))
+        got_r = np.asarray(batch.data["rewards"], np.float32)
+        again = make_interface("reward").inference(
+            rm, batch.select(["packed_input_ids"]), spec)
+        want_r = np.asarray(again.data["rewards"], np.float32)
+        rm_err = float(np.abs(got_r - want_r).max())
+        # not the agent's rewards: those are the turn ladder's values
+        agent_values = np.asarray([-c["turn_discount"] ** t
+                                   for t in range(c["max_turns"])])
+        off_ladder = np.abs(got_r[:, None] - agent_values).min(axis=1) > 1e-3
+        if got_r.shape != want_r.shape or not rm_err <= 1e-5 or not (
+                off_ladder.all()):
+            raise AssertionError(f"agentic_ppo: trained rewards {got_r}, a "
+                                 f"separate RM forward {want_r}, the "
+                                 f"agent's {agent_values}")
+        # the fleet takes the step's weights before the world stops
+        t0 = time.perf_counter()
+        wait("the weight update", lambda: manager.version == 1, poll=0.05)
+        reload_s = time.perf_counter() - t0
+    finally:
+        if ex is not None:
+            ex.__dict__.pop("run", None)
+            ex.interfaces["reward_inf"].__dict__.pop("inference", None)
+        if loop is not None:
+            loop.call_soon_threadsafe(loop.stop)
+        for end in (stream and stream.close, pusher and pusher.close,
+                    manager and manager.stop, srv and srv.stop):
+            if end:
+                end()
+        shutil.rmtree(work, ignore_errors=True)
+        name_resolve.reset()
+        if old_fileroot is None:
+            os.environ.pop("AREAL_FILEROOT", None)
+        else:
+            os.environ["AREAL_FILEROOT"] = old_fileroot
+
+    # the conversations: every prompt ran all its turns
+    turns = agentic_turns(collected, feedback)
+    ladder = [c["turn_discount"] ** t * -1.0 for t in range(c["max_turns"])]
+    gen_tokens = 0
+    for qid, ts in turns.items():
+        if len(ts) != c["max_turns"]:
+            raise AssertionError(f"agentic_ppo: {qid} ran {len(ts)} turns")
+        for t, s in enumerate(ts):
+            n = int(s.data["packed_input_ids"].shape[0])
+            plen = int(s.data["prompt_mask"].sum())
+            lp = s.data["packed_logprobs"]
+            gen = n - plen
+            gen_tokens += gen
+            want_n = c["prompt_len"] + t * c["n_feedback"] + (
+                t + 1) * c["max_new_tokens"]
+            if n != want_n or gen != c["max_new_tokens"] or not (
+                    np.isfinite(lp).all()) or (lp[:plen - 1] != 0).any() or (
+                    lp[n - 1:] != 0).any() or not (lp[plen - 1:n - 1] < 0).all():
+                raise AssertionError(f"agentic_ppo: turn {s.ids}: {n} tokens "
+                                     f"({plen} prompt), logprobs misplaced")
+            if abs(float(s.data["rewards"][0]) - ladder[t]) > 1e-6:
+                raise AssertionError(f"agentic_ppo: turn {s.ids} reward "
+                                     f"{s.data['rewards']}, want {ladder[t]}")
+            if int(s.data["version_start"][0]) != 0:
+                raise AssertionError(f"agentic_ppo: turn {s.ids} started at "
+                                     f"version {s.data['version_start']}")
+    if sorted(turns) != sorted(r["query_id"] for r in records):
+        raise AssertionError(f"agentic_ppo: conversations {sorted(turns)}")
+    later_prompt = sum(int(ts[t].data["prompt_mask"].sum())
+                       for ts in turns.values()
+                       for t in range(1, c["max_turns"]))
+    hit, pre = stats_e["prefix_hit_tokens"], stats_e["prefill_tokens"]
+    if hit <= 0:
+        raise AssertionError(f"agentic_ppo: later turns hit no cached page: "
+                             f"{stats_e}")
+    faults = dict(push_drops=pusher.drop_cnt, stream_drops=stream.dropped,
+                  requeued=worker.requeued_cnt, dropped=worker.dropped_cnt,
+                  server_failures=worker.prm.stats["server_failures"],
+                  client_retries=worker.prm.client.retries)
+    if any(faults.values()):
+        raise AssertionError(f"agentic_ppo: faults {faults}")
+    steps = stats_e["decode_steps"]
+    L = cfg.n_layers
+    if launches != L * steps or stats_e["graph_replays"] <= 0 or (
+            stats_e["graph_replays"] * DECODE_STEPS
+            + stats_e["graph_captures"] != steps):
+        raise AssertionError(f"agentic_ppo: paged_decode launched {launches} "
+                             f"times over {steps} steps: {stats_e}")
+    admission_graphed("agentic_ppo", stats_e, eng)
+    # dots_attn: no flash forward in the recompute
+    if fwd != L * (n_inf + n_inf + n_train) or bwd != L * n_train:
+        raise AssertionError(
+            f"agentic_ppo: flash launches fwd {fwd} bwd {bwd}; expected "
+            f"{L * (2 * n_inf + n_train)} and {L * n_train} for {n_inf} RM "
+            f"and {n_inf} actor inference and {n_train} train micro-batches")
+    tokens = batch.total_len("packed_input_ids")
+    row = dict(
+        layers=L, depth_cut_reason=(
+            None if L == full.n_layers else
+            f"two f32 exports of {full.n_layers} layers do not fit in "
+            f"{export_parent}"),
+        conversations=len(turns), turns=len(collected),
+        turns_per_trajectory=len(collected) / len(turns),
+        window_s=window, trajectories_per_s=len(turns) / window,
+        gen_tokens=gen_tokens, gen_tok_per_s=gen_tokens / window,
+        server_gen_tokens=metrics["gen_tokens"],
+        decode_s=stats_e["decode_s"], prefill_s=stats_e["prefill_s"],
+        decode_steps=steps, prefill_tokens=pre, prefix_hit_tokens=hit,
+        later_turn_prompt_tokens=later_prompt,
+        later_turn_hit_share=hit / later_prompt,
+        graph_captures=stats_e["graph_captures"],
+        graph_replays=stats_e["graph_replays"],
+        graders=graded, agent_rewards=ladder,
+        trained_rewards=got_r.tolist(), rm_max_abs_err=rm_err,
+        reload_s=reload_s, export_gb=export_bytes(cfg, cfg.n_layers) / 1e9,
+        reward_inf_s=sum(rm_s), rm_micro_batches=n_inf,
+        inference_mbs=n_inf, train_mbs=n_train, ppo_tokens=tokens,
+        step_s=stats["timeperf/e2e"],
+        trained_tok_per_s=tokens / stats["timeperf/e2e"],
+        stats={k: stats[k] for k in ("actor_loss", "grad_norm",
+                                     "importance_weight", "approx_kl")},
+        graph_levels=levels,
+        paged_decode_launches=launches, flash_fwd_launches=fwd,
+        flash_bwd_launches=bwd,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        faults=faults, wall_s=time.perf_counter() - t_phase,
+    )
+    emit(phase="agentic_ppo", **row)
+    return row, records, feedback
+
+
+def agentic_entry_point(torch, records, feedback, keep_logs=None,
+                        allocated_gb=None):
+    """The same configuration as ``agentic_ppo_phase`` through the user's
+    entry point, ``python -m areal_tpu_torch.apps.main async-ppo``, at 2
+    layers of the same widths: a trained reward model (``reward=...``),
+    ``rollout.agent=math-multi-turn`` and the actor under ``dots_attn``,
+    one step. Exit 0 within the limit, no process left, one finite
+    metrics line, and the step's flash launches: one forward per layer for
+    the RM's micro-batch, one for the actor's inference and one per train
+    micro-batch (none recomputed), one backward per train micro-batch.
+    ``allocated_gb``: what the calling process still held on the card."""
+    import dataclasses
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import areal_tpu_torch
+
+    c = AGENTIC
+    exp, trial = "chip_smoke", "agentic_entry"
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    cfg = dataclasses.replace(qwen_1p5b_cfg(), n_layers=c["entry_layers"])
+    parent, _, free = export_dir_and_depth(cfg, root_dir, copies=4)
+    work = tempfile.mkdtemp(prefix="areal_agentic_entry_", dir=parent)
+    fileroot = os.path.join(work, "root")
+    data_path = os.path.join(work, "agentic.jsonl")
+    with open(data_path, "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    arch = {f: getattr(cfg, f) for f in (
+        "n_layers", "n_q_heads", "n_kv_heads", "head_dim", "hidden_dim",
+        "intermediate_dim", "vocab_size", "use_attention_bias", "dtype")}
+    overrides = [
+        f"experiment_name={exp}", f"trial_name={trial}",
+        f"fileroot={fileroot}", "seed=1", "hf_family=qwen2",
+        "dataset.name=math_code_prompt", f"dataset.path={data_path}",
+        f"actor.arch={json.dumps(arch)}",
+        'actor.overrides={"remat_policy": "dots_attn", '
+        '"loss_chunk_size": 2048}',
+        f"reward={json.dumps({'arch': arch})}",
+        "actor.optimizer.lr=1e-05", "use_ref_model=false",
+        "gen.device=", "trainer_device=", "gen.n_servers=1",
+        "gen.max_slots=32", "gen.max_seqlen=2048",
+        f"gen.decode_steps_per_chunk={DECODE_STEPS}",
+        "rollout.n_workers=1", "rollout.agent=math-multi-turn",
+        "rollout.agent_args=" + json.dumps({
+            "max_turns": c["max_turns"], "turn_discount": c["turn_discount"],
+            "feedback_token_ids": [int(x) for x in feedback]}),
+        f"rollout.max_concurrent_tasks={c['max_concurrent_tasks']}",
+        f"rollout.new_tokens_per_chunk={c['max_new_tokens']}",
+        f"manager.max_head_offpolicyness={c['max_head_offpolicyness']}",
+        "gconfig=" + json.dumps({"n": 1,
+                                 "max_new_tokens": c["max_new_tokens"],
+                                 "temperature": 1.0}),
+        f"train_batch_size={c['train_batch_size']}",
+        f"max_tokens_per_mb={c['entry_mb_tokens']}",
+        "ppo=" + json.dumps({"disable_value": True, "adv_norm": True,
+                             "use_decoupled_loss": True,
+                             "ppo_n_minibatches": c["ppo_n_minibatches"]}),
+        "control=" + json.dumps({
+            "total_train_steps": 1, "weight_sync_freq_steps": 1,
+            "ckpt_freq_steps": None, "ckpt_freq_secs": None}),
+    ]
+    pkg_parent = os.path.dirname(os.path.dirname(
+        os.path.abspath(areal_tpu_torch.__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [pkg_parent] + [p for p in [env.get("PYTHONPATH")] if p])
+    log_path = os.path.join(work, "agentic_entry.log")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    rc = None
+    try:
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "areal_tpu_torch.apps.main",
+                 "async-ppo", *overrides],
+                cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True,
+            )
+            try:
+                rc = proc.wait(timeout=c["entry_limit_s"])
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.time() - t0
+        stray = live_group_members(proc.pid)
+        t_gone = time.time() + 15
+        while stray and time.time() < t_gone:
+            time.sleep(0.2)
+            stray = live_group_members(proc.pid)
+        if stray:
+            os.killpg(proc.pid, signal.SIGKILL)
+        if keep_logs:
+            os.makedirs(keep_logs, exist_ok=True)
+            shutil.copy(log_path, os.path.join(keep_logs,
+                                               "agentic_entry.log"))
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        if rc != 0 or stray:
+            raise AssertionError(
+                f"agentic_ppo entry point: exited {rc} after {wall:.1f} s "
+                f"(limit {c['entry_limit_s']} s), processes left: {stray}; "
+                f"log tail:\n{tail}")
+        log_root = os.path.join(fileroot, "logs", exp, trial)
+        with open(os.path.join(log_root, "metrics.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    keys = ("ppo/actor_loss", "ppo/grad_norm", "ppo/n_tokens")
+    if len(lines) != 1 or not all(np.isfinite(lines[0].get(k, np.nan))
+                                  for k in keys):
+        raise AssertionError(f"agentic_ppo entry point: metrics {lines}")
+    (line,) = lines
+    L = cfg.n_layers
+    fwd = line["ppo/kernel/flash_fwd_launches"]
+    bwd = line["ppo/kernel/flash_bwd_launches"]
+    # the 8 turns hold at most 8 x 1312 tokens: one micro-batch for the RM,
+    # one for the actor's inference, one per PPO minibatch
+    n_rm = n_inf = 1
+    n_train = c["ppo_n_minibatches"]
+    if line["ppo/n_tokens"] > c["entry_mb_tokens"] or (
+            fwd != L * (n_rm + n_inf + n_train)) or bwd != L * n_train:
+        raise AssertionError(
+            f"agentic_ppo entry point: flash launches fwd {fwd} bwd {bwd} "
+            f"over {line['ppo/n_tokens']} tokens; expected "
+            f"{L * (n_rm + n_inf + n_train)} and {L * n_train}")
+    row = dict(layers=L, wall_s=wall, rc=rc,
+               free_gb={d: v / 1e9 for d, v in free.items()},
+               smoke_process_allocated_gb=allocated_gb,
+               n_tokens=line["ppo/n_tokens"],
+               step_s=line["ppo/timeperf/e2e"],
+               trained_tok_per_s=line["ppo/n_tokens"]
+               / line["ppo/timeperf/e2e"],
+               flash_fwd_launches=fwd, flash_bwd_launches=bwd,
+               stats={k: line[f"ppo/{k}"] for k in (
+                   "actor_loss", "grad_norm", "importance_weight")})
+    emit(phase="agentic_ppo_entry", **row)
+    return row
+
+
+# --------------------------------------------------------------------------- #
 # training: parity (tiny f32 model, card vs CPU) and the 1.5B GRPO round
 # --------------------------------------------------------------------------- #
 
@@ -3002,9 +3630,139 @@ def train_phase(torch, profile=False):
                                     "flash_dkdv": "flash_dkdv_v4",
                                     "flash_delta": "flash_delta"})
     emit(phase="train", **row)
-    del eng, actor, probe
+    del probe
+    train_remat(torch, eng, batch(), spec, grpo_round,
+                n_inf=n_inf, n_train=n_train, tokens=tokens, profile=profile)
+    del eng, actor
     torch.cuda.empty_cache()
     return row
+
+
+def policy_grads(torch, eng, policy, sample, spec):
+    """One forward and backward of the next-token loss over ``sample``'s
+    micro-batches under ``policy``, no optimizer step: the summed loss and
+    every master's gradient (the engine's params keep their values)."""
+    import dataclasses
+
+    from areal_tpu_torch.train.engine import _leaves, vmapped_next_token_logprobs
+
+    cfg = dataclasses.replace(eng.cfg, remat_policy=policy)
+    params = _leaves(eng.params)
+    for p in params:
+        p.grad = None
+    _, packed, _ = eng._make_micro_batches(sample, spec)
+    total = 0.0
+    for pb in packed:
+        arrays = eng._put_batch(pb)
+        live = (arrays["segment_ids"] > 0).sum()
+        loss = -vmapped_next_token_logprobs(eng.params, cfg, arrays).sum() / live
+        loss.backward()
+        total += float(loss.detach())
+    grads = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    return total, grads
+
+
+def train_remat(torch, eng, sample, spec, grpo_round, *, n_inf, n_train,
+                tokens, profile=False):
+    """The ``dots`` and ``dots_attn`` remat policies on the ``train``
+    phase's engine and batch, after its counted ``full`` round. First one
+    forward and backward per policy on the same weights and batch: the
+    loss must equal ``full``'s to the bit and every gradient be within
+    rtol 1e-5 of ``full``'s (the same kernels on the same inputs; a policy
+    only chooses what is kept for the backward). Then, the weights moving
+    from here on, two timed GRPO rounds per policy, in turns: ``dots``
+    reruns the flash forward in the backward as ``full`` does,
+    ``dots_attn`` keeps its residuals, so the flash forward runs L x
+    (n_inf + 2 n_train) times under ``full`` and ``dots`` and L x (n_inf +
+    n_train) under ``dots_attn``, the backward L x n_train under each.
+    ``profile``: one more round per policy under ``torch.profiler``, its
+    device time by kernel and busy share in the policy's line."""
+    import dataclasses
+
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+
+    full_cfg = eng.cfg
+    L = full_cfg.n_layers
+    want_loss, want = policy_grads(torch, eng, "full", sample, spec)
+    checked = {}
+    for policy in ("dots", "dots_attn"):
+        loss, got = policy_grads(torch, eng, policy, sample, spec)
+        worst = 0.0
+        for g, w in zip(got, want):
+            if not torch.allclose(g, w, rtol=1e-5, atol=0.0):
+                raise AssertionError(
+                    f"train_remat {policy}: a gradient differs from full "
+                    f"remat's beyond rtol 1e-5 (max abs "
+                    f"{float((g - w).abs().max())})")
+            worst = max(worst, float(((g - w).abs() / w.abs().clamp_min(
+                1e-30)).max()))
+        if loss != want_loss:
+            raise AssertionError(f"train_remat {policy}: loss {loss!r}, "
+                                 f"full remat's {want_loss!r}")
+        checked[policy] = (loss, worst)
+        del got
+    del want
+    # timed rounds in turns (full, dots, dots_attn, dots_attn, dots, full),
+    # each policy's first preceded by an untimed one (its one-time costs)
+    runs = {p: [] for p in ("full", "dots", "dots_attn")}
+    warmed = {"full"}
+    for policy in ("full", "dots", "dots_attn", "dots_attn", "dots", "full"):
+        eng.cfg = dataclasses.replace(full_cfg, remat_policy=policy)
+        try:
+            if policy not in warmed:
+                grpo_round(sample)
+                warmed.add(policy)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_flash.reset_launches()
+            stats, inf_s, train_s = grpo_round(sample)
+            fwd, bwd = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+        finally:
+            eng.cfg = full_cfg
+        recompute = 1 if policy == "dots_attn" else 2
+        if fwd != L * (n_inf + recompute * n_train) or bwd != L * n_train:
+            raise AssertionError(
+                f"train_remat {policy}: flash launches fwd {fwd} bwd {bwd}; "
+                f"expected {L * (n_inf + recompute * n_train)} and "
+                f"{L * n_train}")
+        runs[policy].append(dict(
+            inference_s=inf_s, train_s=train_s, fwd=fwd, bwd=bwd,
+            peak=torch.cuda.max_memory_allocated() / 1e9,
+            stats={k: stats[k] for k in ("actor_loss", "grad_norm")}))
+    profiles = {}
+    for policy in runs if profile else ():
+        eng.cfg = dataclasses.replace(full_cfg, remat_policy=policy)
+        try:
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                _, inf_s, train_s = grpo_round(sample)
+        finally:
+            eng.cfg = full_cfg
+        profiles[policy] = device_profile(
+            prof, inf_s + train_s, {"flash_fwd": "flash_fwd_v4",
+                                    "flash_bwd": "flash_d", "gemm": "gemm",
+                                    "nvjet": "nvjet"})
+    rows = {}
+    for policy, rs in runs.items():
+        loss, worst = checked.get(policy, (want_loss, 0.0))
+        rows[policy] = dict(
+            policy=policy, tokens=tokens, loss=loss, full_loss=want_loss,
+            grad_max_rel_err=worst,
+            inference_s=[r["inference_s"] for r in rs],
+            train_step_s=[r["train_s"] for r in rs],
+            s_per_optimizer_step=[r["train_s"] / 2 for r in rs],
+            trained_tok_per_s=[tokens / r["train_s"] for r in rs],
+            peak_mem_gb=[r["peak"] for r in rs],
+            flash_fwd_launches=rs[0]["fwd"], flash_bwd_launches=rs[0]["bwd"],
+            stats=[r["stats"] for r in rs],
+        )
+        if policy in profiles:
+            rows[policy]["profile"] = profiles[policy]
+        emit(phase="train_remat", **rows[policy])
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -3525,8 +4283,8 @@ def main(argv=None) -> int:
                          "flash_time, two versions of the paged-decode or "
                          "flash kernels are timed alike")
     ap.add_argument("--keep-logs", default=None,
-                    help="copy the async_ppo run's log (every process of "
-                         "the entry point) into this directory")
+                    help="copy the async_ppo and agentic_ppo entry points' "
+                         "logs (every process of each) into this directory")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     args.kernels = tuple(args.kernels.split(","))
@@ -3635,6 +4393,8 @@ def main(argv=None) -> int:
         async_rollout_phase(torch)
     if "async_ppo" in phases:
         async_ppo_phase(torch, keep_logs=args.keep_logs)
+    agentic = (agentic_ppo_phase(torch, keep_logs=args.keep_logs)
+               if "agentic_ppo" in phases else {})
     if "train_parity" in phases:
         train_parity_phase(torch)
     trained = train_phase(torch, args.profile) if "train" in phases else {}
@@ -3648,7 +4408,9 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": cuda_paged.SOURCE,
             "replaces": cuda_paged.REPLACES,
-            "launches": served.get(variant, {}).get("paged_decode_launches", 0),
+            "launches": served.get(variant, {}).get("paged_decode_launches", 0)
+            + (agentic.get("paged_decode_launches", 0)
+               if variant == "bfloat16" else 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("kernel_ms"),
             "plain_ms": k.get("plain_ms"),
@@ -3665,7 +4427,8 @@ def main(argv=None) -> int:
             "source": cuda_flash.SOURCE,
             "replaces": replaces,
             "launches": (trained.get(f"flash_{part}_launches", 0)
-                         + synced.get(f"flash_{part}_launches", 0)),
+                         + synced.get(f"flash_{part}_launches", 0)
+                         + agentic.get(f"flash_{part}_launches", 0)),
             "max_abs_err": fcase.get(f"{part}_max_abs_err"),
             "ms": fcase.get(f"{part}_ms"),
             "plain_ms": fcase.get(f"plain_{part}_ms"),

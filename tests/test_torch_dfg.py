@@ -6,9 +6,11 @@
   raise the same errors (missing input, duplicate producer, cycle, bad
   interface type);
 - the PPO recipes: node names, levels and hooks for critic on/off, ref
-  on/off, ``kl_ctl == 0`` (no ``ref_inf``), the EMA hook and
-  ``ref_logprobs_in_batch``; the port raises ``NotImplementedError`` for a
-  reward model;
+  on/off, ``kl_ctl == 0`` (no ``ref_inf``), the EMA hook,
+  ``ref_logprobs_in_batch`` and a reward model (``reward_inf``);
+- the RM-scored graph through both executors on one packed batch (the
+  reference's ``TestRMScoredPPO``): the RM's rewards to 1e-5, stats to
+  rtol 1e-4;
 - one graph-driven PPO step through both executors on the same batch and
   params (tiny float32 model, as ``tests/test_torch_train.py``): stats to
   rtol 1e-4, the analytic FLOP count exactly, params to an atol of 1% of
@@ -125,6 +127,11 @@ RECIPES = {
     "no_decoupled_loss": (dict(use_decoupled_loss=False,
                                recompute_logprob=False),
                           dict(use_ref=False, use_critic=True)),
+    "reward_model": (dict(disable_value=True),
+                     dict(use_ref=False, use_critic=False,
+                          use_reward_model=True)),
+    "reward_model_full_ppo": ({}, dict(use_ref=True, use_critic=True,
+                                       use_reward_model=True)),
 }
 
 
@@ -159,6 +166,9 @@ def test_ppo_graph_matches(case):
             ["actor_train", "critic_train"]]
     if case == "kl_zero_skips_ref_inf":
         assert "ref_inf" not in pg.names
+    if case.startswith("reward_model"):
+        assert pg.producers["rewards"] == "reward_inf"
+        assert "reward_inf" not in pi      # built from its interface_impl
 
 
 def test_ppo_graph_errors():
@@ -166,9 +176,11 @@ def test_ppo_graph_errors():
         with pytest.raises(ValueError, match="EMA reference requires"):
             graphs.build_ppo_graph(model.PPOHyperparameters(), use_ref=False,
                                    use_critic=False, ema_ref_eta=0.3)
-    with pytest.raises(NotImplementedError, match="reward"):
-        pt_graphs.build_ppo_graph(pt_model.PPOHyperparameters(), use_ref=False,
-                                  use_critic=False, use_reward_model=True)
+    # a reward model is no error: its node produces the rewards
+    g, _ = pt_graphs.build_ppo_graph(pt_model.PPOHyperparameters(),
+                                     use_ref=False, use_critic=False,
+                                     use_reward_model=True)
+    assert g.producers["rewards"] == "reward_inf"
 
 
 # --------------------------------------------------------------------------- #
@@ -254,6 +266,43 @@ def test_graph_driven_ppo_step_matches():
                                        err_msg=k)
         assert pact.version == jact.version == step
         _assert_params_match(jact.params, pact.params, atol=0.01 * LR * step)
+
+
+def test_reward_inf_node_feeds_ppo():
+    """The reference's ``TestRMScoredPPO::test_reward_inf_node_feeds_ppo``
+    on both packages: a critic-shaped RM (the JAX one's params carried
+    into the port) scores the same rollout batch in each executor; its
+    scores supersede the batch's own rewards, agree to 1e-5, and the PPO
+    step on them agrees to rtol 1e-4."""
+    hp = dict(disable_value=True, kl_ctl=0.0)
+    jact, pact = _engine_pair(13)
+    rm_kw = dict(MODEL, is_critic=True)
+    jrm = jax_engine.TrainEngine(JaxConfig(**rm_kw)).init_random(14)
+    prm = pt_engine.TrainEngine(PtConfig(**rm_kw), device="cpu").load_params(
+        jax.device_get(jrm.params))
+    jg, ji = jax_graphs.build_ppo_graph(
+        jax_model.PPOHyperparameters(**hp), use_ref=False, use_critic=False,
+        use_reward_model=True)
+    pg, pi = pt_graphs.build_ppo_graph(
+        pt_model.PPOHyperparameters(**hp), use_ref=False, use_critic=False,
+        use_reward_model=True)
+    assert _describe(pg, pi) == _describe(jg, ji)
+    assert pg.names[0] == "reward_inf"
+    jex = jax_fe.FunctionExecutor(jg, {"actor": jact, "reward": jrm}, ji,
+                                  default_mb_spec=jax_data.MicroBatchSpec())
+    pex = pt_fe.FunctionExecutor(pg, {"actor": pact, "reward": prm}, pi,
+                                 default_mb_spec=pt_data.MicroBatchSpec())
+    js, ps = _batch(jax_data, 41), _batch(pt_data, 41)
+    before = ps.data["rewards"].copy()
+    jst, pst = jex.run(js), pex.run(ps)
+    np.testing.assert_allclose(ps.data["rewards"], js.data["rewards"],
+                               atol=1e-5, rtol=0)
+    assert not np.allclose(ps.data["rewards"], before)
+    assert ps.seqlens["rewards"] == js.seqlens["rewards"]
+    assert np.isfinite(pst["actor_loss"])
+    for k in jst:
+        np.testing.assert_allclose(pst[k], jst[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
 
 
 def test_ema_hook_matches_jax_param_realloc():

@@ -120,9 +120,58 @@ def test_load_engine_refuses_to_fall_back(monkeypatch):
     ("reward", json.dumps({"arch": TINY_ARCH})),
 ])
 def test_unported_options_raise_before_anything_starts(option, value):
+    """Each option raises before anything starts, except ``reward``: a
+    trained reward model is ported now, so its config passes the check
+    and loads a fourth engine."""
     cfg = load_config(AsyncPPOExperiment, None, [f"{option}={value}"])
+    if option == "reward":
+        launcher._check_ported(cfg)
+        cfg.trainer_device = "cpu"
+        cfg.actor.arch = TINY_ARCH
+        actor, ref, critic, reward = launcher._load_ppo_engines(cfg, 3)
+        assert reward.cfg.is_critic and reward.optimizer is None
+        assert actor.optimizer is not None and critic is None
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         launcher.run_async_ppo(cfg)
+
+
+@pytest.mark.parametrize("overrides", [
+    [], ["use_ref_model=false"], ['ppo={"kl_ctl": 0.0}'],
+    ['ppo={"kl_ctl": 0.0}', "ema_ref_eta=0.5"],
+    [f"critic={json.dumps({'arch': TINY_ARCH})}"],
+    [f"critic={json.dumps({'arch': TINY_ARCH})}",
+     'ppo={"disable_value": true}'],
+    [f"reward={json.dumps({'arch': TINY_ARCH})}"],
+    [f"reward={json.dumps({'arch': TINY_ARCH})}",
+     f"critic={json.dumps({'arch': TINY_ARCH})}", "use_ref_model=false"],
+])
+def test_load_ppo_engines_gating_matches_the_reference(overrides,
+                                                       monkeypatch):
+    """``_load_ppo_engines`` returns (actor, ref, critic, reward) under the
+    reference's gating rules: which engines exist, from which spec, with
+    or without a critic head and an optimizer."""
+    from areal_tpu.apps import launcher as jax_launcher
+
+    def recorder(cfg):
+        names = {id(getattr(cfg, k)): k for k in ("actor", "critic",
+                                                  "reward")
+                 if getattr(cfg, k) is not None}
+
+        def load(spec, is_critic=False, with_optimizer=True, total_steps=0,
+                 device=None):
+            return (names[id(spec)], is_critic, with_optimizer)
+        return load
+
+    got = {}
+    for name, mod, exp, load in (
+            ("jax", jax_launcher, JaxExperiment, jax_load_config),
+            ("torch", launcher, AsyncPPOExperiment, load_config)):
+        cfg = load(exp, None, overrides)
+        monkeypatch.setattr(mod, "_load_engine", recorder(cfg))
+        got[name] = mod._load_ppo_engines(cfg, 5)
+    assert got["torch"] == got["jax"]
+    assert len(got["torch"]) == 4
 
 
 @pytest.mark.parametrize("option,value", [
@@ -228,7 +277,8 @@ def test_in_process_configs_match_the_reference(name):
 def test_sync_ppo_experiment(tmp_path):
     """Port of ``tests/test_experiment_e2e.py::test_sync_ppo_experiment``:
     in-process sync PPO for 2 steps with a save, on one device and
-    ``trainer_device=cpu``."""
+    ``trainer_device=cpu``. A ``reward`` model spec is ignored there, as
+    the reference ignores it."""
     from areal_tpu_torch.experiments import SyncPPOExperiment
 
     data = str(tmp_path / "math.jsonl")
@@ -250,6 +300,7 @@ def test_sync_ppo_experiment(tmp_path):
         'gconfig={"n": 2, "max_new_tokens": 12}',
         'ppo={"ppo_n_minibatches": 1, "disable_value": true,'
         ' "use_decoupled_loss": false, "recompute_logprob": false}',
+        f"reward={json.dumps({'arch': TINY_ARCH})}",
     ])
     assert launcher.run_sync_ppo(cfg) == 0
     metrics = os.path.join(
@@ -372,6 +423,30 @@ def test_async_ppo_world_on_the_cpu(tmp_path):
     assert sorted(os.listdir(sync_root)) == ["v1", "v2"]
     dump = json.load(open(logs / "gen_server_0.json"))
     assert dump["version"] == 2 and dump["engine_decode_steps"] > 0
+
+
+def test_agentic_rm_scored_world_on_the_cpu(tmp_path):
+    """The multi-turn agent, a trained reward model as the graph's
+    ``reward_inf`` node and the actor under ``dots_attn``, through
+    ``python -m areal_tpu_torch.apps.main async-ppo`` on the CPU."""
+    overrides = [o for o in _world_overrides(tmp_path, "agentic")
+                 if not o.startswith(("gconfig=", "control.total_train"))]
+    rc, out = _run_world(tmp_path, overrides + [
+        "gen.device=cpu", "control.total_train_steps=1",
+        f"reward={json.dumps({'arch': TINY_ARCH})}",
+        "rollout.agent=math-multi-turn",
+        'rollout.agent_args={"max_turns": 2, "turn_discount": 0.9, '
+        '"feedback_token_ids": [3, 4, 5]}',
+        'actor.overrides={"remat_policy": "dots_attn"}',
+        'gconfig={"n": 1, "max_new_tokens": 8}',
+    ])
+    assert rc == 0, out[-4000:]
+    assert "NotImplementedError" not in out
+    logs = tmp_path / "root" / "logs" / "agentic" / "t0"
+    lines = [json.loads(l) for l in open(logs / "metrics.jsonl")]
+    assert len(lines) == 1
+    for k in ("ppo/actor_loss", "ppo/grad_norm", "ppo/n_tokens"):
+        assert np.isfinite(lines[0][k]), k
 
 
 def test_a_card_designated_server_without_a_gpu_fails_the_world(tmp_path):

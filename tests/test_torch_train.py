@@ -213,12 +213,13 @@ def test_forward_packed_architectures_match(arch):
 
 
 def test_remat_policies():
-    """``full`` checkpoints each layer and gives the gradients of ``none``;
-    the reference's ``dots`` policies are not ported yet and say so."""
+    """``full``, ``dots`` and ``dots_attn`` checkpoint each layer and give
+    the gradients of ``none`` (``tests/test_torch_remat.py`` holds the
+    ``dots`` policies against the reference's)."""
     pb = pt_batching.pack_sequences(_sample(pt_data, 6), n_rows=1)
     arrays = {k: torch.from_numpy(v[0]) for k, v in pb.arrays.items()}
     grads = {}
-    for policy in ("full", "none"):
+    for policy in ("full", "dots", "dots_attn", "none"):
         cfg = PtConfig(**MODEL, remat_policy=policy)
         params = pt_tfm.tree_map(lambda t: t.requires_grad_(True),
                                  pt_tfm.init_params(cfg, seed=1, device="cpu"))
@@ -226,10 +227,11 @@ def test_remat_policies():
                                     arrays["segment_ids"], arrays["positions"])
         out.square().mean().backward()
         grads[policy] = [t.grad for t in pt_engine._leaves(params)]
-    for a, b in zip(grads["full"], grads["none"]):
-        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
-    cfg = PtConfig(**MODEL, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
+    for policy in ("full", "dots", "dots_attn"):
+        for a, b in zip(grads[policy], grads["none"]):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    cfg = PtConfig(**MODEL, remat_policy="everything")
+    with pytest.raises(ValueError, match="remat_policy"):
         pt_tfm.forward_packed(pt_tfm.init_params(cfg, device="cpu"), cfg,
                               arrays["input_ids"].long(),
                               arrays["segment_ids"], arrays["positions"])

@@ -311,9 +311,67 @@ def test_failed_publish_surfaces_on_join(roots, monkeypatch):
 
 
 def test_elastic_and_reward_model_are_not_ported(roots):
+    """The elastic world still raises; a reward engine is now wired into
+    the executor as ``"reward"`` (its ``reward_inf`` node produces the
+    rewards, so intake no longer asks the stream for them)."""
     _, peng = _engines(seed=6)
     w = _worker(PT, peng, ListStream([]), "torch")
     with pytest.raises(NotImplementedError, match="elastic"):
         w.run(elastic=object())
-    with pytest.raises(NotImplementedError, match="reward"):
-        _worker(PT, peng, ListStream([]), "torch", reward_engine=peng)
+    rm = _rm_engines(seed=7)[1]
+    w = _worker(PT, peng, ListStream([]), "torch", reward_engine=rm)
+    assert w.executor.engines["reward"] is rm
+    assert w.executor.graph.producers["rewards"] == "reward_inf"
+    assert "rewards" not in w._required_keys
+    assert "rewards" in _worker(PT, peng, ListStream([]),
+                                "torch")._required_keys
+
+
+def _rm_engines(seed):
+    """A critic-shaped reward model, no optimizer, in both packages on the
+    same params."""
+    kw = dict(MODEL, is_critic=True)
+    j = jax_engine.TrainEngine(JaxConfig(**kw)).init_random(seed)
+    p = pt_engine.TrainEngine(PtConfig(**kw), device="cpu").load_params(
+        jax.device_get(j.params))
+    return j, p
+
+
+def test_rm_scored_run_step_matches_the_reference(roots):
+    """One ``run_step`` of each package's worker with a reward engine on
+    identical streams: the batch the graph trained on carries the RM's
+    scores (not the stream's rewards) within 1e-5 of the reference's, the
+    step stats agree to rtol 1e-4, the graph's levels are the reference's."""
+    jeng, peng = _engines(seed=2)
+    jrm, prm = _rm_engines(seed=5)
+    jw = _worker(JAX, jeng, ListStream(_stream_samples(jax_data, 9, 8)),
+                 "jax", reward_engine=jrm)
+    pw = _worker(PT, peng, ListStream(_stream_samples(pt_data, 9, 8)),
+                 "torch", reward_engine=prm)
+    levels = [[[m.name for m in lvl] for lvl in w.executor.graph.levels]
+              for w in (jw, pw)]
+    assert levels[0] == levels[1] == [["actor_inf", "reward_inf"],
+                                      ["actor_train"]]
+    trained = {}
+    for name, w in (("jax", jw), ("torch", pw)):
+        run = w.executor.run
+
+        def record(sample, run=run, name=name):
+            out = run(sample)
+            trained[name] = sample
+            return out
+
+        w.executor.run = record
+    jst, pst = jw.run_step(), pw.run_step()
+    jw._join_publish()
+    pw._join_publish()
+    for k in STAT_KEYS:
+        np.testing.assert_allclose(pst[k], float(np.asarray(jst[k])),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
+    jr = np.asarray(trained["jax"].data["rewards"])
+    pr = trained["torch"].data["rewards"]
+    assert pr.shape == (2 * BATCH,)
+    np.testing.assert_allclose(pr, jr, atol=1e-5, rtol=0)
+    streamed = np.concatenate([s.data["rewards"]
+                               for s in _stream_samples(pt_data, 9, 8)])
+    assert not np.allclose(pr, streamed)
