@@ -125,10 +125,32 @@ def _check_gen_ported(gen):
         raise NotImplementedError(
             f"gen.tp_size={gen.tp_size}: tensor-parallel servers are not "
             "ported yet (ROADMAP.md)")
-    if gen.spec_decode or gen.spec_k or gen.spec_draft_model:
-        raise NotImplementedError(
-            "speculative decoding and draft models are not ported yet "
-            "(ROADMAP.md)")
+
+
+def _gen_drafter(gen):
+    """The draft MODEL for spec decode: ``gen.spec_draft_model`` beats the
+    env knob (None lets the engine fall through to ``AREAL_SPEC_DRAFT_
+    MODEL``, then the n-gram self-drafter). Loaded only when spec decode is
+    on: the engine keeps an explicit drafter regardless of the flag, so
+    loading one for a spec-disabled fleet would make every server pay a
+    draft pool and a per-step sweep while never speculating."""
+    from areal_tpu_torch.base import constants
+
+    spec_on = (gen.spec_decode if gen.spec_decode is not None
+               else constants.spec_decode_enabled())
+    if gen.spec_draft_model and spec_on:
+        from areal_tpu_torch.gen.drafter import TransformerDrafter
+
+        return TransformerDrafter.from_hf(gen.spec_draft_model,
+                                          kv_dtype=gen.spec_draft_kv_dtype)
+    if gen.spec_draft_model:
+        logger.warning(
+            "gen.spec_draft_model is set but spec decode is disabled for "
+            "the gen fleet; not loading the draft model (set "
+            "gen.spec_decode=true or %s to serve it)",
+            constants.SPEC_DECODE_ENV,
+        )
+    return None
 
 
 # --------------------------------------------------------------------------- #
@@ -136,19 +158,15 @@ def _check_gen_ported(gen):
 # --------------------------------------------------------------------------- #
 
 
-def gen_server_main(cfg, server_idx: int):
-    _check_gen_ported(cfg.gen)
-    _setup_worker_env(cfg, cfg.gen.device)
-    from areal_tpu_torch.base import constants, name_resolve, names
+def gen_engine(cfg, server_idx: int):
+    """The generation engine of server ``server_idx``: the actor's weights
+    (its checkpoint, else the trainer's seed-0 init) in the serving dtype
+    on ``gen.device``, with the fleet's pool, sampling and spec-decode
+    options."""
     from areal_tpu_torch.base.device import resolve_device, torch_dtype
     from areal_tpu_torch.gen.engine import GenerationEngine
-    from areal_tpu_torch.gen.server import serve
     from areal_tpu_torch.models import hf as hf_conv
     from areal_tpu_torch.models import transformer as tfm
-    from areal_tpu_torch.system.worker_base import (
-        ExperimentStatusWatch,
-        Heartbeat,
-    )
 
     device = resolve_device(_device_arg(cfg.gen.device))
     mcfg = cfg.actor.model_config()
@@ -172,6 +190,9 @@ def gen_server_main(cfg, server_idx: int):
         page_size=cfg.gen.page_size,
         n_pages=cfg.gen.n_pages,
         kv_dtype=cfg.gen.kv_dtype,
+        spec_decode=cfg.gen.spec_decode,
+        spec_k=cfg.gen.spec_k,
+        drafter=_gen_drafter(cfg.gen),
         device=device,
     )
     del params
@@ -179,6 +200,20 @@ def gen_server_main(cfg, server_idx: int):
         import torch
 
         torch.cuda.empty_cache()
+    return engine
+
+
+def gen_server_main(cfg, server_idx: int):
+    _check_gen_ported(cfg.gen)
+    _setup_worker_env(cfg, cfg.gen.device)
+    from areal_tpu_torch.base import constants, name_resolve, names
+    from areal_tpu_torch.gen.server import serve
+    from areal_tpu_torch.system.worker_base import (
+        ExperimentStatusWatch,
+        Heartbeat,
+    )
+
+    engine = gen_engine(cfg, server_idx)
     host = "127.0.0.1"
     srv = serve(
         engine, host, 0, decode_steps=cfg.gen.decode_steps_per_chunk,

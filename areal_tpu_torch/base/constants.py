@@ -128,6 +128,71 @@ def env_knob(name: str, default_depth: int) -> int:
         return default_depth
 
 
+# Speculative decoding (the reference's "Speculative decoding" knobs).
+SPEC_DECODE_ENV = "AREAL_SPEC_DECODE"   # draft-and-verify decode chunks
+SPEC_K_ENV = "AREAL_SPEC_K"             # draft tokens per slot per spec step
+SPEC_DRAFT_MODEL_ENV = "AREAL_SPEC_DRAFT_MODEL"      # HF dir of draft model
+SPEC_DRAFT_KV_DTYPE_ENV = "AREAL_SPEC_DRAFT_KV_DTYPE"  # draft KV pool dtype
+SPEC_K_ADAPT_ENV = "AREAL_SPEC_K_ADAPT"  # retune spec_k from live accept stats
+
+
+def spec_decode_enabled() -> bool:
+    """``AREAL_SPEC_DECODE`` (default off): generation engines decode with
+    speculative draft-and-verify chunks (self-drafting n-gram baseline;
+    exactly distribution-preserving, so PPO-safe). An explicit
+    ``spec_decode`` engine argument overrides this knob."""
+    return env_flag(SPEC_DECODE_ENV, False)
+
+
+def spec_k() -> int:
+    """``AREAL_SPEC_K`` (default 4): draft tokens proposed per slot per
+    speculative step; the verify pass scores K+1 positions in one forward.
+    Floored at 1 (K=0 would be vanilla decode with extra steps)."""
+    return max(1, env_int(SPEC_K_ENV, 4))
+
+
+def spec_draft_model() -> Optional[str]:
+    """``AREAL_SPEC_DRAFT_MODEL`` (default unset): HF checkpoint dir of a
+    small draft MODEL for speculative decoding. Engines built without an
+    explicit drafter AND with spec decode on load a ``TransformerDrafter``
+    from it instead of the n-gram self-drafter; spec-disabled engines log
+    and ignore it (a draft model costs pool memory and a per-step sweep).
+    The draft's vocab must match the serving model's. Empty/unset ->
+    None."""
+    raw = env_str(SPEC_DRAFT_MODEL_ENV)
+    if raw is None or not raw.strip():
+        return None
+    return raw.strip()
+
+
+def spec_draft_kv_dtype() -> Optional[str]:
+    """``AREAL_SPEC_DRAFT_KV_DTYPE`` (default unset = the draft's serving
+    dtype): storage dtype of the draft model's paged KV pool, with the
+    contract of ``AREAL_KV_DTYPE`` (``"int8"`` quantizes; unknown values
+    fall back to unset, logged)."""
+    raw = env_str(SPEC_DRAFT_KV_DTYPE_ENV)
+    if raw is None or not raw.strip():
+        return None
+    v = raw.strip().lower()
+    if v == "int8":
+        return "int8"
+    if v in ("bf16", "bfloat16"):
+        return "bf16"
+    _logger.warning(
+        "ignoring unknown %s=%r (using the draft serving dtype)",
+        SPEC_DRAFT_KV_DTYPE_ENV, raw,
+    )
+    return None
+
+
+def spec_k_adapt_enabled() -> bool:
+    """``AREAL_SPEC_K_ADAPT`` (default off): speculative engines retune
+    ``spec_k`` between chunks from the live accept-length window (mean
+    accept length with hysteresis, over a small fixed choice set, so the
+    spec programs stay bounded)."""
+    return env_flag(SPEC_K_ADAPT_ENV, False)
+
+
 def train_prefetch_enabled() -> bool:
     """``AREAL_TRAIN_PREFETCH`` (default on): the trainer worker logs its
     stats once per ``stats_log_freq_steps`` steps instead of every step

@@ -85,8 +85,8 @@ class GenFleetSpec:
     tp_size: int = 1
     page_size: int = 128
     n_pages: Optional[int] = None    # KV pool size; None = max_slots * tables
-    # speculative decoding and its draft model are not ported yet:
-    # gen_server_main raises when either is asked for
+    # speculative decoding: None defers to AREAL_SPEC_DECODE / AREAL_SPEC_K;
+    # a draft model (HF dir) is loaded only when spec decode is on
     spec_decode: Optional[bool] = None
     spec_k: Optional[int] = None
     spec_draft_model: Optional[str] = None

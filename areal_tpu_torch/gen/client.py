@@ -234,6 +234,16 @@ class GenAPIClient:
             retry_connection_only=True,
         )
 
+    async def set_spec_decode(self, server_url: str, enabled: bool) -> Dict:
+        """Toggle speculative decoding on a server (it takes effect at the
+        server's next chunk dispatch). Control-plane call: short per-call
+        timeout, idempotent, so the full retry policy applies."""
+        return await self._request_json(
+            "POST", server_url, "/spec_decode",
+            json_body={"enabled": bool(enabled)},
+            timeout=self.request_timeout,
+        )
+
     async def post_json(self, server_url: str, endpoint: str,
                         json_body: Dict) -> Dict:
         """Idempotent control-plane POST (manager ``/add_server``, ...):

@@ -1,5 +1,5 @@
 """Slot-based continuous-batching generation engine over a paged KV pool
-(counterpart of ``areal_tpu/gen/engine.py``, vanilla decode path).
+(counterpart of ``areal_tpu/gen/engine.py``).
 
 - KV memory is a POOL of fixed-size pages (``models/transformer.
   PagedKVCache`` + ``gen/pages.py``); each slot holds a page table, and
@@ -16,13 +16,23 @@
 - Decode: a chunk of N steps; stop-token detection and per-slot caps run
   on the device, so the host syncs once per chunk. Each step's attention
   is the paged decode kernel on a GPU.
+- Speculative decoding (``spec_decode`` / ``AREAL_SPEC_DECODE``, togglable
+  between chunks through ``spec``): each step of a spec chunk drafts K
+  tokens per slot (the n-gram self-drafter over ``ctx_tokens``, or a
+  small draft model with its own paged pool, ``gen/drafter.py``), scores
+  the K+1 positions in one verify pass and accepts a prefix by rejection
+  sampling, so a slot advances 1..K+1 tokens a step, exactly
+  distribution-preserving. Both chunk kinds keep ``ctx_tokens``,
+  ``fallback_token`` and the draft pool current, so spec and vanilla
+  chunks interleave freely on one state.
 - Programs (the counterparts of the reference's jitted programs): one
   extend program per ``(n_rows, width, skip_pool)`` key, one commit
-  program per admit-row bucket and one decode chunk per ``(n_steps,
-  width, warp_bucket, fused, with_topk)`` key (``_jit_extend``,
-  ``_jit_commit``, ``_jit_chunk``). On a GPU each key's body is captured
-  once as a ``torch.cuda.CUDAGraph`` and every later use replays it; on
-  the CPU the same body runs eagerly. Either way a program reads and
+  program per admit-row bucket, one decode chunk per ``(n_steps, width,
+  warp_bucket, fused, with_topk)`` key and one spec chunk per ``(n_steps,
+  width, warp_bucket, spec_k, fused)`` key (``_jit_extend``,
+  ``_jit_commit``, ``_jit_chunk``, ``_jit_spec``). On a GPU each key's
+  body is captured once as a ``torch.cuda.CUDAGraph`` and every later use
+  replays it; on the CPU the same body runs eagerly. Either way a program reads and
   writes only static buffers: the pool and the decode state are updated
   in place; a wave's tokens, table rows and positions, a commit's slot
   rows and a chunk's page table and warp rows are copied from pinned
@@ -51,8 +61,8 @@
   kernel on a GPU). Top-p slots and top-k slots past the online buffer
   keep the sorted sampler over their own logits rows only.
 
-Left out of this port so far (all off by default in the reference):
-speculative decoding and drafters, and the tensor-parallel mesh.
+Left out of this port so far (off by default in the reference): the
+tensor-parallel mesh.
 
 Thread-safety: ``submit`` arrives on the server's handler threads while
 ``step`` runs on the server's engine thread. ``_lock`` guards device
@@ -61,6 +71,7 @@ state, slots and pool; ``_pending_lock`` guards only the intake queue.
 
 import dataclasses
 import functools
+import logging
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -70,13 +81,24 @@ import torch
 
 from areal_tpu_torch.base import constants
 from areal_tpu_torch.base.device import resolve_device, torch_dtype
+from areal_tpu_torch.gen.drafter import (
+    Drafter,
+    NGramDrafter,
+    TransformerDrafter,
+)
 from areal_tpu_torch.gen.pages import OutOfPagesError, PagePool, PrefixRegistry
-from areal_tpu_torch.gen.sampling import SamplingParams, sample_tokens
+from areal_tpu_torch.gen.sampling import (
+    SamplingParams,
+    sample_tokens,
+    spec_rejection_sample,
+)
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.ops import fused_sample as fused_ops
 from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
 from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
+
+logger = logging.getLogger("areal_tpu_torch.gen.engine")
 
 # the kernel wrappers a decode chunk launches through: a captured chunk
 # credits each one the launches its capture recorded, on every replay
@@ -95,12 +117,25 @@ class GenState:
     stop_ids: torch.Tensor      # [B, K] i64 per-slot stop tokens (-1 = unused)
     out_tokens: torch.Tensor    # [B, G] i64
     out_logprobs: torch.Tensor  # [B, G] f32
+    # token-id mirror of the resident context for the self-drafter:
+    # ctx_tokens[b, i] is the token whose KV sits at pool position i, and
+    # ctx_tokens[b, lens[b]] = last_tokens[b] (pending, KV not written);
+    # kept by both decode paths, so spec and vanilla chunks interleave
+    ctx_tokens: torch.Tensor    # [B, S] i64
+    # the drafter's fallback when the n-gram lookup misses: the target's
+    # argmax at the previous spec step's emission boundary
+    fallback_token: torch.Tensor  # [B] i64
     sp: SamplingParams
     # every per-slot tensor above is the first B rows of one of these,
     # which have a trash row B past the slots: the commit programs write
-    # through them, their padding rows to row B (the counterpart of the
-    # reference's out-of-range ``mode="drop"`` index)
+    # through them, their padding rows to row B, and so do the chunks'
+    # scatters their dropped writes (the counterpart of the reference's
+    # out-of-range ``mode="drop"`` index)
     padded: Dict[str, torch.Tensor]
+    # the draft MODEL's own paged pool (None without a TransformerDrafter):
+    # addressed by the target's page tables and lens, so draft pages
+    # allocate and free in lockstep; both decode paths keep it current
+    draft_cache: Optional[tfm.PagedKVCache] = None
 
 
 @dataclasses.dataclass
@@ -127,7 +162,7 @@ class GenOutput:
 
 # The commit programs' operand row: slot, last token, resident length,
 # temperature and top-p (their float32 bits), top-k, min and max new
-# tokens, then the stop ids
+# tokens, then the stop ids, then the prompt's ids (S columns, zero-padded)
 _COMMIT_COLS = 8
 # pinned staging buffers per engine: a buffer is rewritten only after the
 # copy out of it, enqueued that many stagings earlier, has run
@@ -225,6 +260,9 @@ class _Program:
     run: Callable[[], None]
     graph: Optional["torch.cuda.CUDAGraph"] = None
     launches: Dict[object, int] = dataclasses.field(default_factory=dict)
+    # a spec chunk's static [3, n_steps, B] f32 output: drafted and
+    # accepted counts and the mean accept probability per (step, slot)
+    aux: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -241,6 +279,7 @@ class _ChunkIO:
     warp: torch.Tensor           # [B] i64
     flags: torch.Tensor          # [4, B] i32: active, n_gen, max_gen, lens
     done: Optional["torch.cuda.Event"] = None
+    aux: Optional[torch.Tensor] = None   # a spec chunk's aux, on the host
 
 
 @dataclasses.dataclass
@@ -265,9 +304,19 @@ class _InFlight:
     decode: tuple
     prefill: List[tuple]
     running: Tuple[Tuple[int, int], ...]
+    spec: bool = False      # a spec chunk (its aux rides in io.aux)
+    advance: int = 0        # tokens the chunk can advance a slot
 
 
 class GenerationEngine:
+    # Adaptive spec-K (AREAL_SPEC_K_ADAPT): retune after WINDOW accept-length
+    # observations; step K up when the windowed mean accept length clears
+    # UP * K, down when it falls under DOWN * K (the gap is the hysteresis
+    # band that keeps K from oscillating at a boundary).
+    SPEC_K_ADAPT_WINDOW = 128
+    SPEC_K_ADAPT_UP = 0.75
+    SPEC_K_ADAPT_DOWN = 0.25
+
     def __init__(
         self,
         cfg: ModelConfig,
@@ -285,10 +334,15 @@ class GenerationEngine:
         admit_buckets: Sequence[int] = (1, 2, 4, 8),
         enable_prefix_cache: bool = True,
         admit_chunk_tokens: Optional[int] = None,
+        spec_decode: Optional[bool] = None,
+        spec_k: Optional[int] = None,
+        drafter: Optional[Drafter] = None,
+        spec_k_adapt: Optional[bool] = None,
         device=None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self._init_drafter(cfg, spec_decode, drafter)
         # fused sampling epilogue: explicit argument > AREAL_FUSED_SAMPLE
         self.fused = (
             fused_sample
@@ -309,9 +363,11 @@ class GenerationEngine:
         self.kv_quantized = self.kv_dtype == "int8"
         # the engine's own tensors: update_params copies into them, so
         # none may alias the caller's
-        self.params = tfm.tree_map(
-            lambda t, src: t.clone() if t.data_ptr() == src.data_ptr() else t,
-            self.prepare_params(params), params,
+        self.params = self._own(self.prepare_params(params), params)
+        self.draft_params = (
+            self._own(self.prepare_draft_params(self._draft.params),
+                      self._draft.params)
+            if self._draft is not None else None
         )
         self.B = max_slots
         self.page = page_size
@@ -353,7 +409,33 @@ class GenerationEngine:
                 device=self.device,
             ),
             self.G,
+            # the draft pool mirrors the target pool's page count, so one
+            # page index addresses both (lockstep alloc and free)
+            draft_cache=(
+                tfm.PagedKVCache.empty(
+                    self.draft_cfg, self.n_pages, self.page,
+                    kv_dtype="int8" if self.draft_kv_quantized else None,
+                    device=self.device,
+                ) if self._draft is not None else None
+            ),
         )
+        # speculative decoding: draft-and-verify chunks, togglable between
+        # chunks (``spec`` is read once per step under the engine lock)
+        self.spec = self._spec_on
+        self.spec_k = max(
+            1, spec_k if spec_k is not None else constants.spec_k()
+        )
+        # adaptive spec-K: K moves within a small fixed choice set, so the
+        # spec programs stay bounded (one per chunk key and K)
+        self.spec_k_adapt = (
+            spec_k_adapt
+            if spec_k_adapt is not None
+            else constants.spec_k_adapt_enabled()
+        )
+        self._spec_k_choices = sorted({1, 2, 4, 8} | {self.spec_k})
+        self._accept_window: List[float] = []
+        # accept length -> (step, slot) count over every spec chunk
+        self.spec_accept_hist: Dict[int, int] = {}
         self.accepting = True  # False = decode only, no new admissions
         self.paused = False
         self._slots: List[Optional[_SlotInfo]] = [None] * self.B
@@ -401,8 +483,9 @@ class GenerationEngine:
         K = self.max_stop_ids
         self._extend_ops = torch.zeros((n_max * (C + M + 2),),
                                        dtype=torch.int64, device=dev)
-        self._commit_ops = torch.zeros((n_max * (_COMMIT_COLS + K),),
-                                       dtype=torch.int64, device=dev)
+        self._commit_ops = torch.zeros(
+            (n_max * (_COMMIT_COLS + K + self.S),), dtype=torch.int64,
+            device=dev)
         n_stage = max(self._extend_ops.numel(), self._commit_ops.numel())
         self._staging = [
             _Staging(buf=torch.zeros((n_stage,), dtype=torch.int64,
@@ -413,6 +496,7 @@ class GenerationEngine:
         self._jit_extend: Dict[tuple, _Program] = {}
         self._jit_commit: Dict[int, _Program] = {}
         self._jit_chunk: Dict[tuple, _Program] = {}
+        self._jit_spec: Dict[tuple, _Program] = {}
         # device-time spans of the admission under way (_span_open)
         self._spans: List[tuple] = []
         self._span_start = None
@@ -461,12 +545,119 @@ class GenerationEngine:
             "admit_capture_s": 0.0,     # host wall time of their captures
             "chunk_flag_fetches": 0,    # chunks resolved
             "chunk_flag_blocked": 0,    # ... whose flag copy was not done yet
+            # speculative decoding: draft tokens proposed and accepted;
+            # spec steps run (warm-ups included, as decode_steps counts
+            # vanilla ones), their device time, their CUDA graphs
+            # captured and replayed, the steps sampled by the fused
+            # epilogue, and (general-q drafters) the sum and count of
+            # per-(step, slot) mean accept probabilities
+            "spec_draft_tokens": 0,
+            "spec_accepted_tokens": 0,
+            "spec_steps": 0,
+            "spec_s": 0.0,
+            "spec_captures": 0,
+            "spec_replays": 0,
+            "spec_fused_steps": 0,
+            "spec_q_accept_prob_sum": 0.0,
+            "spec_q_accept_prob_n": 0,
         }
 
-    def _make_state(self, cache: tfm.PagedKVCache, width: int) -> GenState:
-        """Slot state over ``cache`` with ``width`` output columns a slot,
-        every slot inactive; each per-slot tensor is a view of the first
-        B rows of one with a trash row (``GenState.padded``)."""
+    def _init_drafter(self, cfg: ModelConfig, spec_decode: Optional[bool],
+                      drafter: Optional[Drafter]):
+        """Resolve the drafter before any state exists (a draft model adds
+        its params and a pool). Explicit argument > ``AREAL_SPEC_DRAFT_
+        MODEL`` checkpoint > the n-gram self-drafter. The env checkpoint
+        is loaded only when spec decode is on: a draft model costs pool
+        memory and a sweep per vanilla step, which an engine that never
+        speculates must not pay. An explicit drafter is kept regardless
+        (its caller may turn spec on later)."""
+        self._spec_on = (
+            spec_decode
+            if spec_decode is not None
+            else constants.spec_decode_enabled()
+        )
+        if drafter is None:
+            draft_path = constants.spec_draft_model()
+            if draft_path and self._spec_on:
+                drafter = TransformerDrafter.from_hf(
+                    draft_path, kv_dtype=constants.spec_draft_kv_dtype()
+                )
+            elif draft_path:
+                logger.warning(
+                    "%s is set but spec decode is disabled on this engine; "
+                    "not loading the draft model (enable %s or pass "
+                    "spec_decode=True to serve it)",
+                    constants.SPEC_DRAFT_MODEL_ENV, constants.SPEC_DECODE_ENV,
+                )
+        self.drafter: Drafter = (
+            drafter if drafter is not None else NGramDrafter()
+        )
+        sampled = not getattr(self.drafter, "deterministic", True)
+        if sampled and not getattr(self.drafter, "provides_q_logprobs",
+                                   False):
+            # accepting sampled proposals without their distribution would
+            # bias generation toward the drafter
+            raise NotImplementedError(
+                "non-deterministic drafters need their proposal logprobs "
+                "threaded into spec_rejection_sample (q_logprobs): set "
+                "provides_q_logprobs = True and return them, or use a "
+                "deterministic (one-hot) drafter"
+            )
+        self._draft: Optional[TransformerDrafter] = (
+            self.drafter if isinstance(self.drafter, TransformerDrafter)
+            else None
+        )
+        if sampled and self._draft is None:
+            # q reaches the rejection sampler through propose_model only
+            raise NotImplementedError(
+                "sampled drafters are wired through the TransformerDrafter "
+                "propose_model interface (draft params and paged KV inside "
+                "the spec chunk); subclass TransformerDrafter to customize "
+                "proposals"
+            )
+        self.draft_cfg: Optional[ModelConfig] = None
+        self.draft_kv_dtype: Optional[str] = None
+        self.draft_kv_quantized = False
+        self.draft_version = 0
+        if self._draft is None:
+            return
+        dcfg = self._draft.cfg
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft model vocab ({dcfg.vocab_size}) must match the "
+                f"serving model's ({cfg.vocab_size}): proposed tokens are "
+                "scored by the target verbatim"
+            )
+        if dcfg.dtype != cfg.dtype:
+            # serve the draft in the target's activation dtype, and write
+            # it back: propose_model runs under the drafter's cfg
+            dcfg = dataclasses.replace(dcfg, dtype=cfg.dtype)
+        self.draft_cfg = self._draft.cfg = dcfg
+        dkd = (
+            self._draft.kv_dtype
+            if self._draft.kv_dtype is not None
+            else constants.spec_draft_kv_dtype()
+        )
+        self.draft_kv_dtype = _resolve_kv_dtype(dkd, dcfg.dtype)
+        self.draft_kv_quantized = self.draft_kv_dtype == "int8"
+
+    @staticmethod
+    def _own(prepared, src):
+        """``prepared`` with every leaf that still aliases ``src`` cloned:
+        weight updates copy into the engine's tensors, so none may alias
+        the caller's."""
+        return tfm.tree_map(
+            lambda t, s: t.clone() if t.data_ptr() == s.data_ptr() else t,
+            prepared, src,
+        )
+
+    def _make_state(self, cache: tfm.PagedKVCache, width: int,
+                    draft_cache: Optional[tfm.PagedKVCache] = None
+                    ) -> GenState:
+        """Slot state over ``cache`` (and ``draft_cache``) with ``width``
+        output columns a slot, every slot inactive; each per-slot tensor is
+        a view of the first B rows of one with a trash row
+        (``GenState.padded``)."""
         B, dev = self.B, self.device
         padded = {}
 
@@ -487,12 +678,15 @@ class GenerationEngine:
             stop_ids=full("stop_ids", (K,), -1, torch.int64),
             out_tokens=full("out_tokens", (width,), 0, torch.int64),
             out_logprobs=full("out_logprobs", (width,), 0.0, torch.float32),
+            ctx_tokens=full("ctx_tokens", (self.S,), 0, torch.int64),
+            fallback_token=full("fallback_token", (), 0, torch.int64),
             sp=SamplingParams(
                 temperature=full("temperature", (), 1.0, torch.float32),
                 top_p=full("top_p", (), 1.0, torch.float32),
                 top_k=full("top_k", (), 1 << 30, torch.int64),
             ),
             padded=padded,
+            draft_cache=draft_cache,
         )
 
     # ------------------------------------------------------------------ #
@@ -521,14 +715,14 @@ class GenerationEngine:
             return len(self._pending)
 
     def n_compiles(self) -> int:
-        """Programs built so far, as the reference counts its jitted ones
-        (spec decode aside): extend programs per ``(n_rows, width,
-        skip_pool)``, commit programs per admit-row bucket and decode
-        chunks per ``(n_steps, width, warp_bucket, fused, with_topk)``
-        (a CUDA graph each on a GPU). Bounded by the buckets and chunk
-        sizes, never by prompt lengths."""
-        return len(self._jit_extend) + len(self._jit_commit) + len(
-            self._jit_chunk)
+        """Programs built so far, as the reference counts its jitted ones:
+        extend programs per ``(n_rows, width, skip_pool)``, commit programs
+        per admit-row bucket, decode chunks per ``(n_steps, width,
+        warp_bucket, fused, with_topk)`` and spec chunks per ``(n_steps,
+        width, warp_bucket, spec_k, fused)`` (a CUDA graph each on a GPU).
+        Bounded by the buckets and chunk sizes, never by prompt lengths."""
+        return (len(self._jit_extend) + len(self._jit_commit)
+                + len(self._jit_chunk) + len(self._jit_spec))
 
     @property
     def has_inflight(self) -> bool:
@@ -538,13 +732,23 @@ class GenerationEngine:
 
     def kv_pool_bytes(self) -> int:
         """Configured KV-pool footprint (pages + quant scales), from shapes."""
-        cfg = self.cfg
+        return self._pool_bytes_for(self.cfg, self.kv_quantized)
+
+    def _pool_bytes_for(self, cfg: ModelConfig, quantized: bool) -> int:
         elems = cfg.n_layers * self.n_pages * 2 * cfg.n_kv_heads * self.page
-        item = 1 if self.kv_quantized else torch_dtype(cfg.dtype).itemsize
+        item = 1 if quantized else torch_dtype(cfg.dtype).itemsize
         total = elems * cfg.head_dim * item
-        if self.kv_quantized:
+        if quantized:
             total += elems * 4  # one f32 scale per (token slot, head, K|V)
         return total
+
+    def draft_kv_pool_bytes(self) -> int:
+        """Configured footprint of the draft model's KV pool (0 without a
+        draft model): the target pool's page count at the draft's layer
+        and head shape and its own storage dtype."""
+        if self._draft is None:
+            return 0
+        return self._pool_bytes_for(self.draft_cfg, self.draft_kv_quantized)
 
     def kv_pool_occupancy(self) -> float:
         """Fraction of pool pages currently held (slots + prefix cache)."""
@@ -563,7 +767,26 @@ class GenerationEngine:
         return tfm.tree_map(lambda t: t.detach(),
                             tfm.cast_params(self.cfg, params, self.device))
 
-    def update_params(self, params, version: Optional[int] = None):
+    def prepare_draft_params(self, params):
+        """:meth:`prepare_params` for the DRAFT model's params (the draft's
+        serving dtype, the engine's device)."""
+        if self._draft is None:
+            raise ValueError("engine has no draft model configured")
+        return tfm.tree_map(
+            lambda t: t.detach(),
+            tfm.cast_params(self.draft_cfg, params, self.device))
+
+    @staticmethod
+    def _check_shapes(dst_tree, src_tree):
+        def check(dst, src):
+            if dst.shape != src.shape:
+                raise ValueError(f"weight update: shape {tuple(src.shape)} "
+                                 f"!= the engine's {tuple(dst.shape)}")
+
+        tfm.tree_map(check, dst_tree, src_tree)
+
+    def update_params(self, params, version: Optional[int] = None,
+                      draft_params=None):
         """Hot weight swap between decode chunks. The new weights are
         COPIED into the engine's own tensors under the lock (their shapes
         and dtypes are fixed by ``cfg``), so every captured chunk program
@@ -571,18 +794,40 @@ class GenerationEngine:
         already in flight finishes on the old weights first (the copy
         follows it on the stream). Raises ``ValueError``, changing
         nothing, if a shape differs. Invalidates the prefix cache: prompt
-        KV computed under old weights must not seed new generations."""
+        KV computed under old weights must not seed new generations.
+
+        ``draft_params`` optionally rides along (the draft keeps tracking
+        the policy during RL): both swaps land under one lock and one
+        prefix invalidation, and ``draft_version`` moves too."""
         params = self.prepare_params(params)
-
-        def check(dst, src):
-            if dst.shape != src.shape:
-                raise ValueError(f"weight update: shape {tuple(src.shape)} "
-                                 f"!= the engine's {tuple(dst.shape)}")
-
-        tfm.tree_map(check, self.params, params)
+        self._check_shapes(self.params, params)
+        if draft_params is not None:
+            draft_params = self.prepare_draft_params(draft_params)
+            self._check_shapes(self.draft_params, draft_params)
         with self._lock:
             tfm.tree_map(lambda dst, src: dst.copy_(src), self.params, params)
+            if draft_params is not None:
+                tfm.tree_map(lambda dst, src: dst.copy_(src),
+                             self.draft_params, draft_params)
+                self.draft_version += 1
             self.version = version if version is not None else self.version + 1
+            self._n_updates += 1
+            self.prefix.clear()
+
+    def update_draft_params(self, draft_params):
+        """Swap ONLY the draft model's weights between chunks, copied into
+        the engine's draft tensors (graphs keep reading them, none is
+        recaptured). The policy ``version`` stays (spec decode is
+        distribution-preserving, so outputs are unaffected); ``draft_
+        version`` moves and the prefix cache is cleared: cached pages hold
+        draft KV of the old draft weights, which a fresh draft should not
+        propose from."""
+        draft_params = self.prepare_draft_params(draft_params)
+        self._check_shapes(self.draft_params, draft_params)
+        with self._lock:
+            tfm.tree_map(lambda dst, src: dst.copy_(src), self.draft_params,
+                         draft_params)
+            self.draft_version += 1
             self._n_updates += 1
             self.prefix.clear()
 
@@ -744,12 +989,20 @@ class GenerationEngine:
     def _extend_body(self, key: tuple, n_new: Optional[torch.Tensor] = None):
         """One wave of chunked prefill over the static operands of ``key``
         (``n_new`` in place of the staged counts: the warm-up's zeros). It
-        writes the KV pool in place and nothing else."""
+        writes the KV pool in place and nothing else; with a draft model,
+        the draft pool too (same tokens, tables and waves, which keeps the
+        pools in lockstep through prefix sharing)."""
         tokens, table, start, staged = self._extend_operands(key)
+        n_new = staged if n_new is None else n_new
         tfm.extend_paged(
             self.params, self.cfg, self.state.cache, tokens, table, start,
-            staged if n_new is None else n_new, skip_pool=key[2],
+            n_new, skip_pool=key[2],
         )
+        if self._draft is not None:
+            tfm.extend_paged(
+                self.draft_params, self.draft_cfg, self.state.draft_cache,
+                tokens, table, start, n_new, skip_pool=key[2],
+            )
 
     def _build_extend(self, key: tuple) -> _Program:
         """The extend program of ``key``; on a GPU captured after one eager
@@ -895,12 +1148,15 @@ class GenerationEngine:
         return True
 
     def _commit_body(self, ops: torch.Tensor):
-        """Write the decode state of the slots in ``ops`` ``[n, 8 + K]``
-        (rows as ``_COMMIT_COLS`` says) through ``GenState.padded``: a
+        """Write the decode state of the slots in ``ops`` ``[n, 8 + K +
+        S]`` (rows as ``_COMMIT_COLS`` says) through ``GenState.padded``: a
         padding row names slot B, the trash row. Everything happens in
-        place on the device."""
+        place on the device. ``ctx_tokens`` gets the full prompt (borrowed
+        prefix pages included: the prefix cache shares KV, not ids) and
+        ``fallback_token`` the last prompt token."""
         st = self.state.padded
         slots = ops[:, 0]
+        K = self.max_stop_ids
 
         def f32(col):   # a float32 column, staged as its bits
             return ops[:, col].to(torch.int32).view(torch.float32)
@@ -913,7 +1169,9 @@ class GenerationEngine:
             ("top_k", ops[:, 5]),
             ("min_gen", ops[:, 6].to(torch.int32)),
             ("max_gen", ops[:, 7].to(torch.int32)),
-            ("stop_ids", ops[:, _COMMIT_COLS:]),
+            ("stop_ids", ops[:, _COMMIT_COLS:_COMMIT_COLS + K]),
+            ("ctx_tokens", ops[:, _COMMIT_COLS + K:]),
+            ("fallback_token", ops[:, 1]),
         ):
             st[name].index_copy_(0, slots, val)
         st["active"].index_fill_(0, slots, True)
@@ -923,7 +1181,8 @@ class GenerationEngine:
     def _build_commit(self, n: int) -> _Program:
         """The commit program of an ``n``-row bucket; on a GPU captured
         after one eager warm-up whose every row is a padding row."""
-        ops = self._commit_ops[: n * (_COMMIT_COLS + self.max_stop_ids)]
+        ops = self._commit_ops[
+            : n * (_COMMIT_COLS + self.max_stop_ids + self.S)]
         ops = ops.view(n, -1)
 
         def warm_up():
@@ -949,12 +1208,12 @@ class GenerationEngine:
             n = self._row_bucket(len(admitted) - i)
             group = admitted[i : i + n]
             i += len(group)
-            ops = np.zeros((n, _COMMIT_COLS + K), np.int64)
+            ops = np.zeros((n, _COMMIT_COLS + K + self.S), np.int64)
             ops[:, 0] = self.B               # padding rows: the trash row
             ops[:, 3] = np.float32(1.0).view(np.int32)
             ops[:, 4] = np.float32(1.0).view(np.int32)
             ops[:, 5] = 1 << 30
-            ops[:, _COMMIT_COLS:] = -1
+            ops[:, _COMMIT_COLS:_COMMIT_COLS + K] = -1
             for j, (r, slot) in enumerate(group):
                 ids = r.input_ids
                 self._lens_host[slot] = len(ids) - 1
@@ -982,6 +1241,8 @@ class GenerationEngine:
                     min(r.max_new_tokens, self.G),
                 )
                 ops[j, _COMMIT_COLS : _COMMIT_COLS + len(merged)] = merged
+                ctx = ids[: self.S]
+                ops[j, _COMMIT_COLS + K : _COMMIT_COLS + K + len(ctx)] = ctx
             self._stage(ops, self._commit_ops)
             prog = self._admission_program(self._jit_commit, n,
                                            self._build_commit)
@@ -1057,7 +1318,12 @@ class GenerationEngine:
         ``[4, B]``. Every result is written IN PLACE into ``st`` and
         ``flags``, and every operand is read where it lies: captured once,
         the body's graph then reads and writes the engine's own tensors
-        on each replay. No host sync, no host-to-device copy."""
+        on each replay. No host sync, no host-to-device copy.
+
+        Each step also appends the sampled token to ``ctx_tokens`` and, on
+        a draft engine, runs one headless draft decode step that writes
+        the draft model's KV of the token the target just consumed, so a
+        spec chunk can take over mid-stream."""
         cfg = self.cfg
         rows = self._rows
         last_col = st.out_tokens.shape[1] - 1
@@ -1066,6 +1332,12 @@ class GenerationEngine:
                 self.params, cfg, st.cache, st.last_tokens, table,
                 st.lens, st.active, return_hidden=self.fused,
             )
+            if self._draft is not None:
+                tfm.decode_step_paged(
+                    self.draft_params, self.draft_cfg, st.draft_cache,
+                    st.last_tokens, table, st.lens, st.active,
+                    with_head=False,
+                )
             if self.fused:
                 tokens, lp = self._sample_fused(st.sp, gen, head_out,
                                                 warp_rows, with_topk)
@@ -1087,19 +1359,158 @@ class GenerationEngine:
                 n_gen >= st.min_gen
             )
             active = st.active & ~hit_stop & (n_gen < st.max_gen)
+            # the drafter's token mirror: ctx[new_lens] = the sampled token
+            self._drop_put(st, "ctx_tokens", st.active, new_lens, tokens)
             st.active.copy_(active)
             st.n_gen.copy_(n_gen)
             st.lens.copy_(new_lens)
             st.last_tokens.copy_(tokens)
+        self._write_flags(st, flags)
+
+    @staticmethod
+    def _write_flags(st: GenState, flags: torch.Tensor):
         for i, f in enumerate((st.active, st.n_gen, st.max_gen, st.lens)):
             flags[i].copy_(f)
 
-    def _program(self, key: tuple) -> _Program:
-        """The chunk program of ``key`` = ``(n_steps, width, warp_bucket,
-        fused, with_topk)``, built at its first use."""
-        prog = self._jit_chunk.get(key)
+    def _drop_put(self, st: GenState, name: str, keep: torch.Tensor,
+                  cols: torch.Tensor, vals: torch.Tensor):
+        """``st.<name>[b, cols[b, ...]] = vals[b, ...]`` where ``keep`` and
+        the column is in range; every other write lands in the trash row
+        (the reference's ``mode="drop"``). ``keep``/``cols``/``vals`` are
+        ``[B]`` or ``[B, C]``."""
+        buf = st.padded[name]
+        width = buf.shape[1]
+        rows = self._rows if keep.dim() == 1 else self._rows[:, None]
+        keep = keep & (cols < width)
+        buf[torch.where(keep, rows, self.B),
+            cols.clamp(0, width - 1).long()] = vals
+
+    def _spec_step(self, st: GenState, gen: torch.Generator, K: int,
+                   table: torch.Tensor, warp_rows: Optional[torch.Tensor],
+                   fused: bool, aux: torch.Tensor):
+        """One speculative step for every slot of ``st``, in place: propose
+        K tokens (the n-gram lookup or the draft model), verify the K+1
+        positions in one pass, accept a prefix by rejection sampling, and
+        emit 1..K+1 tokens per slot, truncated at the first stop token
+        (held back by ``min_new_tokens``) and at ``max_gen``. ``aux`` ``[3,
+        B]`` gets the drafted and accepted counts and, for a general-q
+        drafter, the mean accept probability."""
+        cfg, B, dev = self.cfg, self.B, self.device
+        C = K + 1
+        pos_i = torch.arange(C, device=dev)[None, :]
+        active = st.active
+        n_new = torch.where(active, C, 0).to(torch.int32)
+        # KV residency bound, acceptance-agnostic: position i's KV can be
+        # read only if emission n_gen+i stays below the cap, and a write
+        # past it could run off the slot's pages
+        write_mask = active[:, None] & (
+            st.n_gen[:, None] + pos_i < st.max_gen[:, None])
+        q_logprobs = None
+        if self._draft is not None:
+            draft, q_logprobs = self._draft.propose_model(
+                self.draft_params, st.draft_cache, st.last_tokens, table,
+                st.lens, write_mask, st.sp, gen, K,
+            )
+        else:
+            draft = self.drafter.propose(st.ctx_tokens, st.lens,
+                                         st.fallback_token, K)
+        draft = draft.long()
+        chunk_toks = torch.cat([st.last_tokens[:, None], draft], dim=1)
+        verify_out, _ = tfm.verify_step_paged(
+            self.params, cfg, st.cache, chunk_toks, table, st.lens, n_new,
+            write_mask, return_hidden=fused,
+        )
+        q_acc = None
+        if fused:
+            # one-hot drafter (the routing guarantees it): acceptance from
+            # the streamed head, the [B, C, V] logits never materialize
+            a, cand, cand_lp, barg = fused_ops.fused_spec_rejection(
+                gen, verify_out, tfm.head_weight(cfg, self.params), draft,
+                st.sp, soft_cap=cfg.final_logits_soft_cap,
+                block_size=FUSED_TOPK_BLOCK,
+            )
+            if warp_rows is not None:
+                # warping slots keep the sorted rejection sampler over their
+                # own [W, C, V] logits rows; padding rows land in a spare
+                # row past the batch, which is dropped
+                safe = warp_rows.clamp(0, B - 1)
+                row_logits = tfm.apply_head(cfg, self.params,
+                                            verify_out[safe])
+                sub = spec_rejection_sample(gen, row_logits, draft[safe],
+                                            st.sp.rows(safe), warp=True)
+                merged = []
+                for full, part in zip((a, cand, cand_lp, barg), sub):
+                    full = torch.cat([full, full[:1]])
+                    full[warp_rows] = part
+                    merged.append(full[:B])
+                a, cand, cand_lp, barg = merged
+        else:
+            has_q = q_logprobs is not None
+            rej = spec_rejection_sample(
+                gen, verify_out, draft, st.sp, warp=warp_rows is not None,
+                warp_rows=warp_rows, q_logprobs=q_logprobs,
+                return_accept_prob=has_q,
+            )
+            a, cand, cand_lp, barg = rej[:4]
+            if has_q:
+                q_acc = rej[4].mean(dim=1)
+        # masked variable-length advance: accepted drafts + one residual,
+        # capped at the remaining budget, truncated at the first stop
+        # token (stop included, as in vanilla decode)
+        e0 = torch.minimum(a + 1, (st.max_gen - st.n_gen).long())
+        emit_no = st.n_gen[:, None] + pos_i + 1
+        is_stop = (cand[:, :, None] == st.stop_ids[:, None, :]).any(dim=2) & (
+            emit_no >= st.min_gen[:, None])
+        stop_hit = is_stop & (pos_i < e0[:, None])
+        any_stop = stop_hit.any(dim=1)
+        first_stop = torch.where(stop_hit, pos_i, C).amin(dim=1)
+        e = torch.where(any_stop, first_stop + 1, e0)
+        e = torch.where(active, e, 0)                      # emitted count
+        emitted = pos_i < e[:, None]
+        self._drop_put(st, "out_tokens", emitted,
+                       st.n_gen[:, None] + pos_i, cand)
+        self._drop_put(st, "out_logprobs", emitted,
+                       st.n_gen[:, None] + pos_i, cand_lp)
+        # t0's KV and the accepted drafts' became resident; rejected
+        # drafts' writes sit beyond the new lens, masked until overwritten
+        self._drop_put(st, "ctx_tokens", emitted,
+                       st.lens[:, None] + 1 + pos_i, cand)
+        n_gen = st.n_gen + e
+        last = torch.where(
+            e > 0, cand[self._rows, (e - 1).clamp(min=0)], st.last_tokens)
+        new_active = active & ~any_stop & (n_gen < st.max_gen)
+        aux[0].copy_(torch.where(active, K, 0))
+        aux[1].copy_(torch.minimum(a, e))
+        aux[2].copy_(torch.where(active, q_acc, 0.0) if q_acc is not None
+                     else torch.zeros_like(aux[2]))
+        st.fallback_token.copy_(torch.where(active, barg, st.fallback_token))
+        st.lens.copy_(st.lens + e)
+        st.n_gen.copy_(n_gen)
+        st.last_tokens.copy_(last)
+        st.active.copy_(new_active)
+
+    def _spec_chunk_body(self, st: GenState, gen: torch.Generator,
+                         n_steps: int, K: int, table: torch.Tensor,
+                         warp_rows: Optional[torch.Tensor], fused: bool,
+                         flags: torch.Tensor, aux: torch.Tensor):
+        """``n_steps`` spec steps (``_spec_step``), then the harvest flags
+        into ``flags`` and each step's counts into ``aux`` ``[3, n_steps,
+        B]``. In place, like ``_chunk_body``: a GPU captures it once per
+        spec key and replays it."""
+        for i in range(n_steps):
+            self._spec_step(st, gen, K, table, warp_rows, fused, aux[:, i])
+        self._write_flags(st, flags)
+
+    def _program(self, spec: bool, key: tuple) -> _Program:
+        """The program of ``key``, built at its first use: a spec chunk's
+        (``(n_steps, width, warp_bucket, spec_k, fused)``, ``_jit_spec``)
+        or a decode chunk's (``(n_steps, width, warp_bucket, fused,
+        with_topk)``, ``_jit_chunk``)."""
+        programs = self._jit_spec if spec else self._jit_chunk
+        prog = programs.get(key)
         if prog is None:
-            prog = self._jit_chunk[key] = self._build_program(key)
+            build = self._build_spec if spec else self._build_program
+            prog = programs[key] = build(key)
         return prog
 
     def _capture(self, body: Callable[[], None], warm_up: Callable[[], None],
@@ -1127,7 +1538,7 @@ class GenerationEngine:
         """The chunk program of ``key`` (``_capture``). Its warm-up is one
         decode step over a scratch state whose every slot is inactive: the
         live slots, their outputs and the engine's generator are untouched,
-        and the pool gets writes only at its trash row. The warm-up is a
+        and the pools get writes only at their trash rows. The warm-up is a
         decode step like any other to the counts (``decode_steps``, the
         fused-sampler steps, kernel launches): one for each of
         ``graph_captures``."""
@@ -1136,11 +1547,9 @@ class GenerationEngine:
         warp_rows = self._warp_dev[:wb] if wb else None
 
         def warm_up():
-            scratch = self._make_state(self.state.cache, 1)
-            scratch_gen = torch.Generator(device=self.device)
-            scratch_gen.manual_seed(0)
-            self._chunk_body(scratch, scratch_gen, 1, table, warp_rows,
-                             with_topk, torch.empty_like(self._flags_dev))
+            self._chunk_body(self._scratch_state(), self._scratch_gen(), 1,
+                             table, warp_rows, with_topk,
+                             torch.empty_like(self._flags_dev))
             self._count_steps(1, with_topk, 0)
 
         prog, seconds = self._capture(
@@ -1155,6 +1564,48 @@ class GenerationEngine:
             self.stats["graph_capture_s"] += seconds
         return prog
 
+    def _build_spec(self, key: tuple) -> _Program:
+        """The spec chunk program of ``key``, as :meth:`_build_program`
+        builds a decode chunk's: one eager warm-up spec step over a scratch
+        state with no active slot (a spec step like any other to the
+        counts: ``spec_steps``, kernel launches), then the capture. Its
+        per-step counts land in the program's static ``aux``."""
+        n_steps, W, wb, K, fused = key
+        table = self._table_dev[:, :W]
+        warp_rows = self._warp_dev[:wb] if wb else None
+        aux = torch.zeros((3, n_steps, self.B), dtype=torch.float32,
+                          device=self.device)
+
+        def warm_up():
+            self._spec_chunk_body(
+                self._scratch_state(), self._scratch_gen(), 1, K, table,
+                warp_rows, fused, torch.empty_like(self._flags_dev),
+                torch.empty_like(aux[:, :1]))
+            self._count_spec_steps(1, fused, 0)
+
+        prog, seconds = self._capture(
+            functools.partial(
+                self._spec_chunk_body, self.state, self._gen, n_steps, K,
+                table, warp_rows, fused, self._flags_dev, aux,
+            ),
+            warm_up, generator=self._gen,
+        )
+        prog.aux = aux
+        if prog.graph is not None:
+            self.stats["spec_captures"] += 1
+            self.stats["graph_capture_s"] += seconds
+        return prog
+
+    def _scratch_state(self) -> GenState:
+        """A warm-up's state: every slot inactive, over the engine's pools
+        (it writes only their trash rows)."""
+        return self._make_state(self.state.cache, 1, self.state.draft_cache)
+
+    def _scratch_gen(self) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        return gen
+
     def _count_steps(self, n_steps: int, with_topk: bool, n_fallback: int):
         self.stats["decode_steps"] += n_steps
         if self.fused:
@@ -1162,34 +1613,57 @@ class GenerationEngine:
             self.stats["fused_topk_steps"] += n_steps * with_topk
             self.stats["sampler_fallback_rows"] += n_fallback * n_steps
 
+    def _count_spec_steps(self, n_steps: int, fused: bool, n_fallback: int):
+        self.stats["spec_steps"] += n_steps
+        if fused:
+            self.stats["spec_fused_steps"] += n_steps
+            self.stats["sampler_fallback_rows"] += n_fallback * n_steps
+
     def _chunk_key(self, decode_steps: int, running: List[int]):
-        """The chunk key for the resident slots, and the slots whose
-        sampling takes the sorted (warp-row) path. Under the fused sampler
-        that bucket narrows to the slots the online pass cannot serve, and
-        plain top-k slots ride the online buffer instead of the sort. The
-        table width covers the tokens of this chunk and, pipelined, of the
-        one still in flight (``_lens_host`` is a chunk stale then)."""
-        mirror = self._fused_warp_host if self.fused else self._warp_host
+        """``(spec, key, warp_slots, tok_bound)`` for the resident slots:
+        whether the chunk is a spec chunk (``self.spec``, read once here
+        under the engine lock), its program key, the slots whose sampling
+        takes the sorted (warp-row) path, and the most tokens the chunk can
+        advance a slot (``decode_steps * (K+1)`` for a spec chunk). Under
+        the fused sampler a vanilla chunk narrows the warp bucket to the
+        slots the online pass cannot serve (plain top-k slots ride the
+        online buffer); the fused spec acceptance has no top-k buffer, so
+        it keeps the full bucket, and a draft-model (general-q) engine
+        verifies through the materialized path. The table width covers the
+        tokens of this chunk and, pipelined, of the one still in flight
+        (``_lens_host`` is a chunk stale then)."""
+        spec = self.spec
+        if spec or not self.fused:
+            mirror = self._warp_host
+        else:
+            mirror = self._fused_warp_host
         warp_slots = [b for b in running if mirror[b]]
-        with_topk = self.fused and any(
-            self._fused_topk_host[b] for b in running
-        )
+        tok_bound = decode_steps * ((self.spec_k + 1) if spec else 1)
         W = self._table_width(
             int(self._lens_host[running].max()) + self._steps_ahead
-            + decode_steps
+            + tok_bound
         )
-        key = (decode_steps, W, self._warp_bucket(len(warp_slots)),
-               self.fused, bool(with_topk))
-        return key, warp_slots
+        wb = self._warp_bucket(len(warp_slots))
+        if spec:
+            key = (decode_steps, W, wb, self.spec_k,
+                   self.fused and self._draft is None)
+        else:
+            with_topk = self.fused and any(
+                self._fused_topk_host[b] for b in running
+            )
+            key = (decode_steps, W, wb, self.fused, bool(with_topk))
+        return spec, key, warp_slots, tok_bound
 
-    def _dispatch(self, key: tuple, warp_slots: List[int],
-                  running: List[int], prefill: List[tuple]) -> _InFlight:
-        """Run one decode chunk and START its harvest-flag copy to the host
-        in the same breath, right behind it on the stream (the next run
-        overwrites the static flags). The table and warp rows go to their
-        static device buffers through this chunk's host staging buffers,
-        which the chunk that used them two dispatches ago has released."""
-        prog = self._program(key)     # a first use captures, timed apart
+    def _dispatch(self, spec: bool, key: tuple, warp_slots: List[int],
+                  running: List[int], prefill: List[tuple],
+                  tok_bound: int) -> _InFlight:
+        """Run one chunk (spec or vanilla) and START its harvest-flag copy
+        to the host in the same breath, right behind it on the stream (the
+        next run overwrites the static flags), with a spec chunk's aux.
+        The table and warp rows go to their static device buffers through
+        this chunk's host staging buffers, which the chunk that used them
+        two dispatches ago has released."""
+        prog = self._program(spec, key)   # a first use captures, timed apart
         io = self._io[self._n_dispatched % 2]
         self._n_dispatched += 1
         if io.done is not None:
@@ -1204,33 +1678,98 @@ class GenerationEngine:
         prog.run()
         t_end = self._clock.mark()
         io.flags.copy_(self._flags_dev, non_blocking=True)
+        if prog.aux is not None:
+            if io.aux is None or io.aux.shape != prog.aux.shape:
+                io.aux = torch.empty(prog.aux.shape, dtype=torch.float32,
+                                     pin_memory=self.device.type == "cuda")
+            io.aux.copy_(prog.aux, non_blocking=True)
         if prog.graph is not None:
             io.done = torch.cuda.Event()
             io.done.record()
-            self.stats["graph_replays"] += 1
+            self.stats["spec_replays" if spec else "graph_replays"] += 1
             for mod, n in prog.launches.items():
                 mod.credit(n)
-        self._count_steps(key[0], key[4], len(warp_slots))
+        if spec:
+            self._count_spec_steps(key[0], key[4], len(warp_slots))
+        else:
+            self._count_steps(key[0], key[4], len(warp_slots))
         return _InFlight(
             io=io, decode=(t_start, t_end), prefill=prefill,
             running=tuple((b, int(self._slot_epoch[b])) for b in running),
+            spec=spec, advance=tok_bound,
         )
 
     def _resolve(self, inflight: _InFlight) -> np.ndarray:
         """The chunk's harvest flags ``[4, B]`` on the host, once its copy
-        is done (pipelined, the host dispatched the next chunk meanwhile).
-        Counts every fetch, and in ``chunk_flag_blocked`` every one that
-        still had to wait for the card."""
+        is done (pipelined, the host dispatched the next chunk meanwhile);
+        a spec chunk's counts are folded into the stats. Counts every
+        fetch, and in ``chunk_flag_blocked`` every one that still had to
+        wait for the card."""
         self.stats["chunk_flag_fetches"] += 1
         done = inflight.io.done
         if done is not None:
             if not done.query():
                 self.stats["chunk_flag_blocked"] += 1
             done.synchronize()
-        self.stats["decode_s"] += self._clock.seconds(*inflight.decode)
+        seconds = self._clock.seconds(*inflight.decode)
+        self.stats["decode_s"] += seconds
         for span in inflight.prefill:
             self.stats["prefill_s"] += self._clock.seconds(*span)
+        if inflight.spec:
+            self.stats["spec_s"] += seconds
+            self._fold_spec_stats(inflight.io.aux.numpy())
         return inflight.io.flags.numpy().copy()
+
+    def _fold_spec_stats(self, aux: np.ndarray):
+        """Fold one spec chunk's ``[3, n_steps, B]`` counts (drafted,
+        accepted, mean accept probability) into the stats, the
+        accept-length histogram and, with adaptive K, its window: host
+        arithmetic on the copy the chunk's resolve already waited for."""
+        drafted, accepted = aux[0], aux[1]
+        d = int(drafted.sum())
+        if d == 0:
+            return
+        live = drafted > 0
+        acc = accepted[live].astype(np.int64)
+        self.stats["spec_draft_tokens"] += d
+        self.stats["spec_accepted_tokens"] += int(acc.sum())
+        for v, c in zip(*np.unique(acc, return_counts=True)):
+            self.spec_accept_hist[int(v)] = (
+                self.spec_accept_hist.get(int(v), 0) + int(c))
+        if self._draft is not None:
+            q_acc = aux[2][live]
+            self.stats["spec_q_accept_prob_sum"] += float(q_acc.sum())
+            self.stats["spec_q_accept_prob_n"] += int(q_acc.size)
+        if self.spec_k_adapt:
+            self._accept_window.extend(acc.astype(np.float64).tolist())
+            self._maybe_adapt_spec_k()
+
+    def _maybe_adapt_spec_k(self):
+        """Retune ``spec_k`` from the windowed mean accept length (under
+        the engine lock, so the next ``_chunk_key`` sees the new K). K
+        moves ONE step within ``_spec_k_choices``, keeping spec programs
+        bounded by the choice set; the UP/DOWN hysteresis band keeps a
+        workload at a boundary from thrashing between two programs. The
+        window resets on every retune, so the new K is judged on its own
+        accept lengths."""
+        if len(self._accept_window) < self.SPEC_K_ADAPT_WINDOW:
+            return
+        window = self._accept_window[-self.SPEC_K_ADAPT_WINDOW:]
+        mean_acc = sum(window) / len(window)
+        i = self._spec_k_choices.index(self.spec_k)
+        new_k = self.spec_k
+        if (mean_acc >= self.SPEC_K_ADAPT_UP * self.spec_k
+                and i + 1 < len(self._spec_k_choices)):
+            new_k = self._spec_k_choices[i + 1]
+        elif mean_acc <= self.SPEC_K_ADAPT_DOWN * self.spec_k and i > 0:
+            new_k = self._spec_k_choices[i - 1]
+        if new_k != self.spec_k:
+            logger.info("adaptive spec-K: %d -> %d (windowed mean accept "
+                        "%.2f)", self.spec_k, new_k, mean_acc)
+            self.spec_k = new_k
+            self._accept_window.clear()
+        else:
+            del self._accept_window[: -self.SPEC_K_ADAPT_WINDOW]
 
     def _pull_outputs(self) -> dict:
         """ONE device pull of every slot's accumulated outputs + flags."""
@@ -1316,7 +1855,7 @@ class GenerationEngine:
     def _step_pipelined(self, decode_steps: int) -> List[GenOutput]:
         new = self._admit_and_dispatch(decode_steps)
         prev, self._inflight = self._inflight, new
-        self._steps_ahead = decode_steps if new is not None else 0
+        self._steps_ahead = new.advance if new is not None else 0
         if prev is None:
             return []
         return self._harvest_chunk(prev)
@@ -1329,9 +1868,10 @@ class GenerationEngine:
         if self.n_running() == 0:
             return None
         running = [b for b, s in enumerate(self._slots) if s is not None]
-        key, warp_slots = self._chunk_key(decode_steps, running)
-        return self._dispatch(key, warp_slots, running,
-                              self._spans if admitted else [])
+        spec, key, warp_slots, tok_bound = self._chunk_key(decode_steps,
+                                                           running)
+        return self._dispatch(spec, key, warp_slots, running,
+                              self._spans if admitted else [], tok_bound)
 
     def _harvest_chunk(self, inflight: _InFlight) -> List[GenOutput]:
         """Harvest the slots a resolved chunk finished. Its flags may be a

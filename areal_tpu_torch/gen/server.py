@@ -3,8 +3,7 @@ built on the standard library: a ``ThreadingHTTPServer`` answers each
 request on its own thread, and one engine thread drives admission and
 decode continuously.
 
-Routes (the reference's route table but ``/spec_decode``, which comes
-with speculative decoding):
+Routes (the reference's route table):
 
 - ``POST /generate``: submit a request, wait for completion (or
   interruption); answers ``rid``, ``output_ids``, ``output_logprobs``,
@@ -19,13 +18,17 @@ with speculative decoding):
   cancels it too, freeing its slot (the server notices at the next frame
   it would write, at most a chunk or 0.5 s later).
 - ``POST /pause_generation`` / ``POST /continue_generation``.
+- ``POST /spec_decode`` with ``{"enabled": bool}``: toggle speculative
+  decoding from the next chunk on; answers ``spec_decode`` and
+  ``spec_k`` (400 without ``enabled``).
 - ``POST /update_weights_from_disk``: reload the weights from an HF
   checkpoint directory (the trainer's committed export): ``model_path``,
   ``version``, ``allow_interrupt`` (pause and return running requests as
   partial outputs, or drain them with admission closed) and
   ``overlap_load`` (read and stage the weights on the device before taking
-  the lock). A failed load leaves the engine untouched and answers
-  ``success: false``.
+  the lock); ``draft_model_path`` reloads the draft model's weights in the
+  same window (its architecture must be the serving draft's). A failed
+  load leaves the engine untouched and answers ``success: false``.
 - ``GET /health``, ``GET /metrics_json`` (with the device-memory
   gauges of ``base/hbm.py``).
 
@@ -473,7 +476,10 @@ class GenerationHTTPServer:
             path = d["model_path"]
         except (ValueError, TypeError, KeyError) as e:
             return 400, {"error": f"malformed weight update: {e!r}"}
-        if d.get("draft_model_path"):
+        # the draft rides along: the weight fanout may push refreshed draft
+        # weights next to the policy's, both swapped in one pause window
+        draft_path = d.get("draft_model_path")
+        if draft_path and self.engine._draft is None:
             return 200, {
                 "success": False,
                 "message": "draft_model_path given but the engine has no "
@@ -482,7 +488,7 @@ class GenerationHTTPServer:
             }
         allow_interrupt = bool(d.get("allow_interrupt", True))
         overlap_load = bool(d.get("overlap_load", True))
-        params = None
+        params = draft_params = None
         if overlap_load:
             # read the checkpoint and stage it on the device while the
             # engine keeps decoding: the lock window then contains only
@@ -491,6 +497,8 @@ class GenerationHTTPServer:
             t_load0 = time.monotonic()
             try:
                 params = self._load_params(path)
+                if draft_path:
+                    draft_params = self._load_draft_host_params(draft_path)
             except Exception as e:  # noqa: BLE001 - reported to the caller
                 logger.exception("weight load failed (engine untouched)")
                 return 200, {
@@ -521,7 +529,10 @@ class GenerationHTTPServer:
             try:
                 if params is None:
                     params = self._load_params(path)
-                self.engine.update_params(params, version=d.get("version"))
+                if draft_path and draft_params is None:
+                    draft_params = self._load_draft_host_params(draft_path)
+                self.engine.update_params(params, version=d.get("version"),
+                                          draft_params=draft_params)
                 ok = True
                 msg = f"loaded weights from {path}"
             except Exception as e:  # noqa: BLE001 - reported to the caller
@@ -552,6 +563,36 @@ class GenerationHTTPServer:
         params = tfm.params_from_numpy(host_params, device=self.engine.device,
                                        dtype=ecfg.dtype)
         return self.engine.prepare_params(params)
+
+    def _load_draft_host_params(self, path: str):
+        """The draft checkpoint at ``path`` as the port's params, on the
+        engine's device (the engine casts them under its lock). Its
+        architecture must be the serving draft's: the draft pool and every
+        program were built from ``draft_cfg``."""
+        cfg, host_params = hf_conv.load_hf_checkpoint(path)
+        ecfg = self.engine.draft_cfg
+        for f in ("vocab_size", "n_layers", "n_q_heads", "n_kv_heads",
+                  "head_dim", "hidden_dim", "intermediate_dim"):
+            if getattr(cfg, f) != getattr(ecfg, f):
+                raise ValueError(
+                    f"draft checkpoint {f} ({getattr(cfg, f)}) != serving "
+                    f"draft's ({getattr(ecfg, f)}): a draft refresh must "
+                    "keep the architecture the engine was built with"
+                )
+        return tfm.params_from_numpy(host_params, device=self.engine.device,
+                                     dtype=ecfg.dtype)
+
+    def spec_decode(self, body: bytes):
+        """Toggle speculative decoding: it takes effect at the next chunk
+        dispatch (the engine reads the flag under its lock per step); a
+        chunk in flight finishes as it was dispatched."""
+        try:
+            enabled = bool(json.loads(body)["enabled"])
+        except (KeyError, TypeError, ValueError) as e:
+            return 400, {"error": repr(e)}
+        self.engine.spec = enabled
+        return 200, {"success": True, "spec_decode": self.engine.spec,
+                     "spec_k": self.engine.spec_k}
 
     def health(self, body: bytes):
         if self._error is not None:
@@ -587,6 +628,29 @@ class GenerationHTTPServer:
             "weight_load_overlapped_s": round(self._t_weight_load, 3),
             "n_weight_updates": self._n_weight_updates,
             "n_interrupted": self._n_interrupted,
+            # speculative decoding: config and realized accept rate (the
+            # break-even signal a manager would act on via /spec_decode);
+            # spec_k_current == spec_k, under the adaptive-K gauge's name
+            "spec_decode": bool(eng.spec),
+            "spec_k": eng.spec_k,
+            "spec_k_adapt": bool(eng.spec_k_adapt),
+            "spec_k_current": eng.spec_k,
+            "spec_accept_rate": round(
+                eng.stats["spec_accepted_tokens"]
+                / max(eng.stats["spec_draft_tokens"], 1), 4
+            ),
+            "spec_accept_len_hist": {
+                str(k): v for k, v in sorted(eng.spec_accept_hist.items())},
+            "spec_q_accept_prob": (
+                eng.stats["spec_q_accept_prob_sum"]
+                / max(eng.stats["spec_q_accept_prob_n"], 1)),
+            # draft-model spec decode: whether a draft model is configured,
+            # its weight generation and its pool (its pages move in
+            # lockstep with the target's, so occupancy is shared)
+            "spec_draft_model": eng._draft is not None,
+            "draft_version": eng.draft_version,
+            "draft_kv_dtype": eng.draft_kv_dtype,
+            "draft_kv_pool_bytes": eng.draft_kv_pool_bytes(),
             # fused sampling epilogue: streamed LM-head sampling on the
             # decode chunk
             "fused_sample": bool(eng.fused),
@@ -612,6 +676,7 @@ class GenerationHTTPServer:
             ("POST", "/generate_stream"): self.generate_stream,
             ("POST", "/pause_generation"): self.pause,
             ("POST", "/continue_generation"): self.resume,
+            ("POST", "/spec_decode"): self.spec_decode,
             ("POST", "/update_weights_from_disk"): self.update_weights,
             ("GET", "/health"): self.health,
             ("GET", "/metrics_json"): self.metrics,

@@ -724,10 +724,11 @@ def _scatter_chunk_kv(cache: PagedKVCache, ks, vs, table, positions, valid):
 
 
 def _extend_layers(params, cfg, cache, tokens, table, start, n_new,
-                   skip_pool=False):
-    """Multi-token layer loop over the page pool (chunked prefill).
-    Returns ``(x [B, C, E] pre-final-norm hidden, ks, vs, positions,
-    valid)``; the caller scatters KV."""
+                   skip_pool=False, verify=False):
+    """Multi-token layer loop over the page pool (chunked prefill, and the
+    spec-decode verify pass with ``verify``). Returns ``(x [B, C, E]
+    pre-final-norm hidden, ks, vs, positions, valid)``; the caller scatters
+    KV (and, for verify, applies the head)."""
     B, C = tokens.shape
     ar = torch.arange(C, device=tokens.device)
     positions = start[:, None] + ar[None, :]
@@ -741,13 +742,16 @@ def _extend_layers(params, cfg, cache, tokens, table, start, n_new,
         if rot is not None:
             q = apply_rotary(q, *rot)
             k = apply_rotary(k, *rot)
-        ctx = paged_ops.paged_extend_attention(
-            q, k, v, cache.pages, li, table, start, n_new,
-            softmax_scale=cfg.softmax_scale,
-            soft_cap=cfg.attn_logits_soft_cap,
-            sliding_window=cfg.sliding_window,
-            skip_pool=skip_pool, scales=cache.scales,
-        )
+        kw = dict(softmax_scale=cfg.softmax_scale,
+                  soft_cap=cfg.attn_logits_soft_cap,
+                  sliding_window=cfg.sliding_window, scales=cache.scales)
+        if verify:
+            ctx = paged_ops.paged_verify_attention(
+                q, k, v, cache.pages, li, table, start, n_new, **kw)
+        else:
+            ctx = paged_ops.paged_extend_attention(
+                q, k, v, cache.pages, li, table, start, n_new,
+                skip_pool=skip_pool, **kw)
         x = x + _attn_out(lp["attn"], ctx.to(x.dtype))
         x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
         ks.append(k)
@@ -775,6 +779,38 @@ def extend_paged(
     return _scatter_chunk_kv(cache, ks, vs, table, positions, valid)
 
 
+def verify_step_paged(
+    params: Params,
+    cfg: ModelConfig,
+    cache: PagedKVCache,
+    tokens: torch.Tensor,       # [B, C] verify chunk: [last_token, d_1..d_K]
+    table: torch.Tensor,        # [B, M]
+    lens: torch.Tensor,         # [B] resident tokens (the chunk starts here)
+    n_new: torch.Tensor,        # [B] C where the slot is active, 0 otherwise
+    write_mask: torch.Tensor,   # [B, C] which chunk positions' KV may land
+    return_hidden: bool = False,
+) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Speculative-decode VERIFY: :func:`decode_step_paged` generalized to
+    C = K+1 query tokens per slot in one pass. Returns fp32 logits ``[B,
+    C, V]`` (position ``i`` is the distribution of the token following
+    ``tokens[:, i]``), or with ``return_hidden`` the final-norm hidden
+    states ``[B, C, E]`` for the fused epilogue, and the cache with the
+    chunk's KV scattered in place where ``write_mask`` allows.
+
+    ``write_mask`` is the engine's acceptance-agnostic residency bound
+    (``active & (n_gen + i < max_gen)``): rejected drafts' KV lands beyond
+    the post-acceptance ``lens``, which attention never reads and later
+    steps overwrite, so the scatter can run before the accept decision;
+    the mask keeps writes inside the slot's allocated pages (a position
+    past ``max_gen`` could fall off the table and alias page 0)."""
+    x, ks, vs, positions, _ = _extend_layers(
+        params, cfg, cache, tokens, table, lens, n_new, verify=True
+    )
+    _scatter_chunk_kv(cache, ks, vs, table, positions, write_mask)
+    x = _norm(cfg, params["final_ln"], x)
+    return (x if return_hidden else _head(cfg, params, x)), cache
+
+
 def decode_step_paged(
     params: Params,
     cfg: ModelConfig,
@@ -784,7 +820,8 @@ def decode_step_paged(
     lens: torch.Tensor,         # [B] i32 resident tokens (write position)
     active: torch.Tensor,       # [B] bool
     return_hidden: bool = False,
-) -> Tuple[torch.Tensor, PagedKVCache, torch.Tensor]:
+    with_head: bool = True,
+) -> Tuple[Optional[torch.Tensor], PagedKVCache, torch.Tensor]:
     """One decode step over the page pool. Returns (fp32 logits ``[B, V]``,
     cache, new lens incremented where active). Each layer's fresh K/V
     merge into attention as the self token (the paged decode kernel on a
@@ -792,7 +829,10 @@ def decode_step_paged(
 
     ``return_hidden=True`` returns the final-norm hidden states ``[B, E]``
     in place of the logits: the fused sampling epilogue
-    (``ops/fused_sample.py``) streams the head itself."""
+    (``ops/fused_sample.py``) streams the head itself.
+    ``with_head=False`` skips the final norm and the head and returns
+    ``None`` logits: the draft model's KV-maintenance step needs only the
+    KV writes."""
     positions = lens
     x = _embed(cfg, params, tokens, positions)        # [B, E]
     rot = _rotary(cfg, positions)
@@ -819,5 +859,7 @@ def decode_step_paged(
         cache, torch.stack(ks)[:, :, None], torch.stack(vs)[:, :, None],
         table, positions[:, None], active[:, None],
     )
+    if not with_head:
+        return None, cache, new_lens
     x = _norm(cfg, params["final_ln"], x)
     return (x if return_hidden else _head(cfg, params, x)), cache, new_lens

@@ -40,6 +40,7 @@ from typing import Dict, Optional
 
 import torch
 
+from areal_tpu_torch.gen.sampling import spec_accept, spec_emit
 from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
 
 # Matches gen/sampling.py: masked-out entries of a distribution.
@@ -305,3 +306,62 @@ def fused_sample(
         seed, x, w, temperature, greedy, soft_cap, topk, exclude,
         gather_ids, block_size, TOPK_MAX,
     )
+
+
+def fused_spec_rejection(
+    gen: torch.Generator,
+    hidden: torch.Tensor,          # [B, C, E] final-norm verify hidden
+    w: torch.Tensor,               # [E, V]
+    draft: torch.Tensor,           # [B, K] proposed tokens
+    sp,                            # SamplingParams
+    soft_cap: Optional[float] = None,
+    block_size: int = 2048,
+):
+    """Speculative rejection sampling from the streamed head: the fused
+    counterpart of ``gen/sampling.py::spec_rejection_sample`` for one-hot
+    (deterministic) drafters, fed final-norm verify hidden states instead
+    of materialized ``[B, C, V]`` logits.
+
+    ONE :func:`fused_sample` call over the ``B * C`` rows (the kernel on a
+    CUDA tensor, the plain version on a CPU one) yields per position the
+    draft token's warped target logprob (``gather_ids`` = the draft; the
+    acceptance threshold), the raw argmax (greedy acceptance and residual)
+    and a pre-sampled residual candidate: Gumbel-top-1 with the position's
+    draft token excluded (``exclude`` = the draft, -1 at position K),
+    which is a draw from p with the rejected token removed, renormalized;
+    the bonus position samples the plain warped target. Acceptance
+    (``spec_accept``, greedy rows by ``sp.temperature <= 0``) then picks
+    the boundary row. Returns ``(accept_len, tokens [B, C], logprobs
+    [B, C], boundary_argmax)`` with the semantics of
+    ``spec_rejection_sample``: token-exact for greedy slots,
+    distribution-exact otherwise. Warping slots (top-p / top-k) are not
+    handled here: the engine routes them through the sorted sampler."""
+    B, C, E = hidden.shape
+    K = C - 1
+    dev = hidden.device
+    greedy = sp.temperature <= 0.0
+    seed = torch.randint(-(1 << 31), (1 << 31) - 1, (1,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    d32 = draft.to(torch.int32)
+    excl = torch.cat(
+        [d32, torch.full((B, 1), -1, dtype=torch.int32, device=dev)], dim=1)
+    gids = torch.cat(
+        [d32, torch.zeros((B, 1), dtype=torch.int32, device=dev)], dim=1)
+    res = fused_sample(
+        seed, hidden.reshape(B * C, E), w,
+        sp.temperature.float().repeat_interleave(C),
+        greedy.repeat_interleave(C), soft_cap=soft_cap,
+        exclude=excl.reshape(-1), gather_ids=gids.reshape(-1),
+        block_size=block_size,
+    )
+    cand = res["tokens"].long().reshape(B, C)
+    cand_lp = res["logprobs"].reshape(B, C)
+    argmax = res["argmax"].long().reshape(B, C)
+    draft_lp = res["gathered_lp"].reshape(B, C)[:, :K]
+    draft = draft.long()
+
+    _, a = spec_accept(gen, greedy, draft, argmax, draft_lp)
+    rows = torch.arange(B, device=dev)
+    tokens, lps = spec_emit(a, draft, draft_lp, cand[rows, a],
+                            cand_lp[rows, a])
+    return a, tokens, lps, argmax[rows, a]

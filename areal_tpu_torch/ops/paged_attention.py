@@ -10,8 +10,9 @@ new KV into the pool in one scatter after its layer loop.
 
 Decode dispatches by device: a CUDA tensor goes to the hand-written
 kernel (``ops/cuda/paged_attention.py``), a CPU tensor to its plain
-version ``decode_plain``. Chunked prefill (extend) is plain PyTorch, as it
-was XLA code (not Pallas) in the JAX package.
+version ``decode_plain``. Chunked prefill (extend) and the speculative
+verify pass are plain PyTorch, as they were XLA code (not Pallas) in the
+JAX package.
 """
 
 from typing import Optional, Tuple
@@ -165,6 +166,41 @@ def decode_plain(
     l = l * corr + p_self
     acc = acc * corr[..., None] + p_self[..., None] * v_self[:, :, None].float()
     return (acc / l[..., None]).reshape(B, H, D).to(q.dtype)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,          # [B, C, H, D] verify chunk (C = K+1, small)
+    k_chunk: torch.Tensor,    # [B, C, Hkv, D]
+    v_chunk: torch.Tensor,
+    pages: torch.Tensor,      # [L, P, 2, Hkv, page, D]
+    layer: int,
+    table: torch.Tensor,      # [B, M]
+    lens: torch.Tensor,       # [B] tokens resident in the pool
+    n_new: torch.Tensor,      # [B] valid chunk tokens (C where active, 0 else)
+    *,
+    softmax_scale: Optional[float] = None,
+    soft_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-token VERIFY attention for speculative decoding: the chunk
+    ``[last_token, d_1..d_K]`` sits at positions ``[lens, lens+K]``; token
+    ``i`` attends every pool position ``< lens`` plus chunk tokens ``<=
+    i``. That is the chunked-prefill contract with ``start = lens``, so
+    this delegates to :func:`paged_extend_attention` (one pass scores all
+    K+1 positions). Plain PyTorch, as the reference's is XLA. The chunk's
+    K/V ride as operands; the caller scatters them into the pool after its
+    layer loop."""
+    if q.dim() != 4 or q.shape[1] != k_chunk.shape[1]:
+        raise ValueError(
+            f"verify chunk shapes disagree: q {tuple(q.shape)} vs k "
+            f"{tuple(k_chunk.shape)}"
+        )
+    return paged_extend_attention(
+        q, k_chunk, v_chunk, pages, layer, table, lens, n_new,
+        softmax_scale=softmax_scale, soft_cap=soft_cap,
+        sliding_window=sliding_window, scales=scales,
+    )
 
 
 def paged_extend_attention(

@@ -27,8 +27,10 @@ Phases, each printing one JSON line:
      host time; library: SDPA over K/V already gathered dense (the gather
      is not timed), both ways.
    - fused LM-head sampler, at the serving path's shape (R 32, E 1536,
-     V 151936, bf16, half the rows greedy, temperatures 0.7 / 1 / 1.3)
-     and at small shapes in f32 and bf16 with soft cap, V 500 / 50257 /
+     V 151936, bf16, half the rows greedy, temperatures 0.7 / 1 / 1.3),
+     at the spec verify's (R 320 = 64 slots x 5 positions, with excluded
+     and gathered tokens; library: the head GEMM + the one-hot
+     ``spec_rejection_sample``) and at small shapes in f32 and bf16 with soft cap, V 500 / 50257 /
      5000 (not multiples of the tile), R 1 / 33 / 160, excluded and
      gathered tokens, E 70 and 200 and a tied (E-contiguous) head; bf16
      cases run both versions of the product (tensor cores where the layout
@@ -58,7 +60,11 @@ Phases, each printing one JSON line:
    fused sampler, over staggered arrivals (three bursts while decoding:
    prefix hits, a partial hit, prompts of several 16-token waves); on
    the card every admission wave and commit must be a graph replay or
-   its key's first use.
+   its key's first use. Then the same traffic through spec engines on the
+   card (K 3, spec chunks graphed: the n-gram drafter, with the fused
+   sampler's acceptance, pipelined, and a 1-layer shared-prefix draft
+   model): the same greedy tokens as the CPU, replays x steps + captures
+   = spec steps, drafts accepted.
 4. ``serve``: the engine at the full width of the R1-Distill-Qwen-1.5B
    profile (28 layers, random weights from a seed, bf16) behind the
    port's HTTP server answers 32 concurrent /generate requests (4 prompts
@@ -83,6 +89,32 @@ Phases, each printing one JSON line:
    and checks that the replayed graphs decode with the new weights and
    that admission after the update replays extend graphs captured before
    it, with greedy tokens equal to a fresh engine's on the new weights.
+5b. ``spec_serve``: speculative decoding at the 1.5B profile's full width
+   (bf16, seed-0 weights with layers 7 on damped by 0.1 on the attention
+   out and MLP down projections, as ``bench.py``'s ``_gen_spec``): 64
+   repetitive 1024-token prompts (a 24-token motif, a distinct first
+   token each), 256 greedy new tokens, chunks of 16, K 4, four engines
+   freed in turn: ``vanilla``, ``ngram``, ``ngram_fused`` and ``draft``
+   (the 7-layer shared-prefix draft). Each arm: every answer in full,
+   replays x 16 + captures = steps, the spec keys the traffic implies,
+   paged-decode launches = 28 x vanilla steps + 7 x (K+1) x spec steps
+   + 7 x vanilla steps on the draft arm, fused-sampler launches = spec
+   steps on ``ngram_fused``, 0 < accept rate <= 1, and every greedy token
+   within SPEC_ARGMAX_TOL of the max logit of a packed forward over its
+   own sequence (bf16: the verify pass and the decode kernel round
+   differently, so the arms' sequences may part at a near tie; how many
+   equal ``vanilla``'s is reported). On ``ngram_fused``, 16 temperature-1
+   requests: one fused-sampler launch a spec step, logprobs within 0.1
+   (mean) of a packed forward's. Three acceptance faults planted in an
+   n-gram engine (SPEC_FAULTS) must each read above SPEC_ARGMAX_TOL.
+   Then the draft arm behind the HTTP
+   server: 16 greedy and 16 temperature-1 requests with ``/spec_decode``
+   turned off and on again mid-serve: all answered in full, both chunk
+   kinds ran, the greedy tokens near-argmax and the sampled ones'
+   logprobs within 0.1 (mean) of a packed forward's. Prints each arm's
+   decode tokens/s (device time of chunks), accept rate, mean accept
+   length, ms per spec step, capture seconds and graph pool;
+   ``--profile`` adds the verify attention's share of a spec step.
 6. ``async_rollout``: AReaL's async loop closed once at the 1.5B profile's
    widths (full depth where two f32 exports fit on the disk, else cut
    only as far as they do): a bf16 server behind the gserver manager
@@ -207,8 +239,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
-          "serve_pipelined", "weight_sync", "async_rollout", "async_ppo",
-          "agentic_ppo", "train_parity", "train", "sync_ppo")
+          "serve_pipelined", "spec_serve", "weight_sync", "async_rollout",
+          "async_ppo", "agentic_ppo", "train_parity", "train", "sync_ppo")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -1202,6 +1234,29 @@ def fused_library(torch, a):
     return call
 
 
+def fused_spec_library(torch, a, K):
+    """The unfused spec acceptance the port runs without the kernel: the
+    head GEMM (cuBLAS) over the ``B * (K+1)`` verify rows, the logits
+    widened to f32, then the one-hot ``spec_rejection_sample`` over them
+    (the rows' gathered ids as the draft)."""
+    from areal_tpu_torch.gen.sampling import (SamplingParams,
+                                              spec_rejection_sample)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    R = a["x"].shape[0]
+    B = R // (K + 1)
+    sp = SamplingParams.filled(B, device="cuda")
+    sp.temperature = a["temperature"][:: K + 1].contiguous()
+    draft = a["gather_ids"].view(B, K + 1)[:, :K].long()
+
+    def call():
+        logits = (a["x"] @ a["w"]).float().view(B, K + 1, -1)
+        return spec_rejection_sample(gen, logits, draft, sp, warp=False)
+
+    return call
+
+
 def fused_chi_square(torch, exclude):
     """20000 independent draws at V 16 in one launch (the row index enters
     the hash as the seed does) against softmax(warped); chi-square, df 15
@@ -1242,6 +1297,10 @@ def fused_kernels_phase(torch):
 
     cases = [
         ("slice_bf16", dict(R=32, E=1536, V=151936, dtype="bfloat16"), True),
+        # spec_serve's verify rows: 64 slots x (K + 1) positions
+        ("spec_bf16", dict(R=SPEC_SERVE["slots"] * (SPEC_SERVE["k"] + 1),
+                           E=1536, V=151936, dtype="bfloat16", exclude=True,
+                           gather=True), True),
         ("f32_v500", dict(R=6, E=32, V=500, dtype="float32"), False),
         ("f32_cap_excl_gather", dict(R=6, E=64, V=50257, dtype="float32",
                                      soft_cap=30.0, exclude=True,
@@ -1284,7 +1343,9 @@ def fused_kernels_phase(torch):
                                                 cuda_cores=True), 20)
             row["plain_ms"] = cuda_ms(
                 lambda: fused_sample_plain(*args, **kw), 3)
-            row["library_ms"] = cuda_ms(fused_library(torch, a), 20)
+            row["library_ms"] = cuda_ms(
+                fused_spec_library(torch, a, SPEC_SERVE["k"])
+                if name == "spec_bf16" else fused_library(torch, a), 20)
             row["bound_ms"], row["bound_by"] = fused_bound(torch, a)
             row["w_bytes"] = a["w"].numel() * a["w"].element_size()
         results[name] = row
@@ -1434,6 +1495,40 @@ def parity_phase(torch):
                 admission_graphed("parity", st, eng)
             elif st["extend_captures"] or st["commit_captures"]:
                 raise AssertionError(f"parity: the cpu engine captured: {st}")
+    # speculative decoding on the card, spec chunks graphed: the n-gram
+    # drafter (plain and the fused sampler's acceptance, pipelined) and the
+    # draft model; float32, so every greedy token is the CPU's
+    from areal_tpu_torch.gen.drafter import TransformerDrafter
+
+    spec_arms = (("ngram", {}), ("ngram_fused", dict(fused_sample=True)),
+                 ("ngram_pipelined", dict(pipeline_chunks=True)),
+                 ("draft", dict(drafter=True)))
+    for name, kw in spec_arms:
+        if kw.pop("drafter", False):
+            kw["drafter"] = TransformerDrafter.shared_prefix(cfg, params, 1)
+        eng = GenerationEngine(cfg, params, max_slots=4, max_seqlen=128,
+                               page_size=16, spec_decode=True, spec_k=3,
+                               device="cuda", **kw)
+        got = {}
+        for step in range(max(schedule) + 1):
+            for rid, p, n in schedule.get(step, ()):
+                eng.submit(GenRequest(rid=rid, input_ids=p,
+                                      max_new_tokens=n, greedy=True))
+            got.update({o.rid: o.output_ids for o in eng.step(PARITY_STEPS)})
+        got.update({o.rid: o.output_ids
+                    for o in eng.run_until_done(PARITY_STEPS)})
+        outs["cuda", "spec_" + name] = got
+        st = eng.stats
+        if not (st["spec_captures"] == len(eng._jit_spec) > 0
+                and st["spec_replays"] * PARITY_STEPS + st["spec_captures"]
+                == st["spec_steps"] and st["spec_accepted_tokens"] > 0
+                and st["decode_steps"] == 0):
+            raise AssertionError(f"parity: spec {name} graphs: {st}")
+        if kw.get("fused_sample") and st["spec_fused_steps"] != (
+                st["spec_steps"]):
+            raise AssertionError(f"parity: spec {name} fused steps: {st}")
+        admission_graphed(f"parity spec {name}", st, eng)
+        del eng
     # float32: the fused and the unfused epilogue agree on every argmax
     want = outs["cpu", False, False]
     for key, got in outs.items():
@@ -1441,7 +1536,8 @@ def parity_phase(torch):
             raise AssertionError(f"greedy {key} != cpu unfused: {got} {want}")
     emit(phase="parity", requests=len(want), staggered_arrivals=len(schedule),
          token_exact=True, fused_token_exact=True,
-         pipelined_token_exact=True, admission_graphed=True)
+         pipelined_token_exact=True, spec_token_exact=True,
+         spec_arms=[n for n, _ in spec_arms], admission_graphed=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -1806,6 +1902,539 @@ def fused_determinism(torch, params, cfg):
         diff = [r for r in runs[0] if runs[0][r] != runs[1].get(r)]
         raise AssertionError(f"serve_fused: two fused runs differ on {diff}")
     return len(runs[0])
+
+
+# --------------------------------------------------------------------------- #
+# speculative decoding at the 1.5B profile's widths
+# --------------------------------------------------------------------------- #
+
+
+# spec_serve: 64 slots of repetitive 1024-token prompts (a 24-token motif,
+# a distinct first token per slot, so no prefix is shared), 256 greedy new
+# tokens each, chunks of DECODE_STEPS, K 4; the target's refinement layers
+# (7 on) have their residual-writing projections damped by 0.1 so that the
+# 7-layer shared-prefix draft tracks it (bench.py's ``_gen_spec``)
+SPEC_SERVE = dict(slots=64, max_seqlen=2048, page=128, prompt_len=1024,
+                  motif_len=24, max_new=256, k=4, draft_layers=7, gamma=0.1)
+# A greedy token is the argmax of the engine's own logits. Held against a
+# packed forward (flash attention) of the same sequence, on the same
+# weights, its logit must be within this of that forward's max: the two
+# paths' bf16 logits differ by a few ulps (2^-6 at the |logits| of 2-4 a
+# random head gives, and about as much again from the hidden state), while
+# each acceptance fault of SPEC_FAULTS, planted in every run, must read
+# above the limit (on an H100: the arms at most 0.0625, the faults 1.25 to
+# 4.2). So greedy tokens are checked for being the target's argmax up to
+# bf16 near ties. The arms' sequences themselves can part at such a near tie: the
+# verify pass and the paged-decode kernel round differently (the limit is
+# 16 ulps, four times the paths' difference measured in weight_sync).
+SPEC_ARGMAX_TOL = 0.25
+
+
+def spec_params(torch, tfm, cfg):
+    """Seed-0 bf16 weights with the refinement layers' attention-out and
+    MLP-down projections scaled by ``gamma`` (the port's copy of
+    ``bench.py::_draft_predictable_init``)."""
+    params = tfm.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    for lp in params["layers"][SPEC_SERVE["draft_layers"]:]:
+        lp["attn"]["wo"].mul_(SPEC_SERVE["gamma"])
+        for k in ("w_down", "w_proj"):
+            if k in lp["mlp"]:
+                lp["mlp"][k].mul_(SPEC_SERVE["gamma"])
+    return params
+
+
+def spec_prompts(vocab):
+    s = SPEC_SERVE
+    rng = np.random.default_rng(0)
+    motif = rng.integers(1, min(50000, vocab - 1), s["motif_len"]).tolist()
+    prompts = []
+    for i in range(s["slots"]):
+        p = (motif * (s["prompt_len"] // s["motif_len"] + 1))[:s["prompt_len"]]
+        p[0] = 1 + i
+        prompts.append(p)
+    return prompts
+
+
+def spec_table_width(max_pos, page, M):
+    """The engine's table-width rule, written out: pages for ``max_pos``
+    rounded up to a power of two, floored at 32, capped at the table."""
+    w = 32
+    while w < -(-max_pos // page):
+        w *= 2
+    return min(w, M)
+
+
+def greedy_argmax_gaps(torch, tfm, cfg, params, prompts, outputs, pack=8):
+    """For every generated token: the max logit minus the token's logit at
+    its position, under a packed forward of its own sequence (``pack``
+    sequences a forward, one segment each)."""
+    gaps = []
+    for i in range(0, len(prompts), pack):
+        seqs = [p + o for p, o in zip(prompts[i:i + pack],
+                                      outputs[i:i + pack])]
+        ids = torch.tensor([t for s in seqs for t in s], device="cuda")
+        seg = torch.cat([torch.full((len(s),), k + 1, dtype=torch.int32)
+                         for k, s in enumerate(seqs)]).to("cuda")
+        pos = torch.cat([torch.arange(len(s), dtype=torch.int32)
+                         for s in seqs]).to("cuda")
+        with torch.no_grad():
+            hidden = tfm.forward_packed(params, cfg, ids, seg, pos,
+                                        remat=False, with_head=False)
+            off = 0
+            for k, s in enumerate(seqs):
+                n_prompt = len(prompts[i + k])
+                rows = torch.arange(off + n_prompt - 1, off + len(s) - 1,
+                                    device="cuda")
+                logits = tfm.apply_head(cfg, params, hidden[rows])
+                tok = ids[rows + 1]
+                gaps.append((logits.max(-1).values - torch.gather(
+                    logits, 1, tok[:, None])[:, 0]).cpu().numpy())
+                off += len(s)
+        del hidden
+    return np.concatenate(gaps)
+
+
+def verify_attention_ms(torch, eng, n_layers):
+    """Device time (ms) of the verify pass's attention alone over one spec
+    step's shapes (every slot at the mid-run resident length, the table
+    the engine's, all layers), replayed from a CUDA graph as the spec
+    chunk runs it: its share of a spec step is what a verify kernel could
+    win."""
+    from areal_tpu_torch.ops import paged_attention as paged_ops
+
+    cfg, B, C = eng.cfg, eng.B, eng.spec_k + 1
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    q = torch.randn(B, C, cfg.n_q_heads, cfg.head_dim, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    kv = torch.randn(B, C, cfg.n_kv_heads, cfg.head_dim, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    lens = torch.full((B,), SPEC_SERVE["prompt_len"] + SPEC_SERVE["max_new"]
+                      // 2, dtype=torch.int32, device="cuda")
+    n_new = torch.full((B,), C, dtype=torch.int32, device="cuda")
+    table = eng._table_dev
+    pages = eng.state.cache.pages
+
+    def step():
+        for li in range(n_layers):
+            paged_ops.paged_verify_attention(q, kv, kv, pages, li, table,
+                                             lens, n_new)
+
+    return graph_ms([step])
+
+
+def spec_arm(torch, name, cfg, params, prompts, *, spec, fused=False,
+             drafter=None, profile=False):
+    """One engine serving every prompt greedily to the end; returns the
+    engine, its tokens by request and its numbers. The launch counts are
+    zeroed right before the requests are submitted and read right after
+    the last one finishes. ``profile`` traces the run (device time by
+    kernel)."""
+    from areal_tpu_torch.gen.engine import GenerationEngine, GenRequest
+    from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
+    from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
+
+    s = SPEC_SERVE
+    eng = GenerationEngine(cfg, params, max_slots=s["slots"],
+                           max_seqlen=s["max_seqlen"], page_size=s["page"],
+                           seed=0, spec_decode=spec, spec_k=s["k"],
+                           drafter=drafter, fused_sample=fused,
+                           device="cuda")
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    cuda_paged.reset_launches()
+    cuda_fused.reset_launches()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(GenRequest(rid=f"s{i}", input_ids=p,
+                              max_new_tokens=s["max_new"], greedy=True))
+    outs = {o.rid: o for o in eng.run_until_done(DECODE_STEPS)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    launches = dict(paged_decode=cuda_paged.launches,
+                    fused_sample=cuda_fused.launches)
+    st = dict(eng.stats)
+    tokens = [outs[f"s{i}"].output_ids for i in range(len(prompts))]
+    if len(outs) != len(prompts) or any(
+            len(t) != s["max_new"] or outs[f"s{i}"].finish_reason != "length"
+            for i, t in enumerate(tokens)):
+        raise AssertionError(f"spec_serve {name}: answers {len(outs)}, "
+                             f"lengths {sorted({len(t) for t in tokens})}")
+    n_tokens = sum(len(t) for t in tokens)
+    row = dict(arm=name, wall_s=wall, generated_tokens=n_tokens,
+               decode_tok_per_s=n_tokens / max(st["decode_s"], 1e-9),
+               decode_s=st["decode_s"], prefill_s=st["prefill_s"],
+               decode_steps=st["decode_steps"], spec_steps=st["spec_steps"],
+               graph_captures=st["graph_captures"],
+               graph_replays=st["graph_replays"],
+               spec_captures=st["spec_captures"],
+               spec_replays=st["spec_replays"],
+               graph_capture_s=st["graph_capture_s"],
+               graph_pool_gb=st["graph_pool_bytes"] / 1e9,
+               paged_decode_launches=launches["paged_decode"],
+               fused_sample_launches=launches["fused_sample"],
+               spec_keys=sorted(eng._jit_spec),
+               chunk_keys=sorted(eng._jit_chunk))
+    if spec:
+        d, a = st["spec_draft_tokens"], st["spec_accepted_tokens"]
+        row.update(
+            accept_rate=a / max(d, 1),
+            # per (spec step, live slot): drafts accepted, tokens emitted
+            mean_accept_len=a / max(d / s["k"], 1),
+            tokens_per_slot_step=n_tokens / max(d / s["k"], 1),
+            ms_per_spec_step=st["spec_s"] * 1e3 / max(
+                st["spec_replays"] * DECODE_STEPS, 1),
+            accept_len_hist={str(k): v for k, v in
+                             sorted(eng.spec_accept_hist.items())},
+            draft_kv_pool_bytes=eng.draft_kv_pool_bytes(),
+        )
+        if eng._draft is not None:
+            row["q_accept_prob"] = st["spec_q_accept_prob_sum"] / max(
+                st["spec_q_accept_prob_n"], 1)
+    else:
+        row["ms_per_decode_step"] = st["decode_s"] * 1e3 / max(
+            st["graph_replays"] * DECODE_STEPS, 1)
+    if prof is not None:
+        row["profile"] = device_profile(
+            prof, wall, {"paged_decode": "paged_decode_split_kernel",
+                         "fused_sample": "fused_sample_"}, top=12)
+    return eng, tokens, row
+
+
+def spec_arm_checks(name, cfg, row, *, spec, fused, draft_layers):
+    """The arm's counts against the traffic: graphs, keys and launches."""
+    s = SPEC_SERVE
+    K = s["k"]
+    M = -(-s["max_seqlen"] // s["page"])
+    # every chunk's width: the longest slot's resident tokens plus what the
+    # chunk (and, unpipelined, nothing in flight) can add
+    bound = DECODE_STEPS * ((K + 1) if spec else 1)
+    widths = {spec_table_width(n + bound, s["page"], M)
+              for n in range(s["prompt_len"] - 1,
+                             s["prompt_len"] + s["max_new"])}
+    fail = []
+    if spec:
+        want_keys = {(DECODE_STEPS, w, 0, K, fused) for w in widths}
+        if not (set(map(tuple, row["spec_keys"])) <= want_keys
+                and row["spec_keys"] and not row["chunk_keys"]):
+            fail.append(f"spec keys {row['spec_keys']} / chunk keys "
+                        f"{row['chunk_keys']}, the traffic implies "
+                        f"{want_keys}")
+        if row["spec_replays"] <= 0 or row["spec_captures"] != len(
+                row["spec_keys"]) or (row["spec_replays"] * DECODE_STEPS
+                                      + row["spec_captures"]
+                                      != row["spec_steps"]):
+            fail.append("spec replays x steps + captures != spec steps")
+        if row["decode_steps"] or row["graph_replays"]:
+            fail.append("a vanilla chunk ran")
+        if not 0.0 < row["accept_rate"] <= 1.0:
+            fail.append(f"accept rate {row['accept_rate']}")
+    else:
+        want_keys = {(DECODE_STEPS, w, 0, False, False) for w in widths}
+        if not (set(map(tuple, row["chunk_keys"])) <= want_keys
+                and row["chunk_keys"] and not row["spec_keys"]):
+            fail.append(f"chunk keys {row['chunk_keys']}, the traffic "
+                        f"implies {want_keys}")
+        if row["graph_replays"] * DECODE_STEPS + row["graph_captures"] != (
+                row["decode_steps"]) or row["spec_steps"]:
+            fail.append("decode replays x steps + captures != decode steps")
+    want_paged = (cfg.n_layers * row["decode_steps"]
+                  + draft_layers * (K + 1) * row["spec_steps"]
+                  + draft_layers * row["decode_steps"])
+    if row["paged_decode_launches"] != want_paged:
+        fail.append(f"paged_decode launched {row['paged_decode_launches']} "
+                    f"times, the steps imply {want_paged}")
+    want_fused = row["spec_steps"] if fused else 0
+    if row["fused_sample_launches"] != want_fused:
+        fail.append(f"fused_sample launched {row['fused_sample_launches']} "
+                    f"times, the steps imply {want_fused}")
+    if fail:
+        raise AssertionError(f"spec_serve {name}: " + "; ".join(fail)
+                             + f"; {json.dumps(row)[:2000]}")
+
+
+def sampled_lp_err(torch, tfm, cfg, params, prompts, answers):
+    """Absolute differences, every generated token of every answer, between
+    the logprob the engine reported and the one a packed forward gives
+    on the same weights."""
+    return np.concatenate([np.abs(
+        np.asarray(a["output_logprobs"]) - score_tokens(
+            torch, tfm, cfg, params, p + a["output_ids"], len(p)))
+        for p, a in zip(prompts, answers)])
+
+
+def spec_sampled_check(torch, tfm, cfg, params, eng, prompts):
+    """Sixteen temperature-1 requests (128 new tokens) straight to the
+    ``ngram_fused`` arm's engine: every spec step takes the fused
+    sampler's sampled acceptance (the kernel's gathered draft logprob,
+    excluded draft and Gumbel residual), one kernel launch a step, and
+    the tokens' logprobs are within WEIGHT_SYNC_LP_TOL (mean absolute) of
+    a packed forward's on the same weights."""
+    from areal_tpu_torch.gen.engine import GenRequest
+    from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
+
+    st0, l0 = dict(eng.stats), cuda_fused.launches
+    for i in range(16):
+        eng.submit(GenRequest(rid=f"t{i}", input_ids=prompts[i],
+                              max_new_tokens=128, temperature=1.0))
+    outs = {o.rid: o for o in eng.run_until_done(DECODE_STEPS)}
+    answers = [dict(output_ids=outs[f"t{i}"].output_ids,
+                    output_logprobs=outs[f"t{i}"].output_logprobs)
+               for i in range(16)]
+    steps = eng.stats["spec_steps"] - st0["spec_steps"]
+    launches = cuda_fused.launches - l0
+    if steps <= 0 or launches != steps or eng.stats["decode_steps"] != st0[
+            "decode_steps"] or any(len(a["output_ids"]) != 128
+                                   for a in answers):
+        raise AssertionError(
+            f"spec_serve ngram_fused sampled: {steps} spec steps, "
+            f"fused_sample launched {launches} times, lengths "
+            f"{sorted({len(a['output_ids']) for a in answers})}")
+    lp_err = sampled_lp_err(torch, tfm, cfg, params, prompts[:16], answers)
+    if not lp_err.mean() <= WEIGHT_SYNC_LP_TOL:
+        raise AssertionError(
+            f"spec_serve ngram_fused sampled: logprob error {lp_err.mean()} "
+            f"(limit {WEIGHT_SYNC_LP_TOL})")
+    d = eng.stats["spec_draft_tokens"] - st0["spec_draft_tokens"]
+    acc = eng.stats["spec_accepted_tokens"] - st0["spec_accepted_tokens"]
+    return dict(sampled_requests=16, sampled_spec_steps=steps,
+                sampled_accept_rate=acc / max(d, 1),
+                sampled_lp_err_mean=float(lp_err.mean()),
+                sampled_lp_err_max=float(lp_err.max()))
+
+
+# Faults planted in the greedy acceptance, each run through
+# greedy_argmax_gaps at the phase's widths: every one must read above
+# SPEC_ARGMAX_TOL, or that check could not tell a fault from rounding.
+# accept_all: every draft accepted, the bonus row's argmax after them;
+# next_row / prev_row: the residual is the argmax of the boundary row's
+# neighbour instead of its own.
+SPEC_FAULTS = ("accept_all", "next_row", "prev_row")
+
+
+def planted_rejection(torch, real, fault):
+    """``spec_rejection_sample`` with ``fault`` planted in its output."""
+
+    def wrapped(gen, logits, draft, sp, **kw):
+        a, toks, lps, barg = real(gen, logits, draft, sp, **kw)[:4]
+        K = draft.shape[1]
+        if fault == "accept_all":
+            a = torch.full_like(a, K)
+            toks = torch.cat([draft.long(),
+                              logits[:, K].argmax(-1, keepdim=True)], 1)
+        else:
+            rows = torch.arange(a.shape[0], device=a.device)
+            r = (a + 1).clamp(max=K) if fault == "next_row" else (
+                a - 1).clamp(min=0)
+            toks = toks.clone()
+            toks[rows, a] = logits[rows, r].argmax(-1)
+        return a, toks, lps, barg
+
+    return wrapped
+
+
+def spec_fault_control(torch, tfm, cfg, params, prompts):
+    """Each of SPEC_FAULTS planted in an n-gram engine (8 slots, 64 greedy
+    new tokens, the phase's K): the largest argmax gap of its tokens,
+    which must exceed SPEC_ARGMAX_TOL."""
+    from areal_tpu_torch.gen import engine as engine_mod
+
+    s, real = SPEC_SERVE, engine_mod.spec_rejection_sample
+    prompts = prompts[:8]
+    readings = {}
+    for fault in SPEC_FAULTS:
+        engine_mod.spec_rejection_sample = planted_rejection(torch, real,
+                                                             fault)
+        try:
+            eng = engine_mod.GenerationEngine(
+                cfg, params, max_slots=len(prompts),
+                max_seqlen=s["max_seqlen"], page_size=s["page"], seed=0,
+                spec_decode=True, spec_k=s["k"], device="cuda")
+            for i, p in enumerate(prompts):
+                eng.submit(engine_mod.GenRequest(rid=f"f{i}", input_ids=p,
+                                                 max_new_tokens=64,
+                                                 greedy=True))
+            outs = {o.rid: o for o in eng.run_until_done(DECODE_STEPS)}
+        finally:
+            engine_mod.spec_rejection_sample = real
+        toks = [outs[f"f{i}"].output_ids for i in range(len(prompts))]
+        readings[fault] = float(greedy_argmax_gaps(
+            torch, tfm, cfg, params, prompts, toks).max())
+        del eng
+        torch.cuda.empty_cache()
+    if not min(readings.values()) > SPEC_ARGMAX_TOL:
+        raise AssertionError(
+            f"spec_serve: a planted acceptance fault reads within the "
+            f"argmax limit {SPEC_ARGMAX_TOL}: {readings}")
+    return readings
+
+
+def spec_http_check(torch, tfm, cfg, params, eng, prompts, ref_tokens):
+    """The draft arm's engine behind the HTTP server: 16 greedy and 16
+    temperature-1 requests, ``/spec_decode`` turned off once a spec chunk
+    has run and on again once a vanilla chunk has: every request is
+    answered in full, both chunk kinds ran, the greedy tokens are near-argmax
+    of the target and the sampled ones' logprobs within WEIGHT_SYNC_LP_TOL
+    (mean absolute) of a packed forward's on the same weights."""
+    from areal_tpu_torch.gen.server import serve
+
+    srv = serve(eng, "127.0.0.1", 0, decode_steps=DECODE_STEPS)
+    bodies = [{"rid": f"h{i}", "input_ids": prompts[i],
+               "sampling_params": {"max_new_tokens": 192, "greedy": True}}
+              for i in range(16)]
+    bodies += [{"rid": f"t{i}", "input_ids": prompts[16 + i],
+                "sampling_params": {"max_new_tokens": 128,
+                                    "temperature": 1.0}}
+               for i in range(16)]
+    toggles = []
+    try:
+        st0 = dict(eng.stats)
+        with ThreadPoolExecutor(len(bodies)) as ex:
+            futs = [ex.submit(post, srv.port, "/generate", b) for b in bodies]
+
+            def wait_for(key, n):
+                deadline = time.time() + 300
+                while eng.stats[key] < n:
+                    if time.time() > deadline or all(f.done() for f in futs):
+                        raise AssertionError(f"spec_serve http: {key} stayed "
+                                             f"below {n}: {eng.stats}")
+                    time.sleep(0.002)
+
+            wait_for("spec_replays", st0["spec_replays"] + 1)
+            toggles.append(post(srv.port, "/spec_decode", {"enabled": False}))
+            mid = dict(eng.stats)
+            wait_for("decode_steps", mid["decode_steps"] + DECODE_STEPS)
+            toggles.append(post(srv.port, "/spec_decode", {"enabled": True}))
+            back = dict(eng.stats)
+            answers = [f.result() for f in futs]
+        metrics = get(srv.port, "/metrics_json")
+    finally:
+        srv.stop()
+    if [t[1]["spec_decode"] for t in toggles] != [False, True] or any(
+            t[0] != 200 for t in toggles):
+        raise AssertionError(f"spec_serve http: toggles answered {toggles}")
+    for body, (status, ans) in zip(bodies, answers):
+        n = body["sampling_params"]["max_new_tokens"]
+        if status != 200 or ans.get("rid") != body["rid"] or len(
+                ans.get("output_ids", [])) != n or not np.all(
+                np.isfinite(ans["output_logprobs"])):
+            raise AssertionError(f"spec_serve http: bad answer to "
+                                 f"{body['rid']}: {status} {str(ans)[:300]}")
+    if not (eng.stats["spec_steps"] > back["spec_steps"]
+            and mid["spec_steps"] > st0["spec_steps"]
+            and back["decode_steps"] > mid["decode_steps"]):
+        raise AssertionError(f"spec_serve http: the chunk kinds did not "
+                             f"alternate: {st0} {mid} {back} {eng.stats}")
+    greedy = [a["output_ids"] for _, a in answers[:16]]
+    gaps = greedy_argmax_gaps(torch, tfm, cfg, params, prompts[:16], greedy)
+    lp_err = sampled_lp_err(torch, tfm, cfg, params, prompts[16:32],
+                            [a for _, a in answers[16:]])
+    if not (gaps.max() <= SPEC_ARGMAX_TOL
+            and lp_err.mean() <= WEIGHT_SYNC_LP_TOL):
+        raise AssertionError(
+            f"spec_serve http: greedy argmax gap {gaps.max()} (limit "
+            f"{SPEC_ARGMAX_TOL}), sampled logprob error {lp_err.mean()} "
+            f"(limit {WEIGHT_SYNC_LP_TOL})")
+    same = sum(g[:len(r)] == r[:len(g)] for g, r in zip(greedy, ref_tokens))
+    return dict(http_requests=len(bodies),
+                http_greedy_argmax_gap_max=float(gaps.max()),
+                http_sampled_lp_err_mean=float(lp_err.mean()),
+                http_sampled_lp_err_max=float(lp_err.max()),
+                http_greedy_equal_to_vanilla=int(same),
+                http_spec_steps=eng.stats["spec_steps"] - st0["spec_steps"],
+                http_decode_steps=eng.stats["decode_steps"]
+                - st0["decode_steps"],
+                http_spec_decode=metrics["spec_decode"],
+                http_draft_kv_pool_bytes=metrics["draft_kv_pool_bytes"],
+                http_spec_accept_rate=metrics["spec_accept_rate"])
+
+
+def spec_serve_phase(torch, profile=False):
+    """Speculative decoding at the 1.5B profile's full width (28 layers,
+    bf16): four arms, one engine each, freed in turn, on the same
+    prompts and weights: ``vanilla``, ``ngram``, ``ngram_fused`` (the fused
+    sampler's spec acceptance) and ``draft`` (the 7-layer shared-prefix
+    draft model). Checks each arm's graphs, keys and kernel launches
+    against its steps, every greedy token against a packed forward's
+    argmax (SPEC_ARGMAX_TOL; planted faults must read above it), the
+    sampled acceptance of ``ngram_fused`` against a packed forward's
+    logprobs and the HTTP surface on the draft arm.
+    ``profile`` traces the ``ngram`` arm (a trace of every arm's ~200k
+    graph kernels takes minutes to read) and times the verify attention
+    alone."""
+    from areal_tpu_torch.gen.drafter import TransformerDrafter
+    from areal_tpu_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    cfg = qwen_1p5b_cfg()
+    s = SPEC_SERVE
+    params = spec_params(torch, tfm, cfg)
+    prompts = spec_prompts(cfg.vocab_size)
+    arms = dict(vanilla=dict(spec=False), ngram=dict(spec=True),
+                ngram_fused=dict(spec=True, fused=True),
+                draft=dict(spec=True, drafter=True))
+    rows, tokens, totals = {}, {}, dict(paged_decode=0, fused_sample=0)
+    for name, kw in arms.items():
+        drafter = (TransformerDrafter.shared_prefix(cfg, params,
+                                                    s["draft_layers"])
+                   if kw.pop("drafter", False) else None)
+        eng, toks, row = spec_arm(torch, name, cfg, params, prompts,
+                                  drafter=drafter,
+                                  profile=profile and name == "ngram", **kw)
+        spec_arm_checks(name, cfg, row, spec=kw["spec"],
+                        fused=kw.get("fused", False),
+                        draft_layers=s["draft_layers"] if drafter else 0)
+        totals["paged_decode"] += row["paged_decode_launches"]
+        totals["fused_sample"] += row["fused_sample_launches"]
+        gaps = greedy_argmax_gaps(torch, tfm, cfg, params, prompts, toks)
+        row["argmax_gap_max"] = float(gaps.max())
+        row["argmax_gap_p999"] = float(np.quantile(gaps, 0.999))
+        row["tokens_at_zero_gap"] = float(np.mean(gaps == 0.0))
+        if gaps.max() > SPEC_ARGMAX_TOL:
+            raise AssertionError(
+                f"spec_serve {name}: a greedy token sits {gaps.max()} below "
+                f"the packed forward's max logit (limit {SPEC_ARGMAX_TOL})")
+        if name != "vanilla":
+            ref = tokens["vanilla"]
+            row["requests_equal_to_vanilla"] = int(sum(
+                a == b for a, b in zip(toks, ref)))
+            row["tokens_before_first_difference"] = float(np.mean([
+                next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     len(a)) for a, b in zip(toks, ref)]))
+        if profile and name == "ngram":
+            attn_ms = verify_attention_ms(torch, eng, cfg.n_layers)
+            row["verify_attention_ms"] = attn_ms
+            row["verify_attention_share"] = attn_ms / row["ms_per_spec_step"]
+        if name == "ngram_fused":
+            row.update(spec_sampled_check(torch, tfm, cfg, params, eng,
+                                          prompts))
+        if name == "draft":
+            row.update(spec_http_check(torch, tfm, cfg, params, eng, prompts,
+                                       tokens["vanilla"]))
+        tokens[name] = toks
+        rows[name] = row
+        emit(phase="spec_serve", **row)
+        del eng, drafter
+        torch.cuda.empty_cache()
+    faults = spec_fault_control(torch, tfm, cfg, params, prompts)
+    van = rows["vanilla"]["decode_tok_per_s"]
+    emit(phase="spec_serve_summary", **{
+        f"{n}_decode_tok_per_s": r["decode_tok_per_s"] for n, r in rows.items()
+    }, **{f"{n}_vs_vanilla": r["decode_tok_per_s"] / van
+          for n, r in rows.items() if n != "vanilla"},
+        **{f"{n}_accept_rate": r["accept_rate"] for n, r in rows.items()
+           if "accept_rate" in r}, launches=totals,
+        argmax_gap_max=max(r["argmax_gap_max"] for r in rows.values()),
+        planted_fault_gap_max=faults,
+        seconds=time.perf_counter() - t_phase)
+    del params
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=totals)
 
 
 # --------------------------------------------------------------------------- #
@@ -4387,6 +5016,8 @@ def main(argv=None) -> int:
                  chunk_flag_fetches=row["chunk_flag_fetches"])
         del params
         torch.cuda.empty_cache()
+    spec = (spec_serve_phase(torch, args.profile) if "spec_serve" in phases
+            else {"rows": {}, "launches": {}})
     if "weight_sync" in phases:
         weight_sync_phase(torch)
     if "async_rollout" in phases:
@@ -4410,6 +5041,7 @@ def main(argv=None) -> int:
             "replaces": cuda_paged.REPLACES,
             "launches": served.get(variant, {}).get("paged_decode_launches", 0)
             + (agentic.get("paged_decode_launches", 0)
+               + spec["launches"].get("paged_decode", 0)
                if variant == "bfloat16" else 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("kernel_ms"),
@@ -4436,20 +5068,25 @@ def main(argv=None) -> int:
             "bound_by": fcase.get(f"{part}_bound_by"),
             "library_ms": fcase.get(f"library_{part}_ms"),
         })
-    fs = fused.get("slice_bf16", {})
-    kernels.append({
-        "name": "fused_sample",
-        "route": "cuda",
-        "source": cuda_fused.SOURCE,
-        "replaces": cuda_fused.REPLACES,
-        "launches": served.get("fused", {}).get("fused_sample_launches", 0),
-        "max_abs_err": fs.get("max_abs_err"),
-        "ms": fs.get("kernel_ms"),
-        "plain_ms": fs.get("plain_ms"),
-        "bound_ms": fs.get("bound_ms"),
-        "bound_by": fs.get("bound_by"),
-        "library_ms": fs.get("library_ms"),
-    })
+    for name, case, launches in (
+            ("fused_sample", "slice_bf16",
+             served.get("fused", {}).get("fused_sample_launches", 0)),
+            ("fused_sample[spec]", "spec_bf16",
+             spec["launches"].get("fused_sample", 0))):
+        fs = fused.get(case, {})
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": cuda_fused.SOURCE,
+            "replaces": cuda_fused.REPLACES,
+            "launches": launches,
+            "max_abs_err": fs.get("max_abs_err"),
+            "ms": fs.get("kernel_ms"),
+            "plain_ms": fs.get("plain_ms"),
+            "bound_ms": fs.get("bound_ms"),
+            "bound_by": fs.get("bound_by"),
+            "library_ms": fs.get("library_ms"),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if sorted(phases) != sorted(PHASES) or sorted(args.kernels) != sorted(SOURCES):

@@ -120,10 +120,18 @@ def test_load_engine_refuses_to_fall_back(monkeypatch):
     ("reward", json.dumps({"arch": TINY_ARCH})),
 ])
 def test_unported_options_raise_before_anything_starts(option, value):
-    """Each option raises before anything starts, except ``reward``: a
-    trained reward model is ported now, so its config passes the check
-    and loads a fourth engine."""
+    """Each option raises before anything starts, except ``reward`` and
+    ``gen.spec_decode``, which are ported now: a trained reward model's
+    config passes the check and loads a fourth engine, and spec decode's
+    builds a generation engine that speculates."""
     cfg = load_config(AsyncPPOExperiment, None, [f"{option}={value}"])
+    if option == "gen.spec_decode":
+        launcher._check_ported(cfg)
+        cfg.gen.device = "cpu"
+        cfg.actor.arch = TINY_ARCH
+        eng = launcher.gen_engine(cfg, 0)
+        assert eng.spec is True and eng._draft is None
+        return
     if option == "reward":
         launcher._check_ported(cfg)
         cfg.trainer_device = "cpu"
@@ -179,9 +187,50 @@ def test_load_ppo_engines_gating_matches_the_reference(overrides,
     ("gen.spec_draft_model", "/nowhere"),
 ])
 def test_gen_server_main_raises_for_tp_and_spec_decode(option, value):
+    """``gen.tp_size > 1`` raises before a server starts. The spec options
+    are ported now (the test keeps the name it had while they raised):
+    each builds the server's engine, with spec on, with K set (spec off,
+    as the fleet's default), or with the draft path ignored because spec
+    decode is off (the path does not exist, so loading it would fail)."""
     cfg = load_config(AsyncPPOExperiment, None, [f"{option}={value}"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launcher.gen_server_main(cfg, 0)
+    if option == "gen.tp_size":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            launcher.gen_server_main(cfg, 0)
+        return
+    launcher._check_gen_ported(cfg.gen)
+    cfg.gen.device = "cpu"
+    cfg.actor.arch = TINY_ARCH
+    eng = launcher.gen_engine(cfg, 0)
+    assert eng.spec is (option == "gen.spec_decode")
+    assert eng.spec_k == 4      # gen.spec_k=4, else AREAL_SPEC_K's default
+    assert eng._draft is None and eng.draft_kv_pool_bytes() == 0
+
+
+@pytest.mark.parametrize("spec_on", [True, False])
+def test_gen_engine_loads_the_draft_model_only_with_spec_on(tmp_path,
+                                                             spec_on):
+    """``gen.spec_draft_model`` (an HF dir) becomes the engine's
+    ``TransformerDrafter`` when spec decode is on, with its own pool at the
+    draft's depth; with spec off it is ignored."""
+    from areal_tpu_torch.models import hf as hf_conv
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.models.config import ModelConfig
+
+    dcfg = ModelConfig(**{**TINY_ARCH, "n_layers": 1})
+    hf_conv.save_hf_checkpoint(
+        tfm.params_to_numpy(tfm.init_params(dcfg, seed=4, device="cpu")),
+        dcfg, "qwen2", str(tmp_path))
+    cfg = load_config(AsyncPPOExperiment, None, [
+        f"gen.spec_decode={str(spec_on).lower()}", "gen.spec_k=2",
+        f"gen.spec_draft_model={tmp_path}", "gen.device=cpu",
+        f"actor.arch={json.dumps(TINY_ARCH)}"])
+    eng = launcher.gen_engine(cfg, 0)
+    assert eng.spec is spec_on and eng.spec_k == 2
+    if not spec_on:
+        assert eng._draft is None and eng.state.draft_cache is None
+        return
+    assert eng._draft is not None and eng.draft_cfg.n_layers == 1
+    assert eng.draft_kv_pool_bytes() == eng.kv_pool_bytes() // 2
 
 
 def _write_jsonl(path, records):

@@ -81,7 +81,8 @@ def _body(rid, ids, n, **sp):
 def test_route_table_is_the_references_minus_spec_decode(server):
     """The port's routes are the (method, path) pairs the reference's
     ``_bind_routes`` registers on a bare aiohttp Application (no engine
-    built), without ``/spec_decode``."""
+    built), ``/spec_decode`` included now that speculative decoding is
+    ported (the test keeps the name it had while that route was missing)."""
     web = pytest.importorskip("aiohttp.web")
     ref = object.__new__(jax_server.GenerationHTTPServer)
     app = web.Application()
@@ -89,7 +90,35 @@ def test_route_table_is_the_references_minus_spec_decode(server):
     want = {(r.method, r.resource.canonical) for r in app.router.routes()
             if r.method != "HEAD"}
     assert ("POST", "/spec_decode") in want
-    assert set(server.routes()) == want - {("POST", "/spec_decode")}
+    assert set(server.routes()) == want
+
+
+def test_spec_decode_toggle_and_metrics(server):
+    """``POST /spec_decode`` flips the engine between chunks and answers
+    the reference's fields; a body without ``enabled`` is a 400; greedy
+    answers are the same either way, and ``/metrics_json`` reports the
+    spec config and accept counters."""
+    ids = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]
+    status, _, raw = _post(server.port, "/generate", _body("v", ids, 17))
+    vanilla = json.loads(raw)["output_ids"]
+    status, _, raw = _post(server.port, "/spec_decode", {"enabled": True})
+    assert status == 200
+    assert json.loads(raw) == {"success": True, "spec_decode": True,
+                               "spec_k": server.engine.spec_k}
+    assert server.engine.spec
+    status, _, raw = _post(server.port, "/generate", _body("s", ids, 17))
+    assert json.loads(raw)["output_ids"] == vanilla
+    status, _, raw = _post(server.port, "/spec_decode", {})
+    assert status == 400 and server.engine.spec
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics_json", timeout=60) as r:
+        m = json.loads(r.read())
+    assert m["spec_decode"] is True and m["spec_k"] == m["spec_k_current"]
+    assert m["engine_spec_draft_tokens"] > 0 and 0 <= m[
+        "spec_accept_rate"] <= 1
+    assert m["spec_draft_model"] is False and m["draft_kv_pool_bytes"] == 0
+    status, _, raw = _post(server.port, "/spec_decode", {"enabled": False})
+    assert json.loads(raw)["spec_decode"] is False and not server.engine.spec
 
 
 def test_stream_deltas_concatenate_to_the_generate_answer(server):
@@ -226,6 +255,19 @@ def test_client_generate_stream_yields_the_servers_frames(server):
     assert all(f["finish_reason"] is None for f in frames[:-1])
     late = _collect(url, "d", ids, 1000, deadline_s=0.3)
     assert late[-1]["finish_reason"] == "deadline"
+
+
+def test_client_set_spec_decode_toggles_the_server(server):
+    """``GenAPIClient.set_spec_decode`` posts the reference's body and
+    returns the server's answer."""
+    url = f"http://127.0.0.1:{server.port}"
+    client = pt_client.GenAPIClient(timeout=60)
+    on = asyncio.run(client.set_spec_decode(url, True))
+    assert on["spec_decode"] is True and server.engine.spec
+    off = asyncio.run(client.set_spec_decode(url, 0))
+    assert off == {"success": True, "spec_decode": False,
+                   "spec_k": server.engine.spec_k}
+    assert not server.engine.spec
 
 
 def _free_port():
