@@ -11,46 +11,84 @@
 // in uint32), bit for bit the stream of the TPU kernel and of the plain
 // PyTorch version (ops/fused_sample.py::fused_sample_plain).
 //
-// What bounds it on this card: bytes. The work is one read of W (E * V
-// elements); at R = 32 the product is ~32 flops per byte of bf16 W, far
-// under the tensor cores' ~295 but about all the CUDA cores sustain (7.5 G
-// FMAs at the serving shape cannot take less than ~0.26 ms there, against
-// 0.14 ms for the bytes). So the serving layout (bf16, V contiguous) runs
-// the product on the tensor cores and streams W through shared memory;
-// every other layout runs it on CUDA cores.
+// What bounds it. The head is 151936 x 1536 bf16 (467 MB) at the serving
+// widths. At R 32 (a decode step of 32 slots) the product is 15 GFLOP, so
+// the call is bound by one read of W from HBM: 0.139 ms on an H100. At the
+// spec verify's R 320 (64 slots x 5 positions) it is 149 GFLOP, bound by
+// the tensor cores: 0.151 ms at 989 TFLOP/s bf16; R 576 (K 8) 0.272 ms.
+// The TPU kernel keeps all rows resident and streams W once from HBM; so
+// does v3, with L2 serving the row bands that share a tile.
 //
-// Design. The TPU kernel walks the vocabulary in a sequential grid and
-// carries eight scratch rows from block to block. Here blocks run in
-// parallel and share nothing, so the work is two passes:
-//   pass 1, one block per (vocab tile, tile of 32 rows), row tiles of one
-//     vocab tile next to each other so that the second finds W in L2. The
-//     block computes its [32, tile] logits in f32, passes them through
-//     shared memory to one warp per row, which folds soft cap, validity
-//     (col < V), temperature, hash and the running reductions and writes
-//     ONE partial record per (tile, row). Two versions of the product:
-//     - tensor cores (bf16, V contiguous, E and V multiples of 8): tiles of
-//       128 columns, 4 warps of 32 columns each; W and x move to shared
-//       memory in chunks of 64 E steps by 16-byte cp.async copies, four
-//       stages deep, so ~50 KB per block are in flight while mma.sync
-//       m16n8k16 (f32 accumulation) consumes the oldest stage, W read
-//       transposed by ldmatrix;
-//     - CUDA cores (f32, E contiguous, odd sizes): tiles of 256 columns; x
-//       staged as f32, 128 E steps at a time; each of 128 threads owns two
-//       columns and keeps 32 x 2 f32 sums in registers, reading x as
-//       broadcast float4 (8 FMAs per shared-memory load) and W straight
-//       from global memory, coalesced across the warp, one group of four E
-//       steps prefetched ahead.
-//   pass 2, one warp per row: merges the partials with the online-softmax
-//     rescale and (value, lower column first) comparisons, then emits
-//     tokens, logprobs, argmax, gathered logprob and norm.
-// No float atomics anywhere: the result does not depend on block order, and
-// ties resolve to the lowest column, as a first-max argmax over the whole
-// vocabulary does.
+// Design, v3 (bf16, V contiguous: the serving layout). A persistent grid
+// walks the vocabulary in tiles of 256 columns in a static order:
+//  - Rows come in groups of 64 (wgmma's M), a band each. The card's SMs
+//    are dealt to the bands, one block per SM; block q serves band q %
+//    bands and walks tiles ci, ci + per_band, ... (ci = q / bands), so a
+//    tile's readers, one per band, run side by side and HBM sees W once
+//    while L2 hands it to each band. One producer thread keeps TMA loads
+//    of W [64 E x 256] and x [64 rows x 64 E] (zero fill past R, E and V)
+//    in flight through four 40 KB stages in the 128-byte swizzle, full and
+//    empty mbarriers between it and the consumers.
+//  - Two consumer warpgroups take the block's tiles in turn (ping-pong):
+//    each runs wgmma m64n256k16 (bf16 in, f32 out; W read MN-major through
+//    the transpose bit) over a tile's 24 stages, then folds its
+//    accumulators while the other warpgroup's product runs. A pair of
+//    mbarriers passes the turn: a warpgroup waits on its tile's stages only
+//    after the other has seen its own tile's last stage land, since a
+//    parity wait cannot tell a phase from the one two back. setmaxnreg
+//    hands the producer's registers to the consumers (128 accumulators a
+//    thread).
+//  - The epilogue: each thread owns 2 rows x 64 columns of a tile and
+//    carries, across its tiles, a running state per row (max and rescaled
+//    sum of exponentials of the warped logits, first-max raw argmax, Gumbel
+//    top-1 with its warped logit, gathered logit): the TPU kernel's carried
+//    scratch, with a loop over tiles in place of its sequential grid. The
+//    raw argmax, warped logits and sums fold in registers. Sampled rows
+//    then test each column against the best perturbed value the row's
+//    lanes hold with the fast exponentials (gumbel_tile says why no winner
+//    is lost) and take the two accurate logs only for the few that pass;
+//    greedy rows skip the hash and the logs, since their token is the
+//    argmax and the merge never reads their Gumbel fields. After the last
+//    tile the four lanes of a row merge by shuffles and write ONE partial
+//    record per (block, warpgroup, row).
+//  - The merge kernel folds a row's 2 x per_band records in a fixed order.
+//    No float atomics and a static schedule (the SM count), so outputs are
+//    bit-identical from run to run; ties resolve to the lowest column, as
+//    a first-max argmax over the whole vocabulary does.
+// Bytes this tiling moves (V 151936, E 1536): at R 32 (one band of 132
+// blocks) HBM reads W once, 467 MB, and L2 hands the SMs W once plus x's 58
+// MB (594 tiles x 32 rows); at R 320 (five bands of 26 blocks) HBM reads W
+// once while the bands keep step, and L2 hands out W five times (2.3 GB)
+// plus x's 584 MB; at R 576 (nine bands of 14) W nine times (4.2 GB) plus
+// x's 1.05 GB. So R 32 is bound by HBM, and R >= 128 by the L2 traffic of
+// the bands' re-reads and by the Gumbel fold. A thread-block cluster per
+// tile multicasting each W stage to all its bands would cut that traffic
+// to one pass; built that way (clusters of up to 8 blocks, one TMA
+// multicast per stage, the empty barriers collecting every block's
+// release) it ran slower at every R tried on an H100, several times so
+// at R 320, each cluster's lockstep stalling its few streams.
+// v2, replaced here: one block per (128-column tile, 32-row tile) with
+// mma.sync m16n8k16 from a 4-stage cp.async ring, the epilogue one warp per
+// row through shared memory, and n_tiles x R partial records: W crossed L2
+// once per 32-row tile (4.7 GB at R 320), 1.754 ms there on an H100.
+//
+// CUDA cores (f32, E contiguous, odd sizes or alignments): one block per
+// (256-column tile, 32-row tile), written from the same epilogue arithmetic:
+// x staged as f32, 128 E steps at a time; each of 128 threads owns two
+// columns and keeps 32 x 2 f32 sums in registers, reading x as broadcast
+// float4 and W straight from global memory, coalesced across the warp, one
+// group of four E steps prefetched ahead; the tile's logits pass through
+// shared memory to one warp per row, which writes ONE partial record per
+// (tile, row) for the same merge kernel.
 //
 // The head may be [E, V] with V contiguous (an untied head) or with E
 // contiguous (tied embeddings hand over embed.T); the wrapper passes the
-// leading stride and which of the two it is. The head is never copied.
+// leading stride and which of the two it is, and picks the pass
+// (ops/cuda/fused_sample.py::choose_pass). The head is never copied.
+// TMA descriptors are encoded per call (they carry x's and W's addresses,
+// so a CUDA graph that captured the call replays on the same tensors).
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver call is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -308,209 +346,497 @@ fused_sample_partial_kernel(
 }
 
 // --------------------------------------------------------------------------
-// pass 1 on the tensor cores (bf16, V contiguous)
+// v3: the product on wgmma, one read of W for all rows (bf16, V contiguous)
 // --------------------------------------------------------------------------
 //
-// Fragment layout of mma.sync m16n8k16 (bf16 in, f32 out), per lane with
-// gid = lane / 4 and tig = lane % 4:
-//   A (16 x 16, rows x k): a0 = (gid, 2tig..2tig+1), a1 = (gid+8, same),
-//                          a2 = (gid, 2tig+8..+9),   a3 = (gid+8, same)
-//   B (16 x 8, k x cols):  b0 = (2tig..2tig+1, gid), b1 = (2tig+8..+9, gid)
-//   C (16 x 8, f32):       c0, c1 = (gid, 2tig..+1), c2, c3 = (gid+8, same)
+// Accumulator layout of wgmma m64nNk16 (f32), per thread with warp w of the
+// warpgroup, gid = lane / 4 and tig = lane % 4: d[4j + e] is row
+// 16w + gid + 8 (e / 2), column 8j + 2 tig + (e % 2). So a thread holds two
+// rows (e / 2 = 0, 1), 64 columns each, visited in increasing order.
 
-using bf16 = __nv_bfloat16;
-constexpr int kTcTileV = 128;             // columns per block, 32 per warp
-constexpr int kTcKC = 64;                 // E steps per stage
-constexpr int kTcStages = 4;
-constexpr int kTcWLd = kTcTileV + 8;      // padded rows: no bank conflicts
-constexpr int kTcXLd = kTcKC + 8;
-constexpr int kTcWTile = kTcKC * kTcWLd;  // bf16 elements of a stage's W
-constexpr int kTcXTile = kRT * kTcXLd;
-constexpr int kTcStage = kTcWTile + kTcXTile;
-constexpr int kTcSmemBytes = kTcStages * kTcStage * (int)sizeof(bf16);
-static_assert(kTcSmemBytes >= kRT * kTcTileV * (int)sizeof(float),
-              "the logits tile reuses the stages' memory");
+constexpr int kWg = 128;                      // threads per warpgroup
+constexpr int kV3Threads = 3 * kWg;           // producer + two consumers
+constexpr int kGroupRows = 64;                // rows per block (wgmma M)
+constexpr int kTileN = 256;                   // columns per tile (wgmma N)
+constexpr int kLine = 128;                    // bytes per swizzled line
+constexpr int kChunk = 64;                    // bf16 per line
+constexpr int kKC = 64;                       // E steps per stage
+constexpr int kStages = 4;
+constexpr int kXStage = kGroupRows * kLine;           // 8 KB of x
+constexpr int kWChunk = kKC * kLine;                  // 64 columns of W, 8 KB
+constexpr int kWStage = (kTileN / kChunk) * kWChunk;  // 32 KB of W
+constexpr int kStage = kXStage + kWStage;
+// the epilogue folds a tile's accumulators in 4 chunks of 32 a thread,
+// staged through shared memory: value i of thread t at [i][t], per
+// consumer warpgroup
+constexpr int kFoldChunk = 32;
+constexpr int kBufOff = kStages * kStage;
+constexpr int kBuf = kFoldChunk * kWg * 4;            // 16 KB
+constexpr int kBarOff = kBufOff + 2 * kBuf;
+// full[kStages], empty[kStages], turn[2]
+constexpr int kV3Smem = kBarOff + (2 * kStages + 2) * 8 + 1024;  // + alignment
+// setmaxnreg moves registers within the block's launch allocation (384
+// threads x 168 = 64512): 128 x 40 + 256 x 232 stays within it
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(kWg * kProducerRegs + 2 * kWg * kConsumerRegs <=
+                  kV3Threads * (65536 / kV3Threads / 8 * 8),
+              "setmaxnreg beyond the launch allocation");
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+// one arrival that also announces `bytes` of TMA traffic on this phase
+__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
-// A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 16) of a row-major
-// bf16 tile with row stride ld
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t, int ld,
-                                       int r0, int c0, int gid, int tig) {
-  const bf16* p = t + (r0 + gid) * ld + c0 + 2 * tig;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B fragments of a product over rows [r0, r0 + 16) (its k) of a row-major
-// bf16 tile, for the two 8-column tiles at columns c0 and c0 + 8 (its n):
-// the tile read transposed by ldmatrix. b[0], b[1] serve columns c0..c0+7,
-// b[2], b[3] columns c0+8..c0+15.
-__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* t, int ld,
-                                        int r0, int c0, int lane) {
-  const bf16* p = t + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                       int c0, int c1) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// Start the copies of one stage: W rows [e0, e0 + kTcKC) x the tile's
-// columns, and x rows [row0, row0 + kRT) x the same E steps, in 16-byte
-// chunks of 8 elements. E, V and both strides are multiples of 8, so a
-// chunk lies wholly inside or wholly outside; outside chunks are zeroed.
-__device__ __forceinline__ void tc_stage(bf16* stage, const bf16* __restrict__ x,
-                                         int64_t x_ld,
-                                         const bf16* __restrict__ w,
-                                         int64_t w_ld, int e0, int R, int E,
-                                         int V, int row0, int tile0) {
-  bf16* ws = stage;
-  bf16* xs = stage + kTcWTile;
-  constexpr int kWChunks = kTcTileV / 8;
-  for (int i = threadIdx.x; i < kTcKC * kWChunks; i += kThreads) {
-    const int k = i / kWChunks, c8 = (i % kWChunks) * 8;
-    const int e = e0 + k, col = tile0 + c8;
-    bf16* dst = ws + k * kTcWLd + c8;
-    if (e < E && col < V) {
-      cp_async16(dst, w + (int64_t)e * w_ld + col);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile at `addr`
+// (1024-byte aligned atoms of 8 lines): SBO = 1024 bytes between 8-line
+// groups; LBO = the distance between 64-element chunks along the lines
+// (read by the MN-major B operand, 256 columns = four chunks; K-major
+// operands ignore it).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from touching accumulators across an async product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 256] (+)= A[64 x 16] * B[16 x 256]: A (x) K-major, B (W) MN-major
+// (the transpose bit), both in shared memory; scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// One row's running state over the columns a thread (then a warpgroup)
+// has folded: the TPU kernel's carried scratch.
+struct RowState {
+  float m, l;      // max and rescaled sum of exp of the warped logits
+  float amv;       // raw argmax value, column ami
+  float gp, gw;    // Gumbel-perturbed maximum and its warped logit, column gi
+  float gat;       // the gathered column's warped logit
+  int ami, gi;
+};
+
+__device__ __forceinline__ RowState row_state_init() {
+  RowState s;
+  s.m = kNegInf; s.l = 0.0f; s.amv = kNegInf; s.gp = kNegInf; s.gw = 0.0f;
+  s.gat = kNegInf; s.ami = 0; s.gi = 0;
+  return s;
+}
+
+// Per-row operands of a thread's row.
+struct RowArgs {
+  float t;         // temperature, floored at 1e-6
+  int excl, gath;  // excluded and gathered column, -1 for none
+  uint32_t row;
+  bool ok, greedy;
+};
+
+// The exact perturbed value of one column, warped - log(-log u) with u
+// capped one ulp below 1 as the plain version does (U_MAX): out of line,
+// since the fold calls it for the few columns that pass its test.
+__device__ __noinline__ float gumbel_pert(float warped, uint32_t seed, uint32_t row,
+                                          uint32_t col) {
+  const float u = fminf(hash_uniform(seed, row, col), 0.99999994f);
+  return warped - logf(-logf(u));
+}
+
+// Fold row half I of one tile (accumulators d[4j + 2I + b], columns col0 +
+// 8j + b, increasing) into the row's state: soft cap, raw argmax, gathered
+// logit, and the sum of exponentials of the warped logits, which overwrite
+// the accumulators (dead until the warpgroup's next product).
+template <int I>
+__device__ __forceinline__ void fold_row(float (&acc)[128], RowState& st,
+                                         const RowArgs& a, int col0, int V,
+                                         float soft_cap) {
+  float mt = kNegInf;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int c = col0 + 8 * j + b;
+      float& v = acc[4 * j + 2 * I + b];
+      if (c < V) {
+        float logit = v;
+        if (soft_cap > 0.0f) logit = tanhf(logit / soft_cap) * soft_cap;
+        // increasing columns: strictly-greater updates keep the first max
+        if (logit > st.amv) { st.amv = logit; st.ami = c; }
+        const float warped = logit / a.t;
+        v = warped;
+        mt = fmaxf(mt, warped);
+        if (c == a.gath) st.gat = warped;
+      }
     }
   }
-  constexpr int kXChunks = kTcKC / 8;
-  for (int i = threadIdx.x; i < kRT * kXChunks; i += kThreads) {
-    const int r = i / kXChunks, c8 = (i % kXChunks) * 8;
-    const int row = row0 + r, e = e0 + c8;
-    bf16* dst = xs + r * kTcXLd + c8;
-    if (row < R && e < E) {
-      cp_async16(dst, x + (int64_t)row * x_ld + e);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  const float mn = fmaxf(st.m, mt);
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      if (col0 + 8 * j + b < V) sum += __expf(acc[4 * j + 2 * I + b] - mn);
     }
+  }
+  st.l = st.l * __expf(st.m - mn) + sum;
+  st.m = mn;
+}
+
+// Gumbel top-1 of a tile's sampled rows, over the warped logits fold_row
+// left in the accumulators. A column's perturbed value warped - log(-log
+// u) reaches a bar b only if u >= exp(-exp(warped - b)); b is the best
+// exact value the row's four lanes hold. That test runs on the fast
+// exponentials, widened by `lift` (the exact value's rounding, ~1e-7 of
+// |pert| plus ulps of the logs) and by 1e-6 in u (their error), so it
+// keeps every column that can win; the candidates then take the two
+// accurate logs (gumbel_pert), which alone decide. The loops stay rolled
+// (unrolled over 128 registers the fold outgrows the instruction cache):
+// 32 values at a time pass through the thread's slots of `buf` ([value]
+// [thread]), and each lane then walks its own candidates, in increasing
+// column order per row.
+__device__ __forceinline__ void gumbel_tile(const float (&acc)[128], float* buf, int tid,
+                                            RowState (&st)[2], const RowArgs (&ra)[2],
+                                            int col0, int V, uint32_t seed,
+                                            unsigned quad) {
+  bool on[2];
+  float bar[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    on[i] = ra[i].ok && !ra[i].greedy;
+    bar[i] = st[i].gp;
+    if (on[i]) {  // the row's four lanes share it
+      bar[i] = fmaxf(bar[i], __shfl_xor_sync(quad, bar[i], 1));
+      bar[i] = fmaxf(bar[i], __shfl_xor_sync(quad, bar[i], 2));
+    }
+  }
+  if (!on[0] && !on[1]) return;
+#pragma unroll
+  for (int q = 0; q < 128 / kFoldChunk; ++q) {
+#pragma unroll
+    for (int i = 0; i < kFoldChunk; ++i) buf[i * kWg + tid] = acc[q * kFoldChunk + i];
+    uint32_t cand = 0;
+    // the bar holds for the whole chunk, so its columns' tests are
+    // independent and overlap; candidates raise it once they are exact
+#pragma unroll 2
+    for (int jj = 0; jj < kFoldChunk / 4; ++jj) {
+      const int c0 = col0 + 8 * (q * kFoldChunk / 4 + jj);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = c0 + (e & 1);
+        const float warped = buf[(jj * 4 + e) * kWg + tid];
+        const float lift = 2e-5f + 2e-7f * fabsf(bar[i]);
+        const float u = fminf(hash_uniform(seed, ra[i].row, (uint32_t)c), 0.99999994f);
+        const bool hit = u >= __expf(-__expf(warped - bar[i] + lift)) - 1e-6f;
+        if (hit && on[i] && c < V && c != ra[i].excl) cand |= 1u << (jj * 4 + e);
+      }
+    }
+    while (cand) {
+      const int k = __ffs(cand) - 1;
+      cand &= cand - 1;
+      const int i = (k >> 1) & 1;
+      const int c = col0 + 8 * (q * kFoldChunk / 4 + (k >> 2)) + (k & 1);
+      const float warped = buf[k * kWg + tid];
+      const float pert = gumbel_pert(warped, seed, i ? ra[1].row : ra[0].row, (uint32_t)c);
+      // constant indices keep both states in registers
+      if (i == 0 && pert > st[0].gp) { st[0].gp = pert; st[0].gw = warped; st[0].gi = c; }
+      if (i == 1 && pert > st[1].gp) { st[1].gp = pert; st[1].gw = warped; st[1].gi = c; }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) bar[i] = fmaxf(bar[i], st[i].gp);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-fused_sample_partial_tc_kernel(
-    const bf16* __restrict__ x, int64_t x_ld, const bf16* __restrict__ w,
-    int64_t w_ld, const float* __restrict__ temperature,
-    const int* __restrict__ exclude, const int* __restrict__ gather_ids,
-    const int* __restrict__ seed_ptr, float soft_cap, int R, int E, int V,
-    float* __restrict__ part_f, int* __restrict__ part_i) {
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* stages = reinterpret_cast<bf16*>(tc_smem);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int n_row_tiles = (R + kRT - 1) / kRT;
-  const int tile = blockIdx.x / n_row_tiles;
-  const int tile0 = tile * kTcTileV;
-  const int row0 = (blockIdx.x % n_row_tiles) * kRT;
+// Merge the states of lanes `off` apart; both lanes end with the same bits
+// (the term of the smaller maximum is added second on both).
+__device__ __forceinline__ void merge_lanes(RowState& s, int off) {
+  const float om = __shfl_xor_sync(0xffffffffu, s.m, off);
+  const float ol = __shfl_xor_sync(0xffffffffu, s.l, off);
+  const float mn = fmaxf(s.m, om);
+  const float a = (s.m >= om) ? s.l * expf(s.m - mn) : ol * expf(om - mn);
+  const float b = (s.m >= om) ? ol * expf(om - mn) : s.l * expf(s.m - mn);
+  s.l = a + b;
+  s.m = mn;
+  const float ov = __shfl_xor_sync(0xffffffffu, s.amv, off);
+  const int oi = __shfl_xor_sync(0xffffffffu, s.ami, off);
+  if (beats(ov, oi, s.amv, s.ami)) { s.amv = ov; s.ami = oi; }
+  const float op = __shfl_xor_sync(0xffffffffu, s.gp, off);
+  const float ow = __shfl_xor_sync(0xffffffffu, s.gw, off);
+  const int og = __shfl_xor_sync(0xffffffffu, s.gi, off);
+  if (beats(op, og, s.gp, s.gi)) { s.gp = op; s.gw = ow; s.gi = og; }
+  s.gat = fmaxf(s.gat, __shfl_xor_sync(0xffffffffu, s.gat, off));
+}
 
-  // acc[mt][nt]: rows mt*16 + (gid, gid+8), columns warp*32 + nt*8 + 2tig..
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
-    }
-  }
+struct V3Params {
+  const float* temperature;
+  const unsigned char* greedy;
+  const int* exclude;     // may be null
+  const int* gather_ids;  // may be null
+  const int* seed;
+  float soft_cap;
+  int R, E, V;
+  int bands;              // row groups, walking the vocabulary side by side
+  int per_band;           // blocks per band
+  float* part_f;          // [2 * per_band][R] records
+  int* part_i;
+};
 
-  const int n_chunks = (E + kTcKC - 1) / kTcKC;
-#pragma unroll
-  for (int s = 0; s < kTcStages - 1; ++s) {
-    if (s < n_chunks) {
-      tc_stage(stages + s * kTcStage, x, x_ld, w, w_ld, s * kTcKC, R, E, V,
-               row0, tile0);
+// Grid: bands * per_band blocks. Block q owns row group q % bands and
+// walks tiles ci, ci + per_band, ... for ci = q / bands; consecutive blocks
+// are the bands of one ci, so a tile's readers run side by side and L2
+// serves all but the first of them.
+__global__ void __launch_bounds__(kV3Threads, 1)
+fused_sample_v3_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w,
+                       const V3Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* turn = empty + kStages;  // [warpgroup]: the other one's mainloop is done
+  const int band = blockIdx.x % p.bands, ci = blockIdx.x / p.bands;
+  const int row0 = band * kGroupRows;
+  const int n_tiles = (p.V + kTileN - 1) / kTileN;
+  const int n_k = (p.E + kKC - 1) / kKC;
+  const int n_items = ci < n_tiles ? (n_tiles - 1 - ci) / p.per_band + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 4);  // each warp of the consuming warpgroup
     }
-    cp_async_commit();
+    bar_init(turn, 1);
+    bar_init(turn + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int c = 0; c < n_chunks; ++c) {
-    // chunk c has landed (all but the newest kTcStages - 2 groups are done),
-    // and every warp is past chunk c - 1, whose stage is refilled next
-    cp_async_wait<kTcStages - 2>();
-    __syncthreads();
-    const int nxt = c + kTcStages - 1;
-    if (nxt < n_chunks) {
-      tc_stage(stages + (nxt % kTcStages) * kTcStage, x, x_ld, w, w_ld,
-               nxt * kTcKC, R, E, V, row0, tile0);
-    }
-    cp_async_commit();
-    const bf16* ws = stages + (c % kTcStages) * kTcStage;
-    const bf16* xs = ws + kTcWTile;
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int n = 0; n < n_items; ++n) {
+        const int tile0 = (ci + n * p.per_band) * kTileN;
+        for (int kc = 0; kc < n_k; ++kc, ++it) {
+          const int s = it % kStages;
+          bar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          bar_expect_tx(&full[s], kStage);
+          unsigned char* st = smem + s * kStage;
+          tma_2d(st, &map_x, &full[s], kc * kKC, row0);
 #pragma unroll
-    for (int k0 = 0; k0 < kTcKC; k0 += 16) {
-      uint32_t a[2][4];
-      load_a(a[0], xs, kTcXLd, 0, k0, gid, tig);
-      load_a(a[1], xs, kTcXLd, 16, k0, gid, tig);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t b[4];
-        load_bt(b, ws, kTcWLd, k0, warp * 32 + np * 16, lane);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+          for (int c = 0; c < kTileN / kChunk; ++c) {
+            tma_2d(st + kXStage + c * kWChunk, &map_w, &full[s],
+                   tile0 + c * kChunk, kc * kKC);
+          }
         }
       }
     }
+    return;
   }
 
-  // the tile's logits (soft cap applied) through shared memory
-  cp_async_wait<0>();
-  __syncthreads();
-  float* lt = reinterpret_cast<float*>(tc_smem);
+  // consumers: warpgroup wg takes items n with n % 2 == wg
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / kWg - 1;
+  const int tid = threadIdx.x % kWg;
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const unsigned quad = 0xFu << (4 * gid);
+  float* buf = reinterpret_cast<float*>(smem + kBufOff + wg * kBuf);
+  const uint32_t seed = (uint32_t)p.seed[0];
+  RowArgs ra[2];
+  RowState st[2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + gid + 8 * i;
+    ra[i].row = (uint32_t)row;
+    ra[i].ok = row < p.R;
+    ra[i].t = ra[i].ok ? fmaxf(p.temperature[row], 1e-6f) : 1.0f;
+    ra[i].greedy = ra[i].ok ? p.greedy[row] != 0 : true;
+    ra[i].excl = ra[i].ok && p.exclude ? p.exclude[row] : -1;
+    ra[i].gath = ra[i].ok && p.gather_ids ? p.gather_ids[row] : -1;
+    st[i] = row_state_init();
+  }
+  float acc[128];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  int it = 0;
+  for (int n = 0; n < n_items; ++n) {
+    if ((n & 1) != wg) {
+      it += n_k;
+      continue;
+    }
+    const int tile0 = (ci + n * p.per_band) * kTileN;
+    // Parity waits see one phase back only, so a warpgroup waits on a
+    // stage only once the other has seen every stage before it: item n
+    // starts when item n - 1's last stage has landed.
+    if (n > 0) bar_wait(&turn[wg], ((n - 1) >> 1) & 1);
+    int prev = -1;
+    fence_regs(acc);
+    for (int kc = 0; kc < n_k; ++kc, ++it) {
+      const int s = it % kStages;
+      bar_wait(&full[s], (it / kStages) & 1);
+      if (kc == n_k - 1 && tid == 0) bar_arrive(&turn[wg ^ 1]);
+      const uint32_t xb = smem_u32(smem + s * kStage);
+      const uint32_t wb = xb + kXStage;
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float v = acc[mt][nt][i];
-        if (soft_cap > 0.0f) v = tanhf(v / soft_cap) * soft_cap;
-        const int r = mt * 16 + gid + (i / 2) * 8;
-        const int cc = warp * 32 + nt * 8 + 2 * tig + (i % 2);
-        lt[r * kTcTileV + cc] = v;
+      for (int kk = 0; kk < kKC / 16; ++kk) {
+        wgmma_n256(acc, desc_sw128(xb + kk * 32, 16),
+                   desc_sw128(wb + kk * 16 * kLine, kWChunk), kc > 0 || kk > 0);
       }
+      wgmma_commit();
+      if (prev >= 0) {
+        // the product that read the previous stage is done: release it
+        wgmma_wait<1>();
+        if (lane == 0) bar_arrive(&empty[prev]);
+      }
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) bar_arrive(&empty[prev]);
+    const int col0 = tile0 + 2 * tig;
+    if (ra[0].ok) fold_row<0>(acc, st[0], ra[0], col0, p.V, p.soft_cap);
+    if (ra[1].ok) fold_row<1>(acc, st[1], ra[1], col0, p.V, p.soft_cap);
+    gumbel_tile(acc, buf, tid, st, ra, col0, p.V, seed, quad);
+  }
+  // the row's four lanes, then one record per (block's ci, warpgroup, row)
+  const int slot = ci * 2 + wg;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    merge_lanes(st[i], 1);
+    merge_lanes(st[i], 2);
+    if (tig == 0 && ra[i].ok) {
+      float* pf = p.part_f + ((int64_t)slot * p.R + ra[i].row) * kPF;
+      int* pi = p.part_i + ((int64_t)slot * p.R + ra[i].row) * kPI;
+      pf[0] = st[i].m; pf[1] = st[i].l; pf[2] = st[i].amv;
+      pf[3] = st[i].gp; pf[4] = st[i].gw; pf[5] = st[i].gat;
+      pi[0] = st[i].ami; pi[1] = st[i].gi;
     }
   }
-  __syncthreads();
-  tile_reduce<kTcTileV>(lt, tile, row0, temperature, exclude, gather_ids,
-                        seed_ptr, R, V, part_f, part_i);
 }
 
-// One warp per row: merge the tiles' partial records and emit.
+// One warp per row: merge the row's partial records in a fixed order and
+// emit.
 __global__ void __launch_bounds__(32)
 fused_sample_merge_kernel(
     const float* __restrict__ part_f, const int* __restrict__ part_i,
     const float* __restrict__ temperature,
-    const unsigned char* __restrict__ greedy, int R, int n_tiles,
+    const unsigned char* __restrict__ greedy, int R, int n_parts,
     int* __restrict__ tokens, float* __restrict__ logprobs,
     int* __restrict__ argmax, float* __restrict__ gathered,
     float* __restrict__ norm_out) {
@@ -519,9 +845,9 @@ fused_sample_merge_kernel(
   float m = kNegInf, l = 0.0f, amv = kNegInf, gp = kNegInf, gw = 0.0f;
   float gat = kNegInf;
   int ami = 0, gi = 0;
-  for (int tile = lane; tile < n_tiles; tile += 32) {
-    const float* pf = part_f + ((int64_t)tile * R + row) * kPF;
-    const int* pi = part_i + ((int64_t)tile * R + row) * kPI;
+  for (int part = lane; part < n_parts; part += 32) {
+    const float* pf = part_f + ((int64_t)part * R + row) * kPF;
+    const int* pi = part_i + ((int64_t)part * R + row) * kPI;
     const float mt = pf[0];
     const float mn = fmaxf(m, mt);
     l = l * expf(m - mn) + pf[1] * expf(mt - mn);
@@ -583,69 +909,169 @@ cudaError_t launch_partial(bool vc, int grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// --- v3 host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library links no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a row-major bf16 matrix [rows, cols] with row stride ld (elements), in
+// boxes of 64 x 64 in the 128-byte swizzle; zero fill past the edges
+bool map_matrix(CUtensorMap* map, const void* ptr, int rows, int cols, int64_t ld) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(ld) * 2};
+  const cuuint32_t box[2] = {cuuint32_t(kChunk), cuuint32_t(64)};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// SMs of the current device: v3 runs one block on each.
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    sms = 1;
+  return sms;
+}
+
+// The v3 schedule for R rows over V columns (ops/cuda/fused_sample.py::plan
+// mirrors it): one band per group of 64 rows, the card's SMs dealt to the
+// bands, no more blocks in a band than tiles.
+struct V3Plan {
+  int bands, per_band;
+};
+
+V3Plan v3_plan(int R, int V) {
+  const int bands = (R + kGroupRows - 1) / kGroupRows;
+  const int n_tiles = (V + kTileN - 1) / kTileN;
+  int per_band = sm_count() / bands;
+  if (per_band > n_tiles) per_band = n_tiles;
+  if (per_band < 1) per_band = 1;
+  return {bands, per_band};
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// Whether these operands take the tensor-core version of pass 1.
-bool tensor_core_layout(int dtype, int v_contig, const void* x, int64_t x_ld,
-                        const void* w, int64_t w_ld, int E, int V) {
-  return dtype == 1 && v_contig != 0 && E % 8 == 0 && V % 8 == 0 &&
-         x_ld % 8 == 0 && w_ld % 8 == 0 && aligned16(x) && aligned16(w);
-}
-
 }  // namespace
 
-// The narrowest vocab tile of any version: the wrapper sizes the partial
-// buffers for ceil(V / this) tiles.
-extern "C" int fused_sample_tile_v() { return kTcTileV; }
+// Partial records per row of the given pass (0: CUDA cores, 1: v3): the
+// wrapper allocates this many times R records of 6 floats and 2 ints.
+extern "C" int fused_sample_slots(int v3, int R, int V) {
+  if (R < 1 || V < 1) return 0;
+  if (v3) return 2 * v3_plan(R, V).per_band;
+  return (V + kTileV - 1) / kTileV;
+}
 
-// dtype: 0 = float32, 1 = bfloat16 (x and w). v_contig: 1 when W's columns
-// (V) are contiguous and w_ld is the stride between E steps, 0 when E is
-// contiguous and w_ld is the stride between columns. cuda_cores: 1 keeps
-// pass 1 on the CUDA cores where the tensor-core version would run.
-// part_f / part_i: scratch of n_tiles * R * 6 floats / 2 ints for n_tiles =
-// ceil(V / fused_sample_tile_v()). exclude / gather_ids may be null.
-// Returns the CUDA error of the launches.
+// The v3 schedule: out[0..1] = bands, blocks per band.
+extern "C" int fused_sample_plan(int R, int V, int* out) {
+  if (R < 1 || V < 1) return (int)cudaErrorInvalidValue;
+  const V3Plan pl = v3_plan(R, V);
+  out[0] = pl.bands;
+  out[1] = pl.per_band;
+  return 0;
+}
+
+// The SM count the plan reads.
+extern "C" int fused_sample_sms() { return sm_count(); }
+
+// v3: 1 runs the wgmma pass (the wrapper's choice: bf16, V contiguous, E,
+// V and both strides multiples of 8, 16-byte aligned), 0 the CUDA-core
+// pass. dtype: 0 = float32, 1 = bfloat16 (x and w). v_contig: 1 when W's
+// columns (V) are contiguous and w_ld is the stride between E steps, 0
+// when E is contiguous and w_ld is the stride between columns.
+// part_f / part_i: scratch of fused_sample_slots(v3, R, V) * R * 6 floats
+// / 2 ints. exclude / gather_ids may be null. Returns the CUDA error of the
+// launches; a v3 request on operands it does not take returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int fused_sample(
-    int dtype, int v_contig, int cuda_cores, const void* x, long long x_ld,
+    int v3, int dtype, int v_contig, const void* x, long long x_ld,
     const void* w, long long w_ld, const float* temperature,
     const unsigned char* greedy, const int* exclude, const int* gather_ids,
     const int* seed, float soft_cap, int R, int E, int V, float* part_f,
     int* part_i, int* tokens, float* logprobs, int* argmax, float* gathered,
     float* norm, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int n_row_tiles = (R + kRT - 1) / kRT;
-  const bool tc = !cuda_cores && tensor_core_layout(dtype, v_contig, x, x_ld,
-                                                    w, w_ld, E, V);
-  const int n_tiles = tc ? (V + kTcTileV - 1) / kTcTileV
-                         : (V + kTileV - 1) / kTileV;
-  const int grid = n_tiles * n_row_tiles;
+  if (R < 1 || E < 1 || V < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (tc) {
-    err = cudaFuncSetAttribute(fused_sample_partial_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kTcSmemBytes);
+  int n_parts;
+  if (v3) {
+    if (dtype != 1 || v_contig == 0 || E % 8 || V % 8 || x_ld % 8 || w_ld % 8 ||
+        !aligned16(x) || !aligned16(w))
+      return (int)cudaErrorInvalidValue;
+    const V3Plan pl = v3_plan(R, V);
+    CUtensorMap mx, mw;
+    if (!map_matrix(&mx, x, R, E, x_ld) || !map_matrix(&mw, w, E, V, w_ld))
+      return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(fused_sample_v3_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kV3Smem);
     if (err != cudaSuccess) return (int)err;
-    fused_sample_partial_tc_kernel<<<grid, kThreads, kTcSmemBytes, stream>>>(
-        static_cast<const bf16*>(x), x_ld, static_cast<const bf16*>(w), w_ld,
-        temperature, exclude, gather_ids, seed, soft_cap, R, E, V, part_f,
-        part_i);
+    V3Params p;
+    p.temperature = temperature;
+    p.greedy = greedy;
+    p.exclude = exclude;
+    p.gather_ids = gather_ids;
+    p.seed = seed;
+    p.soft_cap = soft_cap;
+    p.R = R;
+    p.E = E;
+    p.V = V;
+    p.bands = pl.bands;
+    p.per_band = pl.per_band;
+    p.part_f = part_f;
+    p.part_i = part_i;
+    fused_sample_v3_kernel<<<pl.bands * pl.per_band, kV3Threads, kV3Smem, stream>>>(
+        mx, mw, p);
     err = cudaGetLastError();
-  } else if (dtype == 0) {
-    err = launch_partial<float>(v_contig != 0, grid, stream, x, x_ld, w, w_ld,
-                                temperature, exclude, gather_ids, seed,
-                                soft_cap, R, E, V, part_f, part_i);
-  } else if (dtype == 1) {
-    err = launch_partial<__nv_bfloat16>(
-        v_contig != 0, grid, stream, x, x_ld, w, w_ld, temperature, exclude,
-        gather_ids, seed, soft_cap, R, E, V, part_f, part_i);
+    n_parts = 2 * pl.per_band;
   } else {
-    return (int)cudaErrorInvalidValue;
+    const int n_row_tiles = (R + kRT - 1) / kRT;
+    n_parts = (V + kTileV - 1) / kTileV;
+    const int grid = n_parts * n_row_tiles;
+    if (dtype == 0) {
+      err = launch_partial<float>(v_contig != 0, grid, stream, x, x_ld, w, w_ld,
+                                  temperature, exclude, gather_ids, seed,
+                                  soft_cap, R, E, V, part_f, part_i);
+    } else if (dtype == 1) {
+      err = launch_partial<__nv_bfloat16>(
+          v_contig != 0, grid, stream, x, x_ld, w, w_ld, temperature, exclude,
+          gather_ids, seed, soft_cap, R, E, V, part_f, part_i);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
   }
   if (err != cudaSuccess) return (int)err;
   fused_sample_merge_kernel<<<R, 32, 0, stream>>>(
-      part_f, part_i, temperature, greedy, R, n_tiles, tokens, logprobs,
+      part_f, part_i, temperature, greedy, R, n_parts, tokens, logprobs,
       argmax, gathered, norm);
   return (int)cudaGetLastError();
 }

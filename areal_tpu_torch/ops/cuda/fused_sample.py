@@ -12,6 +12,12 @@ The head ``w [E, V]`` is read where it lies: with V contiguous (an untied
 head) or with E contiguous (tied embeddings hand over ``embed.T``). It is
 never copied; any other layout raises.
 
+Two passes compute the head product (``choose_pass`` picks one from the
+operands): ``v3`` (wgmma, TMA, one read of the head for every row) for the
+serving layout, and the CUDA-core pass for everything else. Both end in the
+same merge kernel over per-row partial records; ``plan`` mirrors v3's
+schedule (row bands, blocks per band), which sizes those records.
+
 ``launches`` counts kernel launches the card ran (one per call: the
 partial pass and its merge pass together), so a run can show that its main
 path went through the kernel. A call under CUDA graph capture adds to
@@ -29,8 +35,11 @@ from areal_tpu_torch.ops.cuda import build
 
 SOURCE = "areal_tpu_torch/csrc/fused_sample.cu"
 REPLACES = "areal_tpu/ops/pallas/fused_sample.py:162"
-PARTIAL_FLOATS = 6   # floats per (tile, row) partial record (kPF)
-PARTIAL_INTS = 2     # ints per (tile, row) partial record (kPI)
+PARTIAL_FLOATS = 6   # floats per partial record (kPF)
+PARTIAL_INTS = 2     # ints per partial record (kPI)
+# v3's tiling (csrc/fused_sample.cu: kGroupRows, kTileN)
+GROUP_ROWS = 64      # rows per block: wgmma's M
+TILE_V3 = 256        # vocabulary columns per tile
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,9 +79,60 @@ def _library():
             [i32, i32, i32, ptr, i64, ptr, i64] + [ptr] * 5
             + [ctypes.c_float, i32, i32, i32] + [ptr] * 7 + [ptr]
         )
-        lib.fused_sample_tile_v.restype = i32
-        lib.fused_sample_tile_v.argtypes = []
+        lib.fused_sample_slots.restype = i32
+        lib.fused_sample_slots.argtypes = [i32, i32, i32]
+        lib.fused_sample_plan.restype = i32
+        lib.fused_sample_plan.argtypes = [i32, i32, ptr]
+        lib.fused_sample_sms.restype = i32
+        lib.fused_sample_sms.argtypes = []
     return lib
+
+
+def plan(R: int, V: int, sms: int) -> Dict[str, int]:
+    """v3's schedule for ``R`` rows over ``V`` columns, as the kernel's
+    ``v3_plan`` computes it: one band per group of ``GROUP_ROWS`` rows,
+    the card's ``sms`` (one block each) dealt to the bands, and no more
+    blocks in a band than there are tiles. Each block's two consumer
+    warpgroups write one partial record per row of its band: ``slots``
+    per row, ``records`` in all."""
+    bands = -(-R // GROUP_ROWS)
+    tiles = -(-V // TILE_V3)
+    per_band = max(1, min(sms // bands, tiles))
+    return dict(bands=bands, tiles=tiles, per_band=per_band,
+                blocks=bands * per_band, slots=2 * per_band,
+                records=2 * per_band * R)
+
+
+def v3_unsupported(dtype, v_contig: bool, E: int, V: int, x_ld: int,
+                   w_ld: int, x_ptr: int, w_ptr: int) -> Optional[str]:
+    """Why v3 cannot take these operands, or None. v3 reads x and W by
+    TMA into wgmma's bf16 tiles with W MN-major: bf16, V contiguous, E, V
+    and both row strides multiples of 8 elements (16 bytes), both bases
+    16-byte aligned. Any number of rows (one band of blocks per 64)."""
+    if dtype != torch.bfloat16:
+        return f"dtype {dtype}: v3 runs bf16 operands"
+    if not v_contig:
+        return "E-contiguous head: v3 reads W with V contiguous"
+    for name, val in (("E", E), ("V", V), ("x row stride", x_ld),
+                      ("w row stride", w_ld)):
+        if val % 8:
+            return f"{name} {val} is not a multiple of 8"
+    for name, ptr in (("x", x_ptr), ("w", w_ptr)):
+        if ptr % 16:
+            return f"{name} is not 16-byte aligned"
+    return None
+
+
+def choose_pass(dtype, v_contig: bool, E: int, V: int, x_ld: int,
+                w_ld: int, x_ptr: int, w_ptr: int,
+                cuda_cores: bool = False) -> str:
+    """``"v3"`` where v3 takes the operands (``v3_unsupported``) and the
+    caller did not ask for the CUDA cores, else ``"cuda_cores"``. The
+    number of rows does not enter: v3 takes any."""
+    if cuda_cores or v3_unsupported(dtype, v_contig, E, V, x_ld, w_ld,
+                                    x_ptr, w_ptr):
+        return "cuda_cores"
+    return "v3"
 
 
 def _check(seed, x, w, temperature, greedy, exclude, gather_ids) -> bool:
@@ -150,28 +210,31 @@ def fused_sample(
     ``tokens``, ``argmax`` (i32), ``logprobs``, ``norm`` (f32) and, with
     ``gather_ids``, ``gathered_lp`` (f32), each ``[R]``.
 
-    The head product runs on the tensor cores for the serving layout (bf16,
-    V contiguous, E, V and the strides multiples of 8, 16-byte aligned) and
-    on the CUDA cores otherwise; ``cuda_cores=True`` keeps it there (the
-    card's check holds both versions against the plain one on one input)."""
+    The head product runs v3 on the tensor cores for the serving layout
+    (``choose_pass``: bf16, V contiguous, E, V and the strides multiples
+    of 8, 16-byte aligned) and on the CUDA cores otherwise;
+    ``cuda_cores=True`` keeps it there (the card's check holds both
+    versions against the plain one on one input)."""
     if x.device.type != "cuda":
         raise ValueError(f"fused sample: unsupported device {x.device}")
     v_contig = _check(seed, x, w, temperature, greedy, exclude, gather_ids)
     R, E = x.shape
     V = w.shape[1]
+    w_ld = w.stride(0) if v_contig else w.stride(1)
+    v3 = choose_pass(x.dtype, v_contig, E, V, x.stride(0), w_ld,
+                     x.data_ptr(), w.data_ptr(), cuda_cores) == "v3"
     lib = _library()
-    n_tiles = -(-V // lib.fused_sample_tile_v())
     dev = x.device
-    part_f = torch.empty(n_tiles * R * PARTIAL_FLOATS, dtype=torch.float32,
+    slots = lib.fused_sample_slots(int(v3), R, V)
+    part_f = torch.empty(slots * R * PARTIAL_FLOATS, dtype=torch.float32,
                          device=dev)
-    part_i = torch.empty(n_tiles * R * PARTIAL_INTS, dtype=torch.int32,
+    part_i = torch.empty(slots * R * PARTIAL_INTS, dtype=torch.int32,
                          device=dev)
     out_i = torch.empty(2, R, dtype=torch.int32, device=dev)
     out_f = torch.empty(3, R, dtype=torch.float32, device=dev)
     rc = lib.fused_sample(
-        _DTYPE_CODE[x.dtype], int(v_contig), int(cuda_cores),
-        x.data_ptr(), x.stride(0),
-        w.data_ptr(), w.stride(0) if v_contig else w.stride(1),
+        int(v3), _DTYPE_CODE[x.dtype], int(v_contig),
+        x.data_ptr(), x.stride(0), w.data_ptr(), w_ld,
         temperature.data_ptr(), greedy.data_ptr(),
         exclude.data_ptr() if exclude is not None else None,
         gather_ids.data_ptr() if gather_ids is not None else None,

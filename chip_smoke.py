@@ -28,15 +28,24 @@ Phases, each printing one JSON line:
      is not timed), both ways.
    - fused LM-head sampler, at the serving path's shape (R 32, E 1536,
      V 151936, bf16, half the rows greedy, temperatures 0.7 / 1 / 1.3),
-     at the spec verify's (R 320 = 64 slots x 5 positions, with excluded
-     and gathered tokens; library: the head GEMM + the one-hot
-     ``spec_rejection_sample``) and at small shapes in f32 and bf16 with soft cap, V 500 / 50257 /
-     5000 (not multiples of the tile), R 1 / 33 / 160, excluded and
-     gathered tokens, E 70 and 200 and a tied (E-contiguous) head; bf16
-     cases run both versions of the product (tensor cores where the layout
-     allows, CUDA cores); 20000 draws at V 16 against softmax(warped) by
-     chi-square; library: the head GEMM (cuBLAS) + sample_tokens over the
-     materialized logits.
+     at the spec verify's (R 64 x (K + 1): 320 at K 4, 128 at K 1, 576 at
+     K 8, with excluded and gathered tokens; library: the head GEMM + the
+     one-hot ``spec_rejection_sample``), all four timed (kernel, bound,
+     share of the bound, TFLOP/s, library, plain) and at small shapes in
+     f32 and bf16 with soft cap, V 500 / 50257 / 5000 (not multiples of
+     the tile), R 1 / 33 / 160, excluded and gathered tokens, E 70 and 200
+     and a tied (E-contiguous) head; v3's tiling edges (R 1, 63, 64, 65,
+     127, 128, 129 and 1025 rows, a ragged last tile, E 72 and 136);
+     integer-valued operands (exact logits, repeated maxima) with a row's
+     best column copied into another block's tile, where the
+     argmax and every token must equal the plain version's exactly; two
+     calls bit-identical at R 32 and R 320; a call captured in a CUDA
+     graph, the head changed in place, the replay equal to an eager call
+     on the new head; the wrapper's schedule (``plan``) equal to the
+     kernel's; bf16 cases run both versions of the product (v3 where the
+     layout allows, CUDA cores); 20000 draws at V 16 against
+     softmax(warped) by chi-square; library: the head GEMM (cuBLAS) +
+     sample_tokens over the materialized logits.
    - flash attention forward and backward (dq, dk, dv), at the trainer's
      shape (T 8192, H 12, Hkv 2, D 128, bf16, 8 segments of 512-1536
      tokens plus tail padding), at SyncGenerator's prefill (32 rows of 512
@@ -217,10 +226,10 @@ Phases, each printing one JSON line:
    tokens/s, capture seconds, graph pool, seconds and trained tokens/s
    per step, peak memory and the profile's tokens/s, TFLOP/s and MFU.
 
-Extra phases, run only when named: ``decode_time`` and ``flash_time``
-time the paged-decode and flash kernels of the package imported (with
-``--package DIR``, an earlier commit's) through their public signatures,
-so that two versions compare in one call.
+Extra phases, run only when named: ``decode_time``, ``flash_time`` and
+``fused_time`` time the paged-decode, flash and fused-sampler kernels of
+the package imported (with ``--package DIR``, an earlier commit's) through
+their public signatures, so that two versions compare in one call.
 
 Then it prints the kernel table line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed check raises: the
@@ -1291,16 +1300,129 @@ def fused_chi_square(torch, exclude):
     return chi2
 
 
+def fused_timing(torch, a, launch, library, plain):
+    """The timed numbers of one fused-sampler case: CUDA-event time of
+    eager calls (the kernel rows' yardstick), its bound, share of the bound
+    and achieved rate, and the library and plain times on the same inputs."""
+    x, w = a["x"], a["w"]
+    R, E = x.shape
+    V = w.shape[1]
+    row = {"kernel_ms": cuda_ms(launch, 20)}
+    row["bound_ms"], row["bound_by"] = fused_bound(torch, a)
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    row["tflops"] = 2 * R * E * V / row["kernel_ms"] / 1e9
+    row["library_ms"] = cuda_ms(library, 20) if library else None
+    row["plain_ms"] = cuda_ms(plain, 3) if plain else None
+    row["w_bytes"] = w.numel() * w.element_size()
+    return row
+
+
+def fused_integer_inputs(torch, *, R, seed, exclude=False, gather=False):
+    """Operands with small integer values (exact in bf16): every logit is an
+    exact float32 sum in any order, so equal logits are equal in the kernel
+    and the plain version alike, and a row's maximum may repeat across the
+    vocabulary (ties across blocks and warpgroups). On top, each seventh row
+    gets its maximum planted in a random column (2 sign(x), the largest dot
+    product the row can have) and copied into a column of another tile,
+    below or above it; returns those rows with the lower of the two."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    E, V = 1536, 151936
+    x = torch.randint(-2, 3, (R, E), generator=g, device="cuda").bfloat16()
+    w = torch.randint(-2, 3, (E, V), generator=g, device="cuda").bfloat16()
+    rows = list(range(0, R, 7))
+    cols = torch.randperm(V, generator=g, device="cuda")[:len(rows)].tolist()
+    planted = {}
+    for r, src in zip(rows, cols):
+        shift = 256 * (1 + (r * 37) % 400) * (1 if r % 2 else -1)
+        dst = (src + shift) % V
+        w[:, src] = (torch.sign(x[r].float()) * 2).bfloat16()
+        w[:, dst] = w[:, src]
+        planted[r] = min(src, dst)
+    temp = torch.tensor([FUSED_TEMPS[i % len(FUSED_TEMPS)] for i in range(R)],
+                        device="cuda")
+    out = dict(seed=torch.tensor([seed], dtype=torch.int32, device="cuda"),
+               x=x, w=w, temperature=temp, greedy=temp <= 0.0, exclude=None,
+               gather_ids=None, soft_cap=None)
+    logits = x.float() @ w.float()
+    if exclude:
+        out["exclude"] = logits.argmax(-1).to(torch.int32)
+    if gather:
+        out["gather_ids"] = torch.randint(0, V, (R,), generator=g,
+                                          device="cuda", dtype=torch.int32)
+    # a later row's plant may have overwritten an earlier one's columns
+    first = logits.argmax(-1)
+    n_max = (logits == logits.max(-1, keepdim=True).values).sum(-1)
+    kept = {r: c for r, c in planted.items()
+            if int(first[r]) == c and int(n_max[r]) == 2}
+    return out, kept
+
+
+def fused_plan_check(torch, cuda_fused):
+    """The wrapper's mirror of v3's schedule (``plan``) against the
+    kernel's own (``fused_sample_plan``) at the edges of row groups and
+    tiles, and the partial records it sizes."""
+    import ctypes
+
+    lib = cuda_fused._library()
+    rows = {}
+    for R, V in ((1, 151936), (32, 151936), (64, 151936), (65, 151936),
+                 (128, 151936), (320, 151936), (513, 151936), (576, 151936),
+                 (1025, 151936), (320, 1000), (32, 256)):
+        out = (ctypes.c_int * 2)()
+        if lib.fused_sample_plan(R, V, out) != 0:
+            raise AssertionError(f"fused_sample_plan({R}, {V}) failed")
+        mine = cuda_fused.plan(R, V, lib.fused_sample_sms())
+        theirs = dict(bands=out[0], per_band=out[1])
+        slots = lib.fused_sample_slots(1, R, V)
+        if any(mine[k] != v for k, v in theirs.items()) or \
+                slots != mine["slots"]:
+            raise AssertionError(f"fused_sample plan R {R} V {V}: wrapper "
+                                 f"{mine}, kernel {theirs}, slots {slots}")
+        rows[f"{R}x{V}"] = theirs
+    return {"plans": rows, "sms": lib.fused_sample_sms()}
+
+
+def fused_graph_check(torch, cuda_fused, a):
+    """A call captured in a CUDA graph, W changed in place (as
+    ``update_params`` does), the graph replayed: its outputs must equal an
+    eager call's on the new W bit for bit, and differ from the old W's."""
+    args = (a["seed"], a["x"], a["w"], a["temperature"], a["greedy"])
+    kw = dict(exclude=a["exclude"], gather_ids=a["gather_ids"],
+              soft_cap=a["soft_cap"])
+    before = {k: v.clone() for k, v in cuda_fused.fused_sample(
+        *args, **kw).items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_fused.fused_sample(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        res = cuda_fused.fused_sample(*args, **kw)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    a["w"].copy_((torch.randn(a["w"].shape, generator=g, device="cuda")
+                  * 0.02).to(a["w"].dtype))
+    graph.replay()
+    eager = cuda_fused.fused_sample(*args, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(res[k].view(torch.int32), eager[k].view(torch.int32))
+               for k in eager)
+    moved = not torch.equal(res["norm"], before["norm"])
+    del graph
+    if not (same and moved):
+        raise AssertionError(f"fused_sample graph replay after an in-place "
+                             f"head update: equal to eager {same}, followed "
+                             f"the new head {moved}")
+    return {"replay_equals_eager": same, "followed_new_head": moved}
+
+
 def fused_kernels_phase(torch):
     from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
     from areal_tpu_torch.ops.fused_sample import fused_sample_plain
 
-    cases = [
-        ("slice_bf16", dict(R=32, E=1536, V=151936, dtype="bfloat16"), True),
-        # spec_serve's verify rows: 64 slots x (K + 1) positions
-        ("spec_bf16", dict(R=SPEC_SERVE["slots"] * (SPEC_SERVE["k"] + 1),
-                           E=1536, V=151936, dtype="bfloat16", exclude=True,
-                           gather=True), True),
+    cases = [(name, spec, True) for name, spec in FUSED_TIMED.items()] + [
         ("f32_v500", dict(R=6, E=32, V=500, dtype="float32"), False),
         ("f32_cap_excl_gather", dict(R=6, E=64, V=50257, dtype="float32",
                                      soft_cap=30.0, exclude=True,
@@ -1317,6 +1439,16 @@ def fused_kernels_phase(torch):
                                soft_cap=20.0, gather=True), False),
         ("bf16_tied", dict(R=32, E=1536, V=20000, dtype="bfloat16",
                            tied=True, exclude=True), False),
+        # v3's tiling edges: rows at the edges of row groups (64 rows, one
+        # band of blocks each); a ragged last tile (V % 256); E a multiple
+        # of no stage (64)
+        *[(f"v3_r{R}", dict(R=R, E=136, V=2600, dtype="bfloat16",
+                            exclude=R % 2 == 1, gather=R % 3 == 0), False)
+          for R in (1, 63, 64, 65, 127, 128, 129, 1025)],
+        ("v3_ragged_v", dict(R=70, E=256, V=151944, dtype="bfloat16",
+                             gather=True), False),
+        ("v3_e72", dict(R=96, E=72, V=4104, dtype="bfloat16", soft_cap=15.0,
+                        exclude=True), False),
     ]
     results = {}
     for i, (name, spec, timed) in enumerate(cases):
@@ -1328,6 +1460,11 @@ def fused_kernels_phase(torch):
         want = fused_sample_plain(*args, **kw)
         torch.cuda.synchronize()
         row = fused_compare(torch, name, a, got, want)
+        x, w = a["x"], a["w"]
+        row["pass"] = cuda_fused.choose_pass(
+            x.dtype, w.stride(1) == 1, x.shape[1], w.shape[1], x.stride(0),
+            w.stride(0) if w.stride(1) == 1 else w.stride(1), x.data_ptr(),
+            w.data_ptr())
         if spec["dtype"] == "bfloat16":
             # the same input through the CUDA-core version of the product
             # (a no-op choice where the tensor-core version cannot run)
@@ -1335,27 +1472,99 @@ def fused_kernels_phase(torch):
             torch.cuda.synchronize()
             row["cuda_core_err_over_tol"] = fused_compare(
                 torch, name + "[cuda cores]", a, other, want)["err_over_tol"]
+        if name in ("slice_bf16", "spec_bf16"):
+            # reruns on the same inputs: bit-identical, all five outputs
+            again = cuda_fused.fused_sample(*args, **kw)
+            torch.cuda.synchronize()
+            row["rerun_bit_identical"] = all(
+                torch.equal(got[k].view(torch.int32),
+                            again[k].view(torch.int32)) for k in got)
+            if not row["rerun_bit_identical"]:
+                raise AssertionError(f"fused_sample {name}: a rerun differs")
         if timed:
-            row["kernel_ms"] = cuda_ms(
-                lambda: cuda_fused.fused_sample(*args, **kw), 20)
+            k = FUSED_SPEC_K.get(name)
+            row.update(fused_timing(
+                torch, a, lambda: cuda_fused.fused_sample(*args, **kw),
+                fused_spec_library(torch, a, k) if k else
+                fused_library(torch, a),
+                lambda: fused_sample_plain(*args, **kw)))
             row["cuda_core_ms"] = cuda_ms(
                 lambda: cuda_fused.fused_sample(*args, **kw,
                                                 cuda_cores=True), 20)
-            row["plain_ms"] = cuda_ms(
-                lambda: fused_sample_plain(*args, **kw), 3)
-            row["library_ms"] = cuda_ms(
-                fused_spec_library(torch, a, SPEC_SERVE["k"])
-                if name == "spec_bf16" else fused_library(torch, a), 20)
-            row["bound_ms"], row["bound_by"] = fused_bound(torch, a)
-            row["w_bytes"] = a["w"].numel() * a["w"].element_size()
+        if name == "spec_bf16":
+            row.update(fused_graph_check(torch, cuda_fused, a))
         results[name] = row
         del a, args, kw, got, want
         torch.cuda.empty_cache()
+    # ties: integer operands (exact logits, repeated maxima) plus planted
+    # copies of a row's best column in another block's tile;
+    # the raw argmax and every token must equal the plain version's exactly
+    for name, R, extra in (("ties_r32", 32, {}),
+                           ("ties_r320", 320, dict(exclude=True,
+                                                   gather=True))):
+        a, planted = fused_integer_inputs(torch, R=R, seed=41 + R, **extra)
+        args = (a["seed"], a["x"], a["w"], a["temperature"], a["greedy"])
+        kw = dict(exclude=a["exclude"], gather_ids=a["gather_ids"])
+        got = cuda_fused.fused_sample(*args, **kw)
+        want = fused_sample_plain(*args, **kw)
+        torch.cuda.synchronize()
+        row = fused_compare(torch, name, a, got, want)
+        bad = [r for r in range(R)
+               if int(got["argmax"][r]) != int(want["argmax"][r])
+               or int(got["tokens"][r]) != int(want["tokens"][r])]
+        miss = [r for r, c in planted.items() if int(got["argmax"][r]) != c]
+        if bad or miss or not planted:
+            raise AssertionError(f"fused_sample {name}: rows {bad} differ "
+                                 f"from the plain version, planted ties "
+                                 f"{miss} not at the lower column "
+                                 f"({len(planted)} planted)")
+        row["planted_ties"] = len(planted)
+        results[name] = row
+        del a, args, kw, got, want
+        torch.cuda.empty_cache()
+    results["plan"] = fused_plan_check(torch, cuda_fused)
     results["chi_square"] = {"plain": fused_chi_square(torch, False),
                              "excluded": fused_chi_square(torch, True),
                              "draws": 20000, "limit": 45.0}
     emit(phase="kernels", kernel="fused_sample", cases=results)
     return results
+
+
+def fused_time_phase(torch):
+    """The timed fused-sampler cases alone, through the wrapper's public
+    signature only, so that the same script times any version of the
+    package (``--package``): two versions compare in one call, on one
+    yardstick. Each case is checked against the package's plain version
+    first; then CUDA-event time of eager calls (the kernel rows'
+    yardstick) and device time of 10 calls replayed from a CUDA graph."""
+    import hashlib
+    import pathlib
+
+    from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
+    from areal_tpu_torch.ops.fused_sample import fused_sample_plain
+
+    src = pathlib.Path(cuda_fused.__file__).parents[2] / "csrc" / \
+        "fused_sample.cu"
+    rows = {}
+    for i, (name, spec) in enumerate(FUSED_TIMED.items()):
+        a = make_fused_inputs(torch, seed=600 + i, **spec)
+        args = (a["seed"], a["x"], a["w"], a["temperature"], a["greedy"])
+        kw = dict(exclude=a["exclude"], gather_ids=a["gather_ids"])
+
+        def launch():
+            return cuda_fused.fused_sample(*args, **kw)
+
+        got, want = launch(), fused_sample_plain(*args, **kw)
+        torch.cuda.synchronize()
+        row = fused_compare(torch, name, a, got, want)
+        row.update(fused_timing(torch, a, launch, None, None))
+        row["device_ms"] = graph_ms([launch] * 10)
+        rows[name] = row
+        del a, args, kw, got, want
+        torch.cuda.empty_cache()
+    emit(phase="fused_time", package=str(src.parents[2]),
+         source_sha256=hashlib.sha256(src.read_bytes()).hexdigest()[:16],
+         cases=rows)
 
 
 def sweep_phase(torch):
@@ -1928,6 +2137,19 @@ SPEC_SERVE = dict(slots=64, max_seqlen=2048, page=128, prompt_len=1024,
 # verify pass and the paged-decode kernel round differently (the limit is
 # 16 ulps, four times the paths' difference measured in weight_sync).
 SPEC_ARGMAX_TOL = 0.25
+
+# The fused sampler's timed cases: a decode step's 32 rows, and spec verify
+# rows (64 slots x (K + 1) positions) at spec_serve's K 4 and at the adaptive
+# K's extremes 1 and 8 (gen/engine.py's range).
+FUSED_SPEC_K = {"spec_bf16": SPEC_SERVE["k"], "spec_k1_bf16": 1,
+                "spec_k8_bf16": 8}
+FUSED_TIMED = {
+    "slice_bf16": dict(R=32, E=1536, V=151936, dtype="bfloat16"),
+    **{name: dict(R=SPEC_SERVE["slots"] * (k + 1), E=1536, V=151936,
+                  dtype="bfloat16", exclude=True, gather=True)
+       for name, k in FUSED_SPEC_K.items()},
+}
+
 
 
 def spec_params(torch, tfm, cfg):
@@ -4908,9 +5130,10 @@ def main(argv=None) -> int:
     ap.add_argument("--package", default=None,
                     help="import areal_tpu_torch from this directory (e.g. "
                          "an unpacked earlier commit) instead of the "
-                         "script's; with the extra phases decode_time and "
-                         "flash_time, two versions of the paged-decode or "
-                         "flash kernels are timed alike")
+                         "script's; with the extra phases decode_time, "
+                         "flash_time and fused_time, two versions of the "
+                         "paged-decode, flash or fused-sampler kernels are "
+                         "timed alike")
     ap.add_argument("--keep-logs", default=None,
                     help="copy the async_ppo and agentic_ppo entry points' "
                          "logs (every process of each) into this directory")
@@ -4962,6 +5185,8 @@ def main(argv=None) -> int:
         decode_time_phase(torch)
     if "flash_time" in phases:
         flash_time_phase(torch)
+    if "fused_time" in phases:
+        fused_time_phase(torch)
     if args.sweep:
         sweep_phase(torch)
     if "parity" in phases:

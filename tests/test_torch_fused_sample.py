@@ -362,3 +362,288 @@ def test_topk_with_the_kernel_requested_raises():
     with pytest.raises(ValueError, match="does not match hidden"):
         pt_fs.fused_sample(a["seed"], a["x"], torch.zeros(9, 20),
                            a["temperature"], a["greedy"])
+
+
+# --------------------------------------------------------------------------- #
+# v3 (the wgmma pass): its choice, its schedule, and its reduction order
+# --------------------------------------------------------------------------- #
+
+def _pass_args(**over):
+    """Operands of the serving layout: bf16, V contiguous, aligned."""
+    a = dict(dtype=torch.bfloat16, v_contig=True, E=1536, V=151936,
+             x_ld=1536, w_ld=151936, x_ptr=1 << 20, w_ptr=1 << 30)
+    a.update(over)
+    return a
+
+
+PASS_CASES = {
+    "serving": (dict(), "v3"),
+    "small_widths": (dict(E=8, V=8, x_ld=8, w_ld=8), "v3"),
+    "wide_rows": (dict(w_ld=152064, x_ld=2048), "v3"),
+    "cuda_cores_asked": (dict(cuda_cores=True), "cuda_cores"),
+    "float32": (dict(dtype=torch.float32), "cuda_cores"),
+    "float16": (dict(dtype=torch.float16), "cuda_cores"),
+    "tied_head": (dict(v_contig=False, w_ld=1536), "cuda_cores"),
+    "e_odd": (dict(E=200 + 4, x_ld=204), "cuda_cores"),
+    "v_odd": (dict(V=50257, w_ld=50257), "cuda_cores"),
+    "x_stride": (dict(x_ld=1540), "cuda_cores"),
+    "w_stride": (dict(w_ld=151940), "cuda_cores"),
+    "x_unaligned": (dict(x_ptr=(1 << 20) + 8), "cuda_cores"),
+    "w_unaligned": (dict(w_ptr=(1 << 30) + 2), "cuda_cores"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PASS_CASES))
+def test_choose_pass_by_layout_dtype_stride_and_alignment(case):
+    over, want = PASS_CASES[case]
+    over = dict(over)
+    cuda_cores = over.pop("cuda_cores", False)
+    assert cuda_fs.choose_pass(cuda_cores=cuda_cores,
+                               **_pass_args(**over)) == want
+
+
+V3_REFUSALS = {
+    "float32": (dict(dtype=torch.float32), "bf16"),
+    "tied_head": (dict(v_contig=False), "V contiguous"),
+    "e": (dict(E=1534), "E 1534 is not a multiple of 8"),
+    "v": (dict(V=151937), "V 151937 is not a multiple of 8"),
+    "x_ld": (dict(x_ld=1537), "x row stride"),
+    "w_ld": (dict(w_ld=151939), "w row stride"),
+    "x_ptr": (dict(x_ptr=4), "x is not 16-byte aligned"),
+    "w_ptr": (dict(w_ptr=6), "w is not 16-byte aligned"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(V3_REFUSALS))
+def test_v3_refuses_what_it_cannot_take(case):
+    over, msg = V3_REFUSALS[case]
+    reason = cuda_fs.v3_unsupported(**_pass_args(**over))
+    assert reason is not None and msg in reason, reason
+    assert cuda_fs.v3_unsupported(**_pass_args()) is None
+
+
+H100_SMS = 132
+
+
+PLAN_CASES = {
+    # R, V: bands, blocks per band
+    "decode_r32": (32, 151936, 1, 132),
+    "group_edge_r64": (64, 151936, 1, 132),
+    "group_edge_r65": (65, 151936, 2, 66),
+    "spec_k1_r128": (128, 151936, 2, 66),
+    "spec_k4_r320": (320, 151936, 5, 26),
+    "spec_k8_r576": (576, 151936, 9, 14),
+    "r1025": (1025, 151936, 17, 7),
+    "tiles_cap_v256": (32, 256, 1, 1),
+    "tiles_cap_v264": (32, 264, 1, 2),
+    "tiles_cap_v1000": (320, 1000, 5, 4),
+    "v8": (1, 8, 1, 1),
+    "more_bands_than_sms": (64 * 140, 151936, 140, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_v3_plan_and_partial_sizing_at_tile_and_group_edges(case):
+    R, V, bands, per_band = PLAN_CASES[case]
+    p = cuda_fs.plan(R, V, H100_SMS)
+    assert (p["bands"], p["per_band"]) == (bands, per_band)
+    assert p["tiles"] == -(-V // cuda_fs.TILE_V3)
+    assert p["blocks"] == bands * per_band
+    assert p["slots"] == 2 * per_band
+    assert p["records"] == p["slots"] * R
+    # every row in one band; no more blocks than SMs (unless one per band)
+    assert (bands - 1) * cuda_fs.GROUP_ROWS < R <= bands * cuda_fs.GROUP_ROWS
+    assert p["blocks"] <= H100_SMS or per_band == 1
+    assert per_band <= p["tiles"]
+
+
+def _integer_problem(R, E, V, seed):
+    """Integer-valued operands: every logit is an exact float32 sum in any
+    order, so ties are real ties for the kernel, the plain version and the
+    emulation alike (and frequent: the max of a row repeats)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2, 3, size=(R, E)).astype(np.float32)
+    w = rng.integers(-2, 3, size=(E, V)).astype(np.float32)
+    return x, w
+
+
+def _merge_records(a, b, symmetric):
+    """One step of fused_sample_merge_kernel: fold record b into a
+    (sequential, a lane's own records) or merge two lanes (symmetric:
+    the term of the smaller maximum added second)."""
+    mn = torch.maximum(a["m"], b["m"])
+    ta = a["l"] * torch.exp(a["m"] - mn)
+    tb = b["l"] * torch.exp(b["m"] - mn)
+    if symmetric:
+        first = torch.where(a["m"] >= b["m"], ta, tb)
+        second = torch.where(a["m"] >= b["m"], tb, ta)
+        l = first + second
+    else:
+        l = ta + tb
+    out = dict(m=mn, l=l)
+
+    def beats(v, i, ov, oi):
+        return (v > ov) | ((v == ov) & (i < oi))
+
+    up = beats(b["am_v"], b["am_i"], a["am_v"], a["am_i"])
+    out["am_v"] = torch.where(up, b["am_v"], a["am_v"])
+    out["am_i"] = torch.where(up, b["am_i"], a["am_i"])
+    up = beats(b["g_p"], b["g_i"], a["g_p"], a["g_i"])
+    for k in ("g_p", "g_w", "g_i"):
+        out[k] = torch.where(up, b[k], a[k])
+    out["gat"] = torch.maximum(a["gat"], b["gat"])
+    return out
+
+
+def _identity(R):
+    full = lambda v, dt: torch.full((R,), v, dtype=dt)  # noqa: E731
+    return dict(m=full(pt_fs._MASK, torch.float32), l=full(0.0, torch.float32),
+                am_v=full(pt_fs._MASK, torch.float32),
+                am_i=full(0, torch.int64), g_p=full(pt_fs._MASK, torch.float32),
+                g_w=full(0.0, torch.float32), g_i=full(0, torch.int64),
+                gat=full(pt_fs._MASK, torch.float32))
+
+
+def _emulate_v3(seed, x, w, temperature, greedy, exclude, gather_ids,
+                soft_cap, per_band):
+    """v3's reduction order in plain PyTorch: tiles of TILE_V3 columns
+    dealt to the band's blocks in the static strided order (block q walks
+    tiles q, q + per_band, ...), its n-th tile to warpgroup n % 2; each
+    (block, warpgroup) worker carries its state through
+    ``_update_block``, greedy rows skipping the Gumbel fold; then the
+    merge kernel's order: worker records strided over 32 lanes, then the
+    lanes' xor tree."""
+    R, V = x.shape[0], w.shape[1]
+    tile = cuda_fs.TILE_V3
+    t = temperature.float().clamp_min(1e-6)
+    n_tiles = -(-V // tile)
+    slots = [_identity(R) for _ in range(2 * per_band)]
+    excl = None if exclude is None else exclude.long()
+    gath = None if gather_ids is None else gather_ids.long()
+    for q in range(per_band):
+        for n, k in enumerate(range(q, n_tiles, per_band)):
+            s = slots[2 * q + n % 2]
+            logits = x.float() @ w[:, k * tile:(k + 1) * tile].float()
+            if soft_cap:
+                logits = torch.tanh(logits / soft_cap) * soft_cap
+            c = dict(s) if gath is not None else {
+                kk: v for kk, v in s.items() if kk != "gat"}
+            new = pt_fs._update_block(c, logits, k * tile, seed, t, excl,
+                                      gath, pt_fs.TOPK_MAX)
+            for kk in ("g_p", "g_w", "g_i"):
+                new[kk] = torch.where(greedy, s[kk], new[kk])
+            new.setdefault("gat", s["gat"])
+            slots[2 * q + n % 2] = new
+    lanes = [_identity(R) for _ in range(32)]
+    for i, rec in enumerate(slots):
+        lanes[i % 32] = _merge_records(lanes[i % 32], rec, symmetric=False)
+    off = 16
+    while off:
+        lanes = [_merge_records(lanes[i], lanes[i ^ off], symmetric=True)
+                 for i in range(32)]
+        off //= 2
+    st = lanes[0]
+    norm = st["m"] + torch.log(st["l"])
+    out = {"tokens": torch.where(greedy, st["am_i"], st["g_i"]).int(),
+           "argmax": st["am_i"].int(), "norm": norm,
+           "logprobs": torch.where(greedy, st["am_v"] / t - norm,
+                                   st["g_w"] - norm)}
+    if gath is not None:
+        out["gathered_lp"] = st["gat"] - norm
+    return out
+
+
+EMULATION_CASES = {
+    # per_band, V (ragged unless a multiple of 256), options
+    "one_worker_pair": (1, 1000, {}),
+    "three_blocks_ragged": (3, 1000, {}),
+    "five_blocks": (5, 2600, dict(exclude=True, gather=True)),
+    "a_warpgroup_idle": (2, 300, dict(soft_cap=9.0)),
+    "exact_tiles": (4, 2048, dict(gather=True)),
+    "forty_workers_two_per_lane": (20, 5200, dict(exclude=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EMULATION_CASES))
+def test_v3_reduction_order_equals_the_plain_version(case):
+    per_band, V, opts = EMULATION_CASES[case]
+    R, E = 12, 16
+    x, w = _integer_problem(R, E, V, seed=per_band * 7 + V)
+    temps = np.tile(TEMPS, 2)
+    greedy = temps <= 0.0
+    logits = x @ w
+    # plant argmax ties across workers: row r's best column copied into a
+    # later tile dealt to another block or warpgroup; the lowest must win
+    tile = cuda_fs.TILE_V3
+    n_tiles = -(-V // tile)
+    planted = {}
+    for r in range(0, R, 3):
+        src = int(np.argmax(logits[r]))
+        dst_tile = (src // tile + 1 + r % max(1, n_tiles - 1)) % n_tiles
+        dst = min(dst_tile * tile + (src % tile), V - 1)
+        if dst != src:
+            w[:, dst] = w[:, src]
+            planted[r] = (min(src, dst), max(src, dst))
+    logits = x @ w
+    rng = np.random.default_rng(9)
+    kw = {}
+    if opts.get("exclude"):
+        kw["exclude"] = torch.from_numpy(np.argmax(logits, -1).astype(np.int32))
+    if opts.get("gather"):
+        kw["gather_ids"] = torch.from_numpy(
+            rng.integers(0, V, size=R).astype(np.int32))
+    seed = torch.tensor([1234567], dtype=torch.int32)
+    args = (seed, torch.from_numpy(x), torch.from_numpy(w),
+            torch.from_numpy(temps), torch.from_numpy(greedy))
+    want = pt_fs.fused_sample_plain(*args, soft_cap=opts.get("soft_cap"),
+                                    block_v=384, **kw)
+    got = _emulate_v3(*args, kw.get("exclude"), kw.get("gather_ids"),
+                      opts.get("soft_cap"), per_band)
+    assert set(got) == set(want)
+    for k in ("tokens", "argmax"):
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
+    _assert_floats_close(got, {k: v.numpy() for k, v in want.items()},
+                         set(want) - {"tokens", "argmax"})
+    # the planted ties resolve to the lower column, as a first max does
+    first_max = np.argmax(logits if not opts.get("soft_cap") else
+                          np.tanh(logits / opts["soft_cap"]), -1)
+    np.testing.assert_array_equal(got["argmax"].numpy(), first_max)
+    for r, (lo, hi) in planted.items():
+        if logits[r, lo] == logits[r].max():
+            assert int(got["argmax"][r]) == lo, (r, lo, hi)
+    # greedy rows never read the Gumbel fields they skipped
+    np.testing.assert_array_equal(got["tokens"].numpy()[greedy],
+                                  got["argmax"].numpy()[greedy])
+
+
+def test_v3_gumbel_threshold_keeps_every_column_that_can_win():
+    """The kernel's fold takes the two accurate logs only for columns that
+    pass u >= exp(-exp(warped - bar + lift)) - 1e-6, computed with the
+    card's fast exponentials (relative error below 2^-21 each). Here the
+    exponentials are perturbed by that much either way, and bar is set
+    just above, at and below each column's exact perturbed value (float32
+    warped - log(-log u), as the kernel and the plain version compute it):
+    no column whose exact value reaches bar may fail the test."""
+    rng = np.random.default_rng(0)
+    n = 200000
+    u = torch.from_numpy(rng.integers(0, 1 << 24, n).astype(np.int64))
+    u = ((u.float() + 0.5) * (1.0 / (1 << 24))).clamp_max(pt_fs.U_MAX)
+    u[:64] = pt_fs.U_MAX                       # the cap, and u near 1
+    u[64:128] = float(np.float32(0.99999988))
+    scale = torch.from_numpy(10.0 ** rng.uniform(-1, 6, n)).float()
+    warped = torch.from_numpy(rng.normal(size=n)).float() * scale
+    pert = warped - torch.log(-torch.log(u))
+    rel = 2.0 ** -21
+    for step in (-2, -1, 0, 1, 2):
+        bar = pert + step * torch.finfo(torch.float32).eps * pert.abs()
+        lift = 2e-5 + 2e-7 * bar.abs()
+        for e1, e2 in ((1 + rel, 1 + rel), (1 - rel, 1 - rel),
+                       (1 + rel, 1 - rel), (1 - rel, 1 + rel)):
+            z = torch.exp(warped - bar + lift) * e1
+            thr = torch.exp(-z) * e2 - 1e-6
+            reach = pert >= bar
+            assert bool((u[reach] >= thr[reach]).all()), step
+    # and it does filter: far below the bar, columns are skipped
+    bar = warped + 20.0
+    thr = torch.exp(-torch.exp(warped - bar + 2e-5 + 2e-7 * bar.abs())) - 1e-6
+    assert bool((u < thr).float().mean() > 0.999)
