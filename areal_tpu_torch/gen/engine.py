@@ -95,6 +95,7 @@ from areal_tpu_torch.gen.sampling import (
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.ops import fused_sample as fused_ops
+from areal_tpu_torch.ops import moe as moe_ops
 from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
 from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
 
@@ -343,6 +344,12 @@ class GenerationEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self._init_drafter(cfg, spec_decode, drafter)
+        # every program (extend, commit, decode and spec chunks) is a CUDA
+        # graph on the card and the same body on the CPU
+        moe_ops.check_graphable(cfg, "GenerationEngine")
+        if self.draft_cfg is not None:
+            moe_ops.check_graphable(self.draft_cfg, "GenerationEngine's "
+                                    "draft model")
         # fused sampling epilogue: explicit argument > AREAL_FUSED_SAMPLE
         self.fused = (
             fused_sample

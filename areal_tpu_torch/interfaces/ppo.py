@@ -75,7 +75,8 @@ class PPOActorInterface(ModelInterface):
 
         def actor_loss(params, cfg, arrays):
             mask = _action_mask(arrays)
-            new_lp = vmapped_next_token_logprobs(params, cfg, arrays)
+            new_lp, aux = vmapped_next_token_logprobs(params, cfg, arrays,
+                                                      with_aux=True)
             old_lp = arrays["packed_logprobs"].float()
             prox = arrays.get("prox_logp")
             if hp.use_decoupled_loss and prox is not None:
@@ -96,7 +97,7 @@ class PPOActorInterface(ModelInterface):
                 behav_imp_weight_cap=hp.behav_imp_weight_cap,
             )
             n = mask.sum().clamp_min(1)
-            return loss, {
+            return loss + aux, {
                 "actor_loss": loss.detach(),
                 "importance_weight": stat["importance_weight"].sum() / n,
                 "actor_clip_ratio": stat["clip_mask"].sum() / n,
@@ -235,7 +236,7 @@ class PPOCriticInterface(ModelInterface):
 
         def critic_loss(params, cfg, arrays):
             mask = _action_mask(arrays)
-            values = vmapped_forward(params, cfg, arrays)
+            values, aux = vmapped_forward(params, cfg, arrays, with_aux=True)
             new_values = torch.where(arrays["segment_ids"] > 0,
                                      values[..., 0], 0.0)
             loss, stat = ppo_ops.critic_loss_fn(
@@ -246,7 +247,7 @@ class PPOCriticInterface(ModelInterface):
                 mask.reshape(-1),
             )
             n = mask.sum().clamp_min(1)
-            return loss, {
+            return loss + aux, {
                 "critic_loss": loss.detach(),
                 "value_clip_ratio": stat["clip_mask"].sum() / n,
             }

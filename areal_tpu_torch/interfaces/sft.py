@@ -21,17 +21,19 @@ def label_is_prompt(arrays) -> torch.Tensor:
 
 
 def sft_loss_fn(params, cfg, arrays):
-    """-mean log p(next token) over answer tokens (prompt_mask == 0).
-    ``cfg.loss_chunk_size`` routes through the chunked LM-head path."""
-    lp = vmapped_next_token_logprobs(params, cfg, arrays)
+    """-mean log p(next token) over answer tokens (prompt_mask == 0), plus
+    the MoE router's aux loss (0 for a dense MLP) as the reference adds it;
+    ``ppl`` is the cross-entropy's alone. ``cfg.loss_chunk_size`` routes
+    through the chunked LM-head path."""
+    lp, aux = vmapped_next_token_logprobs(params, cfg, arrays, with_aux=True)
     seg = arrays["segment_ids"]
     mask = (seg > 0) & ~ppo_ops.is_segment_end(seg)
     if "prompt_mask" in arrays:
         mask = mask & ~label_is_prompt(arrays)
     n = mask.sum().clamp_min(1)
     loss = -torch.where(mask, lp, 0.0).sum() / n
-    return loss, {"ppl": torch.exp(loss.detach()),
-                  "n_tokens": n.float()}
+    return loss + aux, {"ppl": torch.exp(loss.detach()),
+                        "n_tokens": n.float()}
 
 
 @dataclasses.dataclass

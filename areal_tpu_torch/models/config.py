@@ -166,3 +166,5 @@ class ModelConfig:
             raise ValueError("n_q_heads must be divisible by n_kv_heads")
         if self.mlp_type == "moe" and self.moe is None:
             object.__setattr__(self, "moe", MoEConfig())
+        if isinstance(self.moe, dict):   # an arch given as JSON
+            object.__setattr__(self, "moe", MoEConfig(**self.moe))

@@ -1,7 +1,8 @@
 """HF <-> port checkpoint converters (counterpart of
 ``areal_tpu/models/hf.py``): the llama-like families (llama, mistral,
-qwen2, qwen3, gemma) and gpt2, config and params both ways, plus checkpoint
-IO (``model.safetensors`` + ``config.json``).
+qwen2, qwen3, gemma), mixtral (llama-like with ``block_sparse_moe``
+experts) and gpt2, config and params both ways, plus checkpoint IO
+(``model.safetensors`` + ``config.json``).
 
 Converters are pure functions over ``Dict[str, np.ndarray]`` (flat HF
 state dicts) <-> the JAX package's host layout: layer leaves stacked on a
@@ -16,7 +17,6 @@ transposed on the way through. GPT-2's ``Conv1D`` is already ``[in, out]``.
 
 Files are read and written by ``base/safetensors_io.py``; half-precision
 tensors (F16, BF16) widen to float32 on the host, which loses nothing.
-Mixtral (MoE) conversion waits for the MoE layers.
 """
 
 import dataclasses
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.base import safetensors_io
-from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.models.config import ModelConfig, MoEConfig
 
 HFState = Dict[str, np.ndarray]
 
@@ -146,6 +146,7 @@ _ARCH_NAMES = {
     "qwen3": "Qwen3ForCausalLM",
     "gemma": "GemmaForCausalLM",
     "gpt2": "GPT2LMHeadModel",
+    "mixtral": "MixtralForCausalLM",
 }
 
 
@@ -174,12 +175,26 @@ def _llama_like_params_from_hf(sd: HFState, cfg: ModelConfig) -> Dict[str, Any]:
         attn["q_norm"] = _stack(sd, p + "self_attn.q_norm.weight", L)
         attn["k_norm"] = _stack(sd, p + "self_attn.k_norm.weight", L)
     if cfg.mlp_type == "moe":
-        raise NotImplementedError("MoE (mixtral) conversion is not ported yet")
-    mlp = {
-        "w_gate": _stack(sd, p + "mlp.gate_proj.weight", L, True),
-        "w_up": _stack(sd, p + "mlp.up_proj.weight", L, True),
-        "w_down": _stack(sd, p + "mlp.down_proj.weight", L, True),
-    }
+        experts = p + "block_sparse_moe.experts.{j}.{w}.weight"
+
+        def expert_stack(w):   # [L, X, in, out]
+            return np.stack([
+                np.stack([np.asarray(sd[experts.format(i=i, j=j, w=w)]).T
+                          for j in range(cfg.moe.num_experts)])
+                for i in range(L)])
+
+        mlp = {
+            "router": _stack(sd, p + "block_sparse_moe.gate.weight", L, True),
+            "w_gate": expert_stack("w1"),
+            "w_down": expert_stack("w2"),
+            "w_up": expert_stack("w3"),
+        }
+    else:
+        mlp = {
+            "w_gate": _stack(sd, p + "mlp.gate_proj.weight", L, True),
+            "w_up": _stack(sd, p + "mlp.up_proj.weight", L, True),
+            "w_down": _stack(sd, p + "mlp.down_proj.weight", L, True),
+        }
     params: Dict[str, Any] = {
         "embed": {"weight": np.asarray(sd["model.embed_tokens.weight"])},
         "layers": {
@@ -198,8 +213,6 @@ def _llama_like_params_from_hf(sd: HFState, cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _llama_like_params_to_hf(params: Dict[str, Any], cfg: ModelConfig) -> HFState:
-    if cfg.mlp_type == "moe":
-        raise NotImplementedError("MoE (mixtral) conversion is not ported yet")
     sd: HFState = {"model.embed_tokens.weight": np.asarray(params["embed"]["weight"])}
     lp = params["layers"]
     for i in range(cfg.n_layers):
@@ -219,9 +232,17 @@ def _llama_like_params_to_hf(params: Dict[str, Any], cfg: ModelConfig) -> HFStat
             sd[p + "self_attn.q_norm.weight"] = np.asarray(a["q_norm"][i])
             sd[p + "self_attn.k_norm.weight"] = np.asarray(a["k_norm"][i])
         m = lp["mlp"]
-        sd[p + "mlp.gate_proj.weight"] = np.asarray(m["w_gate"][i]).T
-        sd[p + "mlp.up_proj.weight"] = np.asarray(m["w_up"][i]).T
-        sd[p + "mlp.down_proj.weight"] = np.asarray(m["w_down"][i]).T
+        if cfg.mlp_type == "moe":
+            sd[p + "block_sparse_moe.gate.weight"] = np.asarray(m["router"][i]).T
+            for j in range(cfg.moe.num_experts):
+                e = p + f"block_sparse_moe.experts.{j}."
+                sd[e + "w1.weight"] = np.asarray(m["w_gate"][i, j]).T
+                sd[e + "w2.weight"] = np.asarray(m["w_down"][i, j]).T
+                sd[e + "w3.weight"] = np.asarray(m["w_up"][i, j]).T
+        else:
+            sd[p + "mlp.gate_proj.weight"] = np.asarray(m["w_gate"][i]).T
+            sd[p + "mlp.up_proj.weight"] = np.asarray(m["w_up"][i]).T
+            sd[p + "mlp.down_proj.weight"] = np.asarray(m["w_down"][i]).T
     sd["model.norm.weight"] = np.asarray(params["final_ln"]["weight"])
     if cfg.is_critic:
         pass
@@ -250,6 +271,47 @@ _register_llama_like("mistral", sliding_window=True)
 _register_llama_like("qwen2", qkv_bias=True)
 _register_llama_like("qwen3", qk_layernorm=True)
 _register_llama_like("gemma", gemma=True)
+
+
+# --------------------------------------------------------------------------- #
+# Mixtral (llama-like + MoE)
+# --------------------------------------------------------------------------- #
+
+
+def _mixtral_config_from_hf(hf: Dict[str, Any]) -> ModelConfig:
+    """Mixtral's config: the llama-like fields, its sliding window, and the
+    router (``dispatch`` stays ``"dense"``, which the serving paths'
+    CUDA graphs capture)."""
+    base = _llama_like_config_from_hf(hf, sliding_window=True)
+    return dataclasses.replace(
+        base,
+        mlp_type="moe",
+        moe=MoEConfig(
+            num_experts=hf["num_local_experts"],
+            top_k=hf["num_experts_per_tok"],
+            aux_loss_coeff=hf.get("router_aux_loss_coef", 0.0),
+            norm_topk_prob=True,
+        ),
+    )
+
+
+def _mixtral_config_to_hf(cfg: ModelConfig) -> Dict[str, Any]:
+    hf = _llama_like_config_to_hf(cfg, "mixtral")
+    hf["num_local_experts"] = cfg.moe.num_experts
+    hf["num_experts_per_tok"] = cfg.moe.top_k
+    return hf
+
+
+register_hf_family(
+    HFFamily(
+        name="mixtral",
+        hf_model_type="mixtral",
+        config_from_hf=_mixtral_config_from_hf,
+        config_to_hf=_mixtral_config_to_hf,
+        params_from_hf=_llama_like_params_from_hf,
+        params_to_hf=_llama_like_params_to_hf,
+    )
+)
 
 
 # --------------------------------------------------------------------------- #

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import (checkpoint,
 from areal_tpu_torch.base.device import resolve_device, torch_dtype
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.ops import attention as attn_ops
+from areal_tpu_torch.ops import moe as moe_ops
 from areal_tpu_torch.ops import norms
 from areal_tpu_torch.ops import paged_attention as paged_ops
 from areal_tpu_torch.ops import ppo as ppo_ops
@@ -81,8 +82,6 @@ def init_params(
     not the JAX package's draws."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
-    if cfg.mlp_type == "moe":
-        raise NotImplementedError("MoE layers are not ported yet")
     E, D = cfg.hidden_dim, cfg.head_dim
     Hq, Hkv, F, V = (cfg.n_q_heads, cfg.n_kv_heads, cfg.intermediate_dim,
                      cfg.vocab_size)
@@ -126,6 +125,10 @@ def init_params(
             mlp = {"w_fc": w(E, F), "w_proj": w(F, E)}
             if cfg.use_mlp_bias:
                 mlp.update(b_fc=zeros(F), b_proj=zeros(E))
+        elif cfg.mlp_type == "moe":
+            X = cfg.moe.num_experts
+            mlp = {"router": w(E, X), "w_gate": w(X, E, F),
+                   "w_up": w(X, E, F), "w_down": w(X, F, E)}
         else:
             raise ValueError(cfg.mlp_type)
         return {"ln1": ln(), "attn": attn, "ln2": ln(), "mlp": mlp}
@@ -239,19 +242,27 @@ def _rotary_cfg(cfg: ModelConfig) -> RotaryConfig:
     )
 
 
-def _mlp(cfg: ModelConfig, p, x):
+def _mlp(cfg: ModelConfig, p, x, with_stats: bool = False):
+    """The MLP's output; with ``with_stats``, ``(out, stats)``: an MoE
+    layer's routing statistics (``ops/moe.py::routing_stats``, from which
+    its aux loss follows), None for a dense MLP. The serving paths drop
+    the aux, as the reference's do."""
     act = ACT2FN[cfg.activation_function]
+    stats = None
     if cfg.mlp_type == "gated":
-        return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    if cfg.mlp_type == "fc":
+        h = (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    elif cfg.mlp_type == "fc":
         h = x @ p["w_fc"]
         if "b_fc" in p:
             h = h + p["b_fc"]
         h = act(h) @ p["w_proj"]
         if "b_proj" in p:
             h = h + p["b_proj"]
-        return h
-    raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
+    elif cfg.mlp_type == "moe":
+        h, stats = moe_ops.moe_forward(cfg, p, x, with_stats)
+    else:
+        raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
+    return (h, stats) if with_stats else h
 
 
 def _attn_out(p, ctx):
@@ -349,12 +360,19 @@ def forward_packed(
     *,
     remat: bool = True,
     with_head: bool = True,
-) -> torch.Tensor:
+    with_aux: bool = False,
+):
     """Full forward over a packed token axis. Returns ``[T, vocab]`` logits
     (fp32) or ``[T, 1]`` values for critics; ``with_head=False`` returns
     the final-norm HIDDEN states ``[T, E]`` instead (the chunked loss
     applies the head per token block). Padding rows are garbage — mask
     downstream with ``segment_ids > 0``.
+
+    ``with_aux`` returns ``(out, stats)``: each layer's MoE routing
+    statistics ``[L, 2X + 2]`` float32 (``ops/moe.py::routing_stats``;
+    ``[L, 0]`` for a dense MLP), from which ``ops/moe.py::aux_loss`` gives
+    the router loss summed over layers. ``train/engine.py::vmapped_forward``
+    folds them over rows before it does.
 
     ``cfg.remat_policy``, as the reference's (a run without autograd,
     inference, or ``remat=False`` takes ``"none"``):
@@ -372,7 +390,9 @@ def forward_packed(
     - ``"none"``: every activation is kept.
 
     Layer params are cast to ``cfg.dtype`` inside each checkpointed
-    region, so the recompute casts again and no cast copy is saved.
+    region, so the recompute casts again and no cast copy is saved. A
+    layer's routing statistics are an output of its checkpointed region
+    (of ``post``'s under ``dots_attn``).
     """
     policy = cfg.remat_policy if remat else "none"
     if policy not in REMAT_POLICIES:
@@ -399,7 +419,11 @@ def forward_packed(
 
     def post(x, ctx, lp):
         x = x + _attn_out(lp["attn"], ctx)
-        return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+        h = _norm(cfg, lp["ln2"], x)
+        if not with_aux:   # no routing statistics asked for: none computed
+            return x + _mlp(cfg, lp["mlp"], h), None
+        m, stats = _mlp(cfg, lp["mlp"], h, with_stats=True)
+        return x + m, stats
 
     def layer(x, lp):
         lp = _cast(cfg, lp)
@@ -422,10 +446,18 @@ def forward_packed(
     else:
         def run(x, lp):
             return _remat(layer, x, lp, dots=policy == "dots")
+    stats = []
     for lp in params["layers"]:
-        x = run(x, lp)
+        x, st = run(x, lp)
+        stats.append(st)
     x = _norm(cfg, _cast(cfg, params["final_ln"]), x)
-    return _head(cfg, params, x) if with_head else x
+    out = _head(cfg, params, x) if with_head else x
+    if not with_aux:
+        return out
+    if cfg.mlp_type != "moe":
+        return out, torch.zeros((len(stats), 0), dtype=torch.float32,
+                                device=x.device)
+    return out, torch.stack(stats)
 
 
 def chunked_next_token_logprobs(

@@ -39,6 +39,7 @@ from areal_tpu_torch.base.device import resolve_device, torch_dtype
 from areal_tpu_torch.models import hf as hf_conv
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.ops import moe as moe_ops
 from areal_tpu_torch.ops import ppo as ppo_ops
 from areal_tpu_torch.parallel.mesh import ParallelConfig
 from areal_tpu_torch.train import batching
@@ -95,28 +96,48 @@ class OptimizerConfig:
 
 
 def vmapped_forward(params, cfg: ModelConfig, arrays: Arrays,
-                    with_head: bool = True) -> torch.Tensor:
+                    with_aux: bool = False, with_head: bool = True):
     """Model forward over ``[rows, T]`` packed buffers ->
     ``[rows, T, vocab|1]`` (or ``[rows, T, E]`` hidden states). Rows are
-    independent packed sequences, run one after another."""
+    independent packed sequences, run one after another.
+
+    ``with_aux`` returns ``(out, aux)``: the MoE router loss (a float32
+    zero for a dense MLP), by the reference's estimator for the dispatch
+    mode: ``dense`` means each row's aux over the rows; ``ragged`` takes
+    one aux over every row's tokens (the reference folds the rows into the
+    token axis), here the aux of each layer's routing statistics summed
+    over rows. One row gives the same under both."""
     ids, seg, pos = (arrays["input_ids"], arrays["segment_ids"],
                      arrays["positions"])
-    return torch.stack([
-        tfm.forward_packed(params, cfg, ids[r], seg[r], pos[r],
-                           with_head=with_head)
-        for r in range(ids.shape[0])
-    ])
+    outs, stats = [], []
+    for r in range(ids.shape[0]):
+        out = tfm.forward_packed(params, cfg, ids[r], seg[r], pos[r],
+                                 with_head=with_head, with_aux=with_aux)
+        if with_aux:
+            out, st = out
+            stats.append(st)
+        outs.append(out)
+    out = torch.stack(outs)
+    if not with_aux:
+        return out
+    stats = torch.stack(stats)                        # [rows, L, 2X + 2]
+    if cfg.mlp_type == "moe" and cfg.moe.dispatch == "ragged":
+        return out, moe_ops.aux_loss(cfg, stats.sum(0))
+    return out, moe_ops.aux_loss(cfg, stats).mean()
 
 
-def vmapped_next_token_logprobs(params, cfg: ModelConfig,
-                                arrays: Arrays) -> torch.Tensor:
+def vmapped_next_token_logprobs(params, cfg: ModelConfig, arrays: Arrays,
+                                with_aux: bool = False):
     """Token-aligned next-token logprobs ``[rows, T]`` — the shared
     primitive of the SFT loss, the PPO logprob recompute and the PPO actor
     loss. Honors ``cfg.loss_chunk_size`` (the ``[T, vocab]`` logits never
-    materialize)."""
+    materialize). ``with_aux`` returns ``(logprobs, aux)`` as
+    :func:`vmapped_forward` does."""
     ids, seg = arrays["input_ids"], arrays["segment_ids"]
     if cfg.loss_chunk_size:
-        hidden = vmapped_forward(params, cfg, arrays, with_head=False)
+        out = vmapped_forward(params, cfg, arrays, with_aux=with_aux,
+                              with_head=False)
+        hidden, aux = out if with_aux else (out, None)
         rows = [
             tfm.chunked_next_token_logprobs(
                 params, cfg, hidden[r], ids[r], seg[r],
@@ -125,12 +146,14 @@ def vmapped_next_token_logprobs(params, cfg: ModelConfig,
             for r in range(ids.shape[0])
         ]
     else:
-        logits = vmapped_forward(params, cfg, arrays)
+        out = vmapped_forward(params, cfg, arrays, with_aux=with_aux)
+        logits, aux = out if with_aux else (out, None)
         rows = [
             ppo_ops.gather_packed_shifted_log_probs(logits[r], ids[r], seg[r])
             for r in range(ids.shape[0])
         ]
-    return torch.stack(rows)
+    lp = torch.stack(rows)
+    return (lp, aux) if with_aux else lp
 
 
 def decay_mask(params) -> Any:

@@ -41,6 +41,7 @@ from areal_tpu_torch.base.device import torch_dtype
 from areal_tpu_torch.gen.engine import _Clock, capture_graph
 from areal_tpu_torch.gen.sampling import SamplingParams, sample_tokens
 from areal_tpu_torch.models import transformer as tfm
+from areal_tpu_torch.ops import moe as moe_ops
 
 
 def _next_pow2(n: int, lo: int = 64) -> int:
@@ -103,6 +104,7 @@ class SyncGenerator:
     """Whole-batch generation on a TrainEngine's params and device."""
 
     def __init__(self, engine):
+        moe_ops.check_graphable(engine.cfg, "SyncGenerator")
         self.engine = engine
         self.device = engine.device
         self._state: Optional[_KeyState] = None   # the current key's

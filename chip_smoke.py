@@ -226,6 +226,27 @@ Phases, each printing one JSON line:
    tokens/s, capture seconds, graph pool, seconds and trained tokens/s
    per step, peak memory and the profile's tokens/s, TFLOP/s and MFU.
 
+10. ``moe``: mixture of experts at Mixtral-8x7B's published widths
+   (hidden 4096, FFN 14336, 32/8 heads, vocab 32000, 8 experts, top 2,
+   aux 0.02), seed-0 weights made on the card, depth cut only as memory
+   forces. ``moe_parity``: a tiny f32 MoE engine on the card and on the
+   CPU give the same greedy tokens over ``parity``'s traffic; ``moe_mlp``
+   at T 4096 (dense and ragged, bf16) against each other and the f32
+   plain computation (output, aux, gradients); 2 layers in f32 through
+   the graphed engine against a packed forward; two SFT steps card = CPU
+   under each dispatch. ``moe_serve``: ``serve``'s traffic and checks at
+   16 layers, the greedy tokens and sampled logprobs against a packed
+   forward, held to the spread of the plain dense-cache decoder over the
+   same answers (random bf16 MoE layers are chaotic; MOE_SHARE_MARGIN),
+   in all and per request, which planted rolled routers (all answers, one
+   prompt group's, one request's) must fail; the MoE MLPs' share of a
+   decode step. ``moe_train``: ``train``'s GRPO round at
+   2 layers, dense then ragged from the same weights (loss and gradients
+   agree, flash launch counts). ``moe_weight_sync``: that trainer's
+   ``save_hf(family="mixtral")`` reloaded into a running 2-layer server
+   with requests in flight, and into a fresh trainer bit for bit.
+   ``kernels`` adds each kernel at these shapes (``mixtral_bf16``).
+
 Extra phases, run only when named: ``decode_time``, ``flash_time`` and
 ``fused_time`` time the paged-decode, flash and fused-sampler kernels of
 the package imported (with ``--package DIR``, an earlier commit's) through
@@ -249,7 +270,8 @@ import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
           "serve_pipelined", "spec_serve", "weight_sync", "async_rollout",
-          "async_ppo", "agentic_ppo", "train_parity", "train", "sync_ppo")
+          "async_ppo", "agentic_ppo", "train_parity", "train", "sync_ppo",
+          "moe")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -436,6 +458,9 @@ DECODE_SLICE = dict(B=64, Hq=12, Hkv=2, D=128, page=128, W=16, L=28,
                     lens=np.linspace(0, 2047, 64).astype(np.int64))
 DECODE_SERVE = dict(DECODE_SLICE, B=32, lens=np.repeat(
     np.linspace(1024, 1151, 4).astype(np.int64), 8))
+# moe_serve's shape: the serve traffic over Mixtral-8x7B's heads (32 query
+# heads over 8 KV heads, GQA group 4) and its 16 served layers
+DECODE_MIXTRAL = dict(DECODE_SERVE, Hq=32, Hkv=8, L=16)
 
 
 def decode_calls(torch, cuda_paged, x, pps, n):
@@ -546,6 +571,9 @@ def kernels_phase(torch):
                                quant=False), False, None),
         ("f32_d256_split3_cap", dict(small, Hq=8, D=256, dtype="float32",
                                      quant=False, soft_cap=5.0), False, 3),
+        # moe_serve's shape (last: the cases above keep their seeds)
+        ("mixtral_bf16", dict(DECODE_MIXTRAL, dtype="bfloat16", quant=False),
+         True, None),
     ]
     results = {}
     for i, (name, spec, timed, pps) in enumerate(cases):
@@ -930,6 +958,9 @@ def flash_kernels_phase(torch):
         # bf16 outside the tensor-core kernels' head dims (64, 128)
         ("bf16_d256", dict(small, T=200, Hkv=1, D=256, lens=[70, 90],
                            dtype="bfloat16"), {}),
+        # moe_train's layout at Mixtral-8x7B's heads (32 over 8, GQA 4;
+        # last: the cases above keep their seeds)
+        ("mixtral_bf16", dict(slice_shape, H=32, Hkv=8, dtype="bfloat16"), {}),
     ]
     results = {}
     for i, (name, spec, kw) in enumerate(cases):
@@ -992,7 +1023,7 @@ def flash_kernels_phase(torch):
                                      row["lse_max_abs_err"])
         row["bwd_max_abs_err"] = max(row[f"{p}_max_abs_err"]
                                      for p in ("dq", "dk", "dv"))
-        slice_case = name == "slice_bf16"
+        slice_case = name in ("slice_bf16", "mixtral_bf16")
         it = 10 if slice_case else 20
         row["fwd_ms"] = cuda_ms(
             lambda: cuda_flash.flash_forward(q, k, v, seg, **kw), it)
@@ -1647,8 +1678,61 @@ def extend_keys(rows, chunk=128, page=128, width_cap=16, buckets=(1, 2, 4, 8)):
 PARITY_STEPS = 8
 
 
+def parity_schedule(vocab, seed=3):
+    """Staggered admission while decoding: arrivals by engine step; group
+    members borrow the shared pages (prefix hits), every prompt but the
+    last runs several 16-token waves, one member diverges inside a page it
+    borrows from (a partial hit). Returns ``{step: [(rid, prompt,
+    max_new)]}``."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, size=40).tolist()
+    prompts = [shared + rng.integers(0, vocab, size=int(n)).tolist()
+               for n in (1, 5, 17, 30)] + [rng.integers(0, vocab, 9).tolist()]
+    later = shared[:32] + rng.integers(0, vocab, size=21).tolist()
+    return {
+        0: [(str(i), p, 24) for i, p in enumerate(prompts)],
+        2: [("s0", prompts[3], 12), ("s1", later, 16)],
+        5: [("s2", shared + [7], 10), ("s3", later, 9),
+            ("s4", rng.integers(0, vocab, size=70).tolist(), 6)],
+    }
+
+
+def run_schedule(eng, schedule):
+    """Greedy outputs by rid of ``schedule``'s requests, each submitted at
+    its engine step, then run to the end."""
+    from areal_tpu_torch.gen.engine import GenRequest
+
+    got = {}
+    for step in range(max(schedule) + 1):
+        for rid, p, n in schedule.get(step, ()):
+            eng.submit(GenRequest(rid=rid, input_ids=p, max_new_tokens=n,
+                                  greedy=True))
+        got.update({o.rid: o.output_ids for o in eng.step(PARITY_STEPS)})
+    got.update({o.rid: o.output_ids
+                for o in eng.run_until_done(PARITY_STEPS)})
+    return got
+
+
+def check_parity_engine(name, eng, dev, got, n_requests=10):
+    """The traffic's prefix hits and answers; on the card every decode
+    chunk and admission wave a graph replay or its key's capture, on the
+    CPU no capture."""
+    st = eng.stats
+    if st["prefix_hits"] < 6 or len(got) != n_requests:
+        raise AssertionError(f"{name}: traffic {st} {sorted(got)}")
+    graphed = st["graph_captures"] == len(eng._jit_chunk) > 0 and (
+        st["graph_replays"] * PARITY_STEPS + st["graph_captures"]
+        == st["decode_steps"])
+    if graphed != (dev == "cuda"):
+        raise AssertionError(f"{name}: {dev} engine graphs: {st}")
+    if dev == "cuda":
+        admission_graphed(name, st, eng)
+    elif st["extend_captures"] or st["commit_captures"]:
+        raise AssertionError(f"{name}: the cpu engine captured: {st}")
+
+
 def parity_phase(torch):
-    from areal_tpu_torch.gen.engine import GenerationEngine, GenRequest
+    from areal_tpu_torch.gen.engine import GenerationEngine
     from areal_tpu_torch.models import transformer as tfm
     from areal_tpu_torch.models.config import ModelConfig
 
@@ -1656,21 +1740,7 @@ def parity_phase(torch):
                       hidden_dim=128, intermediate_dim=256, vocab_size=512,
                       use_attention_bias=True, dtype="float32")
     params = tfm.init_params(cfg, seed=3, device="cpu")
-    rng = np.random.default_rng(3)
-    shared = rng.integers(0, 512, size=40).tolist()
-    prompts = [shared + rng.integers(0, 512, size=int(n)).tolist()
-               for n in (1, 5, 17, 30)] + [rng.integers(0, 512, 9).tolist()]
-    # staggered admission while decoding: arrivals by engine step; group
-    # members borrow the shared pages (prefix hits), every prompt but the
-    # last runs several 16-token waves, one member diverges inside a page
-    # it borrows from (a partial hit)
-    later = shared[:32] + rng.integers(0, 512, size=21).tolist()
-    schedule = {
-        0: [(str(i), p, 24) for i, p in enumerate(prompts)],
-        2: [("s0", prompts[3], 12), ("s1", later, 16)],
-        5: [("s2", shared + [7], 10), ("s3", later, 9),
-            ("s4", rng.integers(0, 512, size=70).tolist(), 6)],
-    }
+    schedule = parity_schedule(512)
     outs = {}
     # the card decodes and admits from CUDA graphs, the CPU eagerly; the
     # card also pipelined (each chunk harvested one step late)
@@ -1679,31 +1749,11 @@ def parity_phase(torch):
             eng = GenerationEngine(cfg, params, max_slots=4, max_seqlen=128,
                                    page_size=16, fused_sample=fused,
                                    pipeline_chunks=pipelined, device=dev)
-            got = {}
-            for step in range(max(schedule) + 1):
-                for rid, p, n in schedule.get(step, ()):
-                    eng.submit(GenRequest(rid=rid, input_ids=p,
-                                          max_new_tokens=n, greedy=True))
-                got.update({o.rid: o.output_ids
-                            for o in eng.step(PARITY_STEPS)})
-            got.update({o.rid: o.output_ids
-                        for o in eng.run_until_done(PARITY_STEPS)})
-            outs[dev, fused, pipelined] = got
+            got = outs[dev, fused, pipelined] = run_schedule(eng, schedule)
             if fused and eng.stats["fused_sample_steps"] <= 0:
                 raise AssertionError("parity: the fused engine took no "
                                      "fused step")
-            st = eng.stats
-            if st["prefix_hits"] < 6 or len(got) != 10:
-                raise AssertionError(f"parity: traffic {st} {sorted(got)}")
-            graphed = st["graph_captures"] == len(eng._jit_chunk) > 0 and (
-                st["graph_replays"] * PARITY_STEPS + st["graph_captures"]
-                == st["decode_steps"])
-            if graphed != (dev == "cuda"):
-                raise AssertionError(f"parity: {dev} engine graphs: {st}")
-            if dev == "cuda":
-                admission_graphed("parity", st, eng)
-            elif st["extend_captures"] or st["commit_captures"]:
-                raise AssertionError(f"parity: the cpu engine captured: {st}")
+            check_parity_engine("parity", eng, dev, got)
     # speculative decoding on the card, spec chunks graphed: the n-gram
     # drafter (plain and the fused sampler's acceptance, pipelined) and the
     # draft model; float32, so every greedy token is the CPU's
@@ -1718,15 +1768,7 @@ def parity_phase(torch):
         eng = GenerationEngine(cfg, params, max_slots=4, max_seqlen=128,
                                page_size=16, spec_decode=True, spec_k=3,
                                device="cuda", **kw)
-        got = {}
-        for step in range(max(schedule) + 1):
-            for rid, p, n in schedule.get(step, ()):
-                eng.submit(GenRequest(rid=rid, input_ids=p,
-                                      max_new_tokens=n, greedy=True))
-            got.update({o.rid: o.output_ids for o in eng.step(PARITY_STEPS)})
-        got.update({o.rid: o.output_ids
-                    for o in eng.run_until_done(PARITY_STEPS)})
-        outs["cuda", "spec_" + name] = got
+        outs["cuda", "spec_" + name] = run_schedule(eng, schedule)
         st = eng.stats
         if not (st["spec_captures"] == len(eng._jit_spec) > 0
                 and st["spec_replays"] * PARITY_STEPS + st["spec_captures"]
@@ -1863,7 +1905,7 @@ def stream_check(port, eng, vocab):
 
 def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
                 group, plen=1024, max_new=128, profile=False, fused=False,
-                pipelined=False, stream=False):
+                pipelined=False, stream=False, engine_cls=None):
     """Serve ``n_prompts`` x ``group`` requests over HTTP. ``fused`` runs
     the engine with the fused sampling epilogue and turns the group's last
     member into a top-k 20 request of TOPK_NEW_TOKENS tokens: while it is
@@ -1872,16 +1914,18 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
     queue while the server is paused and are admitted together, so two
     runs batch their prefills alike. Every admission wave must replay a
     graph (or be its key's first use), over the extend keys the traffic
-    implies. ``stream`` then runs ``stream_check`` on the same server."""
+    implies. ``stream`` then runs ``stream_check`` on the same server.
+    ``engine_cls``: the engine class (``GenerationEngine`` unless given).
+    The row keeps every request and answer (``answers``, not printed)."""
     from areal_tpu_torch.gen.engine import GenerationEngine
     from areal_tpu_torch.gen.server import serve
     from areal_tpu_torch.ops.cuda import fused_sample as cuda_fused
     from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
 
-    eng = GenerationEngine(cfg, params, max_slots=32, max_seqlen=2048,
-                           page_size=128, seed=0, kv_dtype=kv_dtype,
-                           fused_sample=fused, pipeline_chunks=pipelined,
-                           device="cuda")
+    eng = (engine_cls or GenerationEngine)(
+        cfg, params, max_slots=32, max_seqlen=2048, page_size=128, seed=0,
+        kv_dtype=kv_dtype, fused_sample=fused, pipeline_chunks=pipelined,
+        device="cuda")
     srv = serve(eng, "127.0.0.1", 0, decode_steps=DECODE_STEPS)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, size=plen).tolist()
@@ -2059,6 +2103,7 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
         extend_keys=sorted(keys[0]),
         **streamed,
     )
+    row["answers"] = [(b, a) for b, (_, a) in zip(bodies, answers)]
     if prof is not None:
         pr = row["profile"] = device_profile(
             prof, wall, {"paged_decode": "paged_decode_split_kernel",
@@ -2074,7 +2119,8 @@ def serve_phase(torch, name, params, cfg, *, kv_dtype, n_prompts,
         # (host time, the card idles): the share over the rest of it
         pr["busy_share_after_capture"] = pr["device_ms"] / 1e3 / max(
             wall - stats["graph_capture_s"] - stats["admit_capture_s"], 1e-9)
-    emit(phase=name, **{k: v for k, v in row.items() if k != "greedy_tokens"})
+    emit(phase=name, **{k: v for k, v in row.items()
+                        if k not in ("greedy_tokens", "answers")})
     del eng
     torch.cuda.empty_cache()
     return row
@@ -2148,6 +2194,8 @@ FUSED_TIMED = {
     **{name: dict(R=SPEC_SERVE["slots"] * (k + 1), E=1536, V=151936,
                   dtype="bfloat16", exclude=True, gather=True)
        for name, k in FUSED_SPEC_K.items()},
+    # a decode step's 32 rows through Mixtral-8x7B's untied head
+    "mixtral_bf16": dict(R=32, E=4096, V=32000, dtype="bfloat16"),
 }
 
 
@@ -2190,7 +2238,56 @@ def greedy_argmax_gaps(torch, tfm, cfg, params, prompts, outputs, pack=8):
     """For every generated token: the max logit minus the token's logit at
     its position, under a packed forward of its own sequence (``pack``
     sequences a forward, one segment each)."""
-    gaps = []
+    return packed_scores(torch, tfm, cfg, params, prompts, outputs,
+                         pack)["gap"]
+
+
+def router_margin_mode(torch, cfg, margins):
+    """A function mode that appends to ``margins``, at each MoE router's
+    top-k (``torch.topk`` over the ``[T, X]`` float32 router probabilities,
+    ``k = top_k``), each token's margin: the top-k-th minus the next router
+    logit (log-probability differences are logit differences), i.e. how
+    far that layer's routing is from a tie. It observes; it changes
+    nothing."""
+    from torch.overrides import TorchFunctionMode
+
+    K, X = cfg.moe.top_k, cfg.moe.num_experts
+
+    class RouterMargins(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            probs = args[0] if args else None
+            if (func is torch.topk and isinstance(probs, torch.Tensor)
+                    and probs.dtype == torch.float32 and probs.dim() == 2
+                    and probs.shape[-1] == X
+                    and (args[1:2] or [kwargs.get("k")])[0] == K):
+                top = probs.topk(K + 1, dim=-1).values.clamp_min(1e-38).log()
+                margins.append(top[:, K - 1] - top[:, K])
+            return out
+
+    return RouterMargins()
+
+
+def packed_scores(torch, tfm, cfg, params, prompts, outputs, pack=8,
+                  alt=None):
+    """Under packed forwards of the sequences (``pack`` a forward, one
+    segment each), at every generated token's position: ``gap``, the max
+    logit minus the token's logit; ``argmax``, the forward's own;
+    ``alt_gap``, for each name of ``alt`` (a dict: name -> one token
+    array a sequence, for its positions) the same gap of those tokens;
+    and for an MoE model ``margin``, the smallest routing margin over the
+    layers (``router_margin_mode``; None otherwise). Concatenated over
+    the sequences in order."""
+    import contextlib
+
+    moe = cfg.mlp_type == "moe"
+    margins = []
+    alt = alt or {}
+    gaps, argmax, margin = [], [], []
+    alt_gaps = {name: [] for name in alt}
+    mode = (router_margin_mode(torch, cfg, margins) if moe
+            else contextlib.nullcontext())
     for i in range(0, len(prompts), pack):
         seqs = [p + o for p, o in zip(prompts[i:i + pack],
                                       outputs[i:i + pack])]
@@ -2199,21 +2296,74 @@ def greedy_argmax_gaps(torch, tfm, cfg, params, prompts, outputs, pack=8):
                          for k, s in enumerate(seqs)]).to("cuda")
         pos = torch.cat([torch.arange(len(s), dtype=torch.int32)
                          for s in seqs]).to("cuda")
+        margins.clear()
         with torch.no_grad():
-            hidden = tfm.forward_packed(params, cfg, ids, seg, pos,
-                                        remat=False, with_head=False)
+            with mode:
+                hidden = tfm.forward_packed(params, cfg, ids, seg, pos,
+                                            remat=False, with_head=False)
+            low = torch.stack(margins).min(0).values if moe else None
             off = 0
             for k, s in enumerate(seqs):
                 n_prompt = len(prompts[i + k])
                 rows = torch.arange(off + n_prompt - 1, off + len(s) - 1,
                                     device="cuda")
                 logits = tfm.apply_head(cfg, params, hidden[rows])
+                top = logits.max(-1).values
                 tok = ids[rows + 1]
-                gaps.append((logits.max(-1).values - torch.gather(
+                gaps.append((top - torch.gather(
                     logits, 1, tok[:, None])[:, 0]).cpu().numpy())
+                argmax.append(logits.argmax(-1).cpu().numpy())
+                for name, toks in alt.items():
+                    other = torch.as_tensor(np.asarray(toks[i + k]),
+                                            device="cuda").long()
+                    alt_gaps[name].append((top - torch.gather(
+                        logits, 1, other[:, None])[:, 0]).cpu().numpy())
+                if moe:
+                    margin.append(low[rows].cpu().numpy())
                 off += len(s)
         del hidden
-    return np.concatenate(gaps)
+    return dict(gap=np.concatenate(gaps), argmax=np.concatenate(argmax),
+                alt_gap={k: np.concatenate(v) for k, v in alt_gaps.items()},
+                margin=np.concatenate(margin) if moe else None)
+
+
+def decoder_scores(torch, tfm, cfg, params, prompts, outputs, batch=12):
+    """The plain dense-cache decoder (``tfm.prefill``, then
+    ``tfm.decode_step``, no CUDA graph and no paged kernel) teacher-forced
+    over each sequence's generated tokens, ``batch`` sequences at a time:
+    at every generated token's position, the decoder's argmax and its
+    temperature-1 logprob of the token (one array a sequence each).
+    Decode-shaped numerics (a few rows a GEMM) from code that the engine
+    does not run."""
+    argmax, lps = [], []
+    for i in range(0, len(prompts), batch):
+        P, O = prompts[i:i + batch], outputs[i:i + batch]
+        B, Sp, n = len(P), max(map(len, P)), max(map(len, O))
+        ids = torch.tensor([p + [0] * (Sp - len(p)) for p in P],
+                           device="cuda")
+        plens = torch.tensor([len(p) for p in P], dtype=torch.int32,
+                             device="cuda")
+        olens = torch.tensor([len(o) for o in O], device="cuda")
+        out = torch.tensor([o + [0] * (n - len(o)) for o in O],
+                           device="cuda")
+        cache = tfm.KVCache.empty(cfg, B, Sp + n, device="cuda")
+        am, lp = [], []
+        with torch.no_grad():
+            logits, cache = tfm.prefill(params, cfg, cache, ids, plens)
+            for j in range(n):
+                if j:
+                    logits, cache = tfm.decode_step(
+                        params, cfg, cache, out[:, j - 1], active=j < olens)
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                am.append(logp.argmax(-1))
+                lp.append(logp.gather(1, out[:, j:j + 1])[:, 0])
+        am, lp = (torch.stack(v, 1).cpu().numpy() for v in (am, lp))
+        for k, o in enumerate(O):
+            argmax.append(am[k, :len(o)])
+            lps.append(lp[k, :len(o)])
+        del cache, logits
+    torch.cuda.empty_cache()
+    return argmax, lps
 
 
 def verify_attention_ms(torch, eng, n_layers):
@@ -2922,8 +3072,11 @@ def export_bytes(cfg, n_layers):
     """Bytes of an f32 HF export of ``cfg`` cut to ``n_layers``."""
     E, D, F = cfg.hidden_dim, cfg.head_dim, cfg.intermediate_dim
     q, kv = cfg.n_q_heads * D, cfg.n_kv_heads * D
+    mlp = 3 * E * F
+    if cfg.mlp_type == "moe":   # the experts and the router
+        mlp = cfg.moe.num_experts * (3 * E * F + E)
     layer = E * (q + 2 * kv) + (q + 2 * kv) * cfg.use_attention_bias + (
-        q * E + 3 * E * F + 2 * E)
+        q * E + mlp + 2 * E)
     ends = cfg.vocab_size * E * (1 if cfg.tied_embedding else 2) + E
     return 4 * (ends + n_layers * layer)
 
@@ -4324,19 +4477,29 @@ def tree_leaves(tfm, tree):
 def train_parity_phase(torch):
     """A tiny f32 model trained two SFT steps on the card and on the CPU
     from the same numpy params and batch."""
-    from areal_tpu_torch.api.data import MicroBatchSpec
-    from areal_tpu_torch.api.model import make_interface
-    from areal_tpu_torch.models import transformer as tfm
     from areal_tpu_torch.models.config import ModelConfig
-    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
 
     cfg = ModelConfig(n_layers=2, n_q_heads=4, n_kv_heads=2, head_dim=64,
                       hidden_dim=128, intermediate_dim=256, vocab_size=512,
                       use_attention_bias=True, dtype="float32",
                       loss_chunk_size=100)
+    emit(phase="train_parity", **train_parity_check(torch, cfg,
+                                                    "train_parity"))
+
+
+def train_parity_check(torch, cfg, name):
+    """Two SFT optimizer steps of ``cfg`` (seed-5 params, a seed-5 batch) on
+    the card and on the CPU: loss and grad norm within rtol 1e-4, the
+    weights within 1% of lr per step, and moved well beyond that."""
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model import make_interface
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
     host = tfm.params_to_numpy(tfm.init_params(cfg, seed=5, device="cpu"))
     sample = rollout_sample(np.random.default_rng(5), n_prompts=4, group=2,
-                            prompt_len=40, resp_lo=20, resp_hi=90, vocab=512)
+                            prompt_len=40, resp_lo=20, resp_hi=90,
+                            vocab=cfg.vocab_size)
     spec = MicroBatchSpec(max_tokens_per_mb=256)
     sft = make_interface("sft")
     stats, weights = {}, {}
@@ -4351,24 +4514,25 @@ def train_parity_phase(torch):
             rel = abs(a[k] - b[k]) / abs(b[k])
             worst[k] = max(worst.get(k, 0.0), rel)
             if not rel <= TRAIN_PARITY_TOL["loss_rtol"]:
-                raise AssertionError(f"train_parity step {step} {k}: cuda "
+                raise AssertionError(f"{name} step {step} {k}: cuda "
                                      f"{a[k]} vs cpu {b[k]}")
     w_err = 0.0
     for a, b in zip(tree_leaves(tfm, weights["cuda"]),
                     tree_leaves(tfm, weights["cpu"])):
         w_err = max(w_err, float(np.abs(a - b).max()))
     if not w_err <= TRAIN_PARITY_TOL["weight_atol"]:
-        raise AssertionError(f"train_parity weights differ by {w_err}")
+        raise AssertionError(f"{name} weights differ by {w_err}")
     moved = max(float(np.abs(a - b).max()) for a, b in zip(
         tree_leaves(tfm, weights["cpu"]), tree_leaves(tfm, host)))
     if not moved > 10 * w_err:
-        raise AssertionError(f"train_parity: weights moved only {moved}")
-    emit(phase="train_parity", steps=2, n_mbs=stats["cuda"][0]["n_mbs"],
-         **{f"{k}_{dev}": [s[k] for s in stats[dev]]
-            for k in ("loss", "grad_norm") for dev in ("cuda", "cpu")},
-         loss_rel_err=worst["loss"], grad_norm_rel_err=worst["grad_norm"],
-         weight_max_abs_err=w_err, weight_max_move=moved,
-         tol=TRAIN_PARITY_TOL)
+        raise AssertionError(f"{name}: weights moved only {moved}")
+    return dict(steps=2, n_mbs=stats["cuda"][0]["n_mbs"],
+                **{f"{k}_{dev}": [s[k] for s in stats[dev]]
+                   for k in ("loss", "grad_norm") for dev in ("cuda", "cpu")},
+                loss_rel_err=worst["loss"],
+                grad_norm_rel_err=worst["grad_norm"],
+                weight_max_abs_err=w_err, weight_max_move=moved,
+                tol=TRAIN_PARITY_TOL)
 
 
 def train_phase(torch, profile=False):
@@ -5106,6 +5270,856 @@ def sync_ppo_phase(torch, profile=False):
     return row
 
 
+# --------------------------------------------------------------------------- #
+# mixture of experts at Mixtral-8x7B's widths
+# --------------------------------------------------------------------------- #
+
+# mistralai/Mixtral-8x7B-v0.1's config.json (its published widths), typed
+# in: nothing is downloaded, and the weights are random from a seed
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"],
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "vocab_size": 32000,
+    "max_position_embeddings": 32768, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "router_aux_loss_coef": 0.02,
+    "rope_theta": 1e6, "rms_norm_eps": 1e-5, "hidden_act": "silu",
+    "tie_word_embeddings": False, "sliding_window": None,
+}
+# Depth, cut only as memory forces (each line prints its cut): serving 16
+# of 32 layers (1.451 B parameters a layer: 46.97 GB of bf16 weights with
+# the embedding and head, and a 4.29 GB bf16 pool of 32 slots x 2048
+# tokens); training and weight sync 2 layers (3.165 B parameters x 16
+# bytes of f32 master, gradient and two AdamW moments: 50.6 GB before
+# activations). ``mlp_tokens``: the MoE MLP's own check at full width.
+MOE_PHASE = dict(serve_layers=16, train_layers=2, train_mb_tokens=8192,
+                 mlp_tokens=4096)
+# moe_mlp at full width in bf16 against the f32 plain computation on the
+# same values, and dense against ragged dispatch: normwise |a - b| / |b| of
+# the output and of every gradient (the router runs in f32 on the same
+# inputs either way, so both route alike; bf16 rounds each GEMM's output
+# and the SwiGLU product, ~2^-9 an element). The aux is f32 on both sides.
+MOE_MLP_TOL = dict(normwise=2.0 ** -6, aux_rtol=1e-5)
+# moe_train, dense against ragged dispatch on the same weights and batch
+# (bf16 compute, two layers): the loss (NLL + aux) within rtol 1e-3 and
+# every master's gradient within 2^-5 normwise. The two dispatches round
+# alike but for their GEMMs' summation order; a bf16 output that rounds
+# the other way in layer 0 can move a token's layer-1 routing at a near
+# tie, which moves that token's gradient contributions.
+MOE_TRAIN_TOL = dict(loss_rtol=1e-3, grad_normwise=2.0 ** -5)
+# Greedy tokens of an MoE engine against a packed forward of the same
+# tokens. A dense model's two bf16 paths differ by a few ulps of a logit,
+# so every greedy token sits within SPEC_ARGMAX_TOL of the forward's max
+# (spec_serve). An MoE layer routes each token to its top 2 of 8 experts:
+# where the 2nd and 3rd router logits nearly tie, the paths' ulps send the
+# token to another expert, whose output is O(1) different, and through
+# attention the later tokens move too. At 16 random bf16 layers this is
+# chaotic (PERF.md section 6), so the exact check runs in f32 at full width
+# (moe_parity: every greedy token within SPEC_ARGMAX_TOL except where a
+# layer's routing margin, the 2nd minus the 3rd router logit, is below
+# MOE_F32_MARGIN, ~100x the f32 paths' difference; at most
+# MOE_F32_NEAR_TIE_SHARE of the tokens may be so exempt).
+MOE_F32_MARGIN = 1e-3
+MOE_F32_NEAR_TIE_SHARE = 0.01
+# moe_serve holds its bf16 answers to the spread of a second decoder:
+# the plain dense-cache decoder (decoder_scores), teacher-forced over the
+# same answers, scored against the same packed forward. Greedy: the share
+# of tokens within SPEC_ARGMAX_TOL of the forward's max logit, the
+# engine's no more than MOE_SHARE_MARGIN below the decoder's over all
+# requests and MOE_REQ_SHARE_MARGIN below it in any one request.
+# Temperature 1: |logprob - the forward's|, the engine's mean no more than
+# MOE_LP_MARGIN above the decoder's over all requests and
+# MOE_REQ_LP_MARGIN above it in any one request. Planted faults (every
+# router's columns rolled: each token to the wrong experts), over every
+# request, over one prompt group's and over one request's answers, must
+# each fail these checks. On an H100 the engine's answers sit further
+# from the forward than the decoder's: a greedy share 0.105 lower, a
+# logprob error 0.113 higher, at most 0.195 and 0.211 in one request
+# (PERF.md section 6), which the margins cover about twice over in all
+# and 1.5 times per request, while a rolled router reads a share of 0.0
+# and an error of 2.0.
+MOE_SHARE_MARGIN = 0.2
+MOE_REQ_SHARE_MARGIN = 0.3
+MOE_LP_MARGIN = 0.2
+MOE_REQ_LP_MARGIN = 0.3
+
+
+def mixtral_cfg(n_layers, **kw):
+    """Mixtral-8x7B's config through the port's converter (dense
+    dispatch), cut to ``n_layers``; bf16 compute unless ``kw`` says."""
+    import dataclasses
+
+    from areal_tpu_torch.models.hf import HF_FAMILIES
+
+    cfg = HF_FAMILIES["mixtral"].config_from_hf(MIXTRAL_8X7B)
+    kw.setdefault("dtype", "bfloat16")
+    return dataclasses.replace(cfg, n_layers=n_layers, **kw)
+
+
+def with_dispatch(cfg, dispatch):
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch=dispatch))
+
+
+def tiny_moe_cfg(dispatch="dense", **kw):
+    """A tiny f32 Mixtral-like model: 2 layers, hidden 64, 4 experts, top
+    2, aux 0.02, z 0.001."""
+    from areal_tpu_torch.models.config import ModelConfig, MoEConfig
+
+    return ModelConfig(
+        n_layers=2, n_q_heads=4, n_kv_heads=2, head_dim=64, hidden_dim=64,
+        intermediate_dim=128, vocab_size=512, dtype="float32",
+        mlp_type="moe", moe=MoEConfig(num_experts=4, top_k=2,
+                                      aux_loss_coeff=0.02,
+                                      z_loss_coeff=0.001, dispatch=dispatch),
+        **kw)
+
+
+def normwise(torch, got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def moe_mlp_plain(torch, cfg, p, x):
+    """The mixture computed expert by expert over every token (a
+    formulation of its own, in the inputs' type): the router's combine
+    weights, each expert's SwiGLU, their weighted sum; and the aux."""
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.ops import moe as moe_ops
+
+    combine, logits = moe_ops.router_probs(cfg, p, x)
+    out = torch.zeros_like(x)
+    for j in range(cfg.moe.num_experts):
+        h = F.silu(x @ p["w_gate"][j]) * (x @ p["w_up"][j])
+        out = out + combine[:, j:j + 1].to(x.dtype) * (h @ p["w_down"][j])
+    return out, moe_ops.load_balancing_aux_loss(cfg, combine, logits)
+
+
+def moe_mlp_check(torch):
+    """``ops/moe.py::moe_mlp`` on the card at full width (T 4096 tokens,
+    hidden 4096, FFN 14336, 8 experts, top 2, bf16): dense and ragged
+    dispatch, output, aux and every gradient (x, router, the three expert
+    weights) of ``sum(out * w) / T + aux``, against each other and against
+    the f32 plain computation on the same values."""
+    from areal_tpu_torch.ops import moe as moe_ops
+
+    cfg = mixtral_cfg(1)
+    E, F, X = cfg.hidden_dim, cfg.intermediate_dim, cfg.moe.num_experts
+    T = MOE_PHASE["mlp_tokens"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    p16 = {"router": randn(E, X, scale=0.02),
+           "w_gate": randn(X, E, F, scale=0.02),
+           "w_up": randn(X, E, F, scale=0.02),
+           "w_down": randn(X, F, E, scale=0.02)}
+    p16 = {k: v.to(torch.bfloat16) for k, v in p16.items()}
+    x16 = randn(T, E).to(torch.bfloat16)
+    w = randn(T, E)
+
+    def leaves(params, x):
+        return ({k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()},
+                x.detach().clone().requires_grad_(True))
+
+    def step(fn, params, xg):
+        out, aux = fn(params, xg)
+        ((out.float() * w).sum() / T + aux).backward()
+        return out.detach(), aux.detach()
+
+    def run(fn, params, x):
+        params, xg = leaves(params, x)
+        out, aux = step(fn, params, xg)
+        return out, aux, {"x": xg.grad,
+                          **{k: v.grad for k, v in params.items()}}
+
+    res = {}
+    for d in ("dense", "ragged"):
+        c = with_dispatch(cfg, d)
+        res[d] = run(lambda p, x, c=c: moe_ops.moe_mlp(c, p, x), p16, x16)
+    res["plain_f32"] = run(lambda p, x: moe_mlp_plain(torch, cfg, p, x),
+                           {k: v.float() for k, v in p16.items()},
+                           x16.float())
+    torch.cuda.synchronize()
+    row = {}
+    for a, b in (("dense", "plain_f32"), ("ragged", "plain_f32"),
+                 ("ragged", "dense")):
+        (oa, aa, ga), (ob, ab, gb) = res[a], res[b]
+        errs = {"out": normwise(torch, oa, ob),
+                **{k: normwise(torch, ga[k], gb[k]) for k in ga}}
+        aux_rel = abs(float(aa) - float(ab)) / abs(float(ab))
+        bad = {k: v for k, v in errs.items()
+               if not v <= MOE_MLP_TOL["normwise"]}
+        if bad or not aux_rel <= MOE_MLP_TOL["aux_rtol"]:
+            raise AssertionError(
+                f"moe_mlp {a} vs {b}: normwise errors {bad} (limit "
+                f"{MOE_MLP_TOL['normwise']}), aux rel {aux_rel}")
+        row[f"{a}_vs_{b}"] = dict(normwise=errs, aux_rel=aux_rel)
+    row["aux"] = float(res["dense"][1])
+    del res
+    # informational: each dispatch's forward + backward (gradients
+    # accumulate across the timed calls; nothing reads them)
+    params, xg = leaves(p16, x16)
+    for d in ("dense", "ragged"):
+        c = with_dispatch(cfg, d)
+        row[f"{d}_fwd_bwd_ms"] = cuda_ms(lambda c=c: step(
+            lambda p, x: moe_ops.moe_mlp(c, p, x), params, xg), 3)
+    row.update(tokens=T, tol=MOE_MLP_TOL)
+    del params, xg, p16, x16, w
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_f32_width_check(torch):
+    """Mixtral-8x7B's widths at 2 layers in f32 (seed-0 weights made on the
+    card): the graphed engine serves 8 greedy requests (two groups of 4 on
+    two 256-token prompts: prefix hits; 64 new tokens) and 4 at
+    temperature 1. Every greedy token lies within SPEC_ARGMAX_TOL of a
+    packed forward's max logit, except at a position where a layer's
+    routing margin is below MOE_F32_MARGIN (at most MOE_F32_NEAR_TIE_SHARE
+    of the tokens), and the sampled tokens' logprobs within
+    WEIGHT_SYNC_LP_TOL (mean abs) of a packed forward's."""
+    from areal_tpu_torch.gen.engine import GenerationEngine, GenRequest
+    from areal_tpu_torch.models import transformer as tfm
+
+    cfg = mixtral_cfg(2, dtype="float32")
+    params = tfm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    eng = GenerationEngine(cfg, params, max_slots=8, max_seqlen=512,
+                           page_size=128, device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
+               for _ in range(2)]
+    for i in range(8):
+        eng.submit(GenRequest(rid=f"r{i}", input_ids=prompts[i % 2],
+                              max_new_tokens=64, greedy=True))
+    for i in range(4):
+        eng.submit(GenRequest(rid=f"t{i}", input_ids=prompts[i % 2],
+                              max_new_tokens=64, temperature=1.0))
+    done = {o.rid: o for o in eng.run_until_done(PARITY_STEPS)}
+    outs = {r: o.output_ids for r, o in done.items() if r[0] == "r"}
+    check_parity_engine("moe_parity f32", eng, "cuda", done, n_requests=12)
+    del eng
+    rids = sorted(outs)
+    scores = packed_scores(
+        torch, tfm, cfg, params, [prompts[int(r[1:]) % 2] for r in rids],
+        [outs[r] for r in rids])
+    gaps, exempt = scores["gap"], scores["margin"] < MOE_F32_MARGIN
+    bad = (gaps > SPEC_ARGMAX_TOL) & ~exempt
+    lp_err = sampled_lp_err(
+        torch, tfm, cfg, params, [prompts[i % 2] for i in range(4)],
+        [dict(output_ids=done[f"t{i}"].output_ids,
+              output_logprobs=done[f"t{i}"].output_logprobs)
+         for i in range(4)])
+    if (bad.any() or not exempt.mean() <= MOE_F32_NEAR_TIE_SHARE
+            or not lp_err.mean() <= WEIGHT_SYNC_LP_TOL):
+        raise AssertionError(
+            f"moe_parity f32: {int(bad.sum())} greedy tokens more than "
+            f"{SPEC_ARGMAX_TOL} below a packed forward's max logit where "
+            f"every layer routes by a margin of {MOE_F32_MARGIN} or more "
+            f"(gaps {gaps[bad][:8]}); {int(exempt.sum())} of {gaps.size} "
+            f"tokens exempt as near ties (at most "
+            f"{MOE_F32_NEAR_TIE_SHARE}); sampled logprobs {lp_err.mean()} "
+            f"(mean abs) from a packed forward's")
+    del params
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, tokens=int(gaps.size),
+                max_gap=float(gaps.max()),
+                max_gap_routed_clear=float(gaps[~exempt].max()),
+                min_route_margin=float(scores["margin"].min()),
+                near_tie_positions=int(exempt.sum()),
+                near_tie_share_max=MOE_F32_NEAR_TIE_SHARE,
+                over_1e_3=int((gaps > 1e-3).sum()),
+                sampled_tokens=int(lp_err.size),
+                sampled_lp_mean_abs_err=float(lp_err.mean()),
+                route_margin=MOE_F32_MARGIN, argmax_tol=SPEC_ARGMAX_TOL,
+                lp_tol=WEIGHT_SYNC_LP_TOL)
+
+
+def moe_parity_phase(torch):
+    """A tiny f32 MoE model: the graphed engine on the card and the CPU
+    engine give the same greedy tokens over ``parity``'s staggered traffic;
+    ``moe_mlp`` at full width (``moe_mlp_check``); a full-width f32 engine
+    against a packed forward (``moe_f32_width_check``); two SFT steps card
+    against CPU under each dispatch with nonzero aux."""
+    from areal_tpu_torch.gen.engine import GenerationEngine
+    from areal_tpu_torch.models import transformer as tfm
+
+    cfg = tiny_moe_cfg()
+    params = tfm.init_params(cfg, seed=3, device="cpu")
+    schedule = parity_schedule(cfg.vocab_size)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = GenerationEngine(cfg, params, max_slots=4, max_seqlen=128,
+                               page_size=16, device=dev)
+        outs[dev] = run_schedule(eng, schedule)
+        check_parity_engine("moe_parity", eng, dev, outs[dev])
+        del eng
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError(f"moe_parity: greedy tokens cuda "
+                             f"{outs['cuda']} != cpu {outs['cpu']}")
+    row = dict(requests=len(outs["cpu"]), token_exact=True,
+               admission_graphed=True, mlp=moe_mlp_check(torch),
+               f32_width=moe_f32_width_check(torch))
+    for d in ("dense", "ragged"):
+        row[f"sft_{d}"] = train_parity_check(
+            torch, tiny_moe_cfg(d, loss_chunk_size=100),
+            f"moe_parity sft {d}")
+    emit(phase="moe_parity", **row)
+    return row
+
+
+def adopting_engine_cls():
+    """``GenerationEngine`` serving the caller's tensors instead of copies
+    of them: 16 Mixtral layers (47 GB of bf16) cannot be held twice on one
+    card. The harness hands the weights over and only reads them while
+    the engine lives; nothing updates them."""
+    from areal_tpu_torch.gen.engine import GenerationEngine
+
+    class AdoptingEngine(GenerationEngine):
+        @staticmethod
+        def _own(prepared, src):
+            return prepared
+
+    return AdoptingEngine
+
+
+def moe_serve_verdict(greedy_gaps, ref_gaps, lp_err, ref_lp_err):
+    """moe_serve's checks over per-request arrays (one a request): the
+    engine's greedy gaps and sampled logprob errors against the plain
+    decoder's (MOE_SHARE_MARGIN, MOE_REQ_SHARE_MARGIN, MOE_LP_MARGIN,
+    MOE_REQ_LP_MARGIN). Returns the failures, empty when all hold."""
+    def share(g):
+        return float(np.mean(g <= SPEC_ARGMAX_TOL))
+
+    fails = []
+    eng, ref = (share(np.concatenate(g)) for g in (greedy_gaps, ref_gaps))
+    if eng < ref - MOE_SHARE_MARGIN:
+        fails.append(f"greedy share {eng} < decoder's {ref} - "
+                     f"{MOE_SHARE_MARGIN}")
+    for i, (g, r) in enumerate(zip(greedy_gaps, ref_gaps)):
+        if share(g) < share(r) - MOE_REQ_SHARE_MARGIN:
+            fails.append(f"greedy request {i}: share {share(g)} < "
+                         f"decoder's {share(r)} - {MOE_REQ_SHARE_MARGIN}")
+    eng, ref = (float(np.concatenate(e).mean()) for e in (lp_err, ref_lp_err))
+    if eng > ref + MOE_LP_MARGIN:
+        fails.append(f"sampled logprob error {eng} > decoder's {ref} + "
+                     f"{MOE_LP_MARGIN}")
+    for i, (e, r) in enumerate(zip(lp_err, ref_lp_err)):
+        if e.mean() > r.mean() + MOE_REQ_LP_MARGIN:
+            fails.append(f"sampled request {i}: logprob error {e.mean()} > "
+                         f"decoder's {r.mean()} + {MOE_REQ_LP_MARGIN}")
+    return fails
+
+
+def moe_serve_phase(torch, profile=False):
+    """Mixtral-8x7B at 16 of its 32 layers (bf16, seed-0 weights made on
+    the card: the f32 host copy of 16 layers would take 93 GB) through
+    ``serve_phase``: 4 prompts of 1024 tokens x 8 requests, 128 new tokens,
+    greedy / temperature 1 / top-p 0.9, 32 slots of 2048, page 128, HTTP
+    and the stream check, with its launch, graph and extend-key checks.
+    Then the answers against a packed forward (packs of 8), next to the
+    plain decoder teacher-forced over the same answers
+    (``moe_serve_verdict``): the greedy tokens within SPEC_ARGMAX_TOL of
+    the forward's max logit, the temperature-1 answers' logprobs; the
+    same checks must fail under three planted faults (every router's
+    columns rolled, over all requests, one prompt group's and one
+    request's), and one planted wrong token reads above the limit.
+    Reports the MoE MLPs' share of a decode step: the 16 layers'
+    ``moe_forward`` over 32 tokens replayed from a CUDA graph, against the
+    device time of a replayed decode step."""
+    import gc
+
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.ops import moe as moe_ops
+
+    cfg = mixtral_cfg(MOE_PHASE["serve_layers"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(tfm, params))
+    row = serve_phase(torch, "moe_serve", params, cfg, kv_dtype=None,
+                      n_prompts=4, group=8, profile=profile, stream=True,
+                      engine_cls=adopting_engine_cls())
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()   # the engine's pool and graphs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    answers = row.pop("answers")
+    greedy = [(b["input_ids"], a["output_ids"]) for b, a in answers
+              if b["sampling_params"].get("greedy")]
+    temp = [(b["input_ids"], a) for b, a in answers
+            if b["sampling_params"].get("temperature") == 1.0
+            and "top_p" not in b["sampling_params"]]
+    prompts, outs = [p for p, _ in greedy], [o for _, o in greedy]
+    group = {k: [i for i, p in enumerate(ps) if p == ps[0]]
+             for k, ps in (("greedy", prompts), ("temp",
+                                                 [p for p, _ in temp]))}
+    dec_argmax, _ = decoder_scores(torch, tfm, cfg, params, prompts, outs)
+    _, dec_lp = decoder_scores(torch, tfm, cfg, params, [p for p, _ in temp],
+                               [a["output_ids"] for _, a in temp])
+    cuts = np.cumsum([len(o) for o in outs])[:-1]
+    # a second yardstick, for the record: the same forward one sequence a
+    # pack instead of 8, its argmax scored the same way
+    pack1 = packed_scores(torch, tfm, cfg, params, prompts, outs, pack=1)
+    scores = packed_scores(torch, tfm, cfg, params, prompts, outs, alt=dict(
+        decoder=dec_argmax, pack1=np.split(pack1["argmax"], cuts)))
+    gaps, ref_gaps = (np.split(g, cuts) for g in (
+        scores["gap"], scores["alt_gap"]["decoder"]))
+    pack1_gaps = scores["alt_gap"]["pack1"]
+
+    def forward_lp(a, p):
+        return score_tokens(torch, tfm, cfg, params, p + a["output_ids"],
+                            len(p))
+
+    fwd_lp = [forward_lp(a, p) for p, a in temp]
+    lp_err = [np.abs(np.asarray(a["output_logprobs"]) - f)
+              for (_, a), f in zip(temp, fwd_lp)]
+    ref_lp_err = [np.abs(d - f) for d, f in zip(dec_lp, fwd_lp)]
+    # planted faults: every layer routes every token to the wrong experts
+    routers = [lp["mlp"]["router"] for lp in params["layers"]]
+    kept = [r.clone() for r in routers]
+    for r, k in zip(routers, kept):
+        r.copy_(k.roll(1, dims=1))
+    try:
+        bad_gaps = np.split(packed_scores(torch, tfm, cfg, params, prompts,
+                                          outs)["gap"], cuts)
+        bad_lp_err = [np.abs(np.asarray(a["output_logprobs"])
+                             - forward_lp(a, p)) for p, a in temp]
+    finally:
+        for r, k in zip(routers, kept):
+            r.copy_(k)
+    del kept
+    score_s = time.perf_counter() - t0
+
+    def planted(which, good, bad):
+        return [b if i in which else g
+                for i, (g, b) in enumerate(zip(good, bad))]
+
+    verdict = moe_serve_verdict(gaps, ref_gaps, lp_err, ref_lp_err)
+    plants = {
+        "all": moe_serve_verdict(bad_gaps, ref_gaps, bad_lp_err, ref_lp_err),
+        "group": moe_serve_verdict(
+            planted(group["greedy"], gaps, bad_gaps), ref_gaps,
+            planted(group["temp"], lp_err, bad_lp_err), ref_lp_err),
+        "request": moe_serve_verdict(
+            planted({0}, gaps, bad_gaps), ref_gaps,
+            planted({0}, lp_err, bad_lp_err), ref_lp_err),
+    }
+
+    def share(g):
+        return float(np.mean(np.concatenate(g) <= SPEC_ARGMAX_TOL))
+
+    def req_shares(g):
+        return [float(np.mean(x <= SPEC_ARGMAX_TOL)) for x in g]
+
+    greedy_row = dict(
+        greedy_tokens=int(scores["gap"].size),
+        greedy_share_within=share(gaps),
+        decoder_share_within=share(ref_gaps),
+        pack1_share_within=float(np.mean(pack1_gaps <= SPEC_ARGMAX_TOL)),
+        greedy_request_shares=req_shares(gaps),
+        decoder_request_shares=req_shares(ref_gaps),
+        greedy_max_gap=float(scores["gap"].max()),
+        greedy_mean_gap=float(scores["gap"].mean()),
+        reference_argmax_disagree=float(np.mean(
+            scores["argmax"] != pack1["argmax"])),
+        planted_all_share_within=share(bad_gaps),
+        sampled_tokens=int(sum(e.size for e in lp_err)),
+        sampled_lp_mean_abs_err=float(np.concatenate(lp_err).mean()),
+        sampled_lp_median_abs_err=float(np.median(np.concatenate(lp_err))),
+        decoder_lp_mean_abs_err=float(np.concatenate(ref_lp_err).mean()),
+        sampled_request_lp_err=[float(e.mean()) for e in lp_err],
+        decoder_request_lp_err=[float(e.mean()) for e in ref_lp_err],
+        planted_all_lp_mean_abs_err=float(np.concatenate(bad_lp_err).mean()),
+        planted_failures={k: len(v) for k, v in plants.items()},
+        score_s=score_s, argmax_tol=SPEC_ARGMAX_TOL,
+        margins=dict(share=MOE_SHARE_MARGIN, request_share=MOE_REQ_SHARE_MARGIN,
+                     lp=MOE_LP_MARGIN, request_lp=MOE_REQ_LP_MARGIN))
+    emit(phase="moe_serve_greedy", **greedy_row)
+    if verdict:
+        raise AssertionError(f"moe_serve: {verdict}")
+    passed = [k for k, v in plants.items() if not v]
+    if passed:
+        raise AssertionError(f"moe_serve: the planted faults {passed} pass "
+                             f"the checks")
+    prompt, out = greedy[0]
+    wrong = list(out)
+    wrong[len(wrong) // 2] = (wrong[len(wrong) // 2] + 1) % cfg.vocab_size
+    planted = float(greedy_argmax_gaps(torch, tfm, cfg, params, [prompt],
+                                       [wrong], pack=1)[len(wrong) // 2])
+    if not planted > SPEC_ARGMAX_TOL:
+        raise AssertionError(f"moe_serve: a planted wrong token reads "
+                             f"{planted}, not above {SPEC_ARGMAX_TOL}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    x = torch.randn(32, cfg.hidden_dim, generator=g, device="cuda").to(
+        torch.bfloat16)
+    mlps = [lp["mlp"] for lp in params["layers"]]
+    mlp_ms = graph_ms([lambda: [moe_ops.moe_forward(cfg, p, x)
+                                for p in mlps]])
+    step_ms = row["decode_s"] * 1e3 / (row["graph_replays"] * DECODE_STEPS)
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    summary = dict(
+        layers=cfg.n_layers, full_layers=MIXTRAL_8X7B["num_hidden_layers"],
+        cut="memory: 16 layers of bf16 weights (46.97 GB) and the pool",
+        init_s=init_s, weight_gb=weight_bytes / 1e9,
+        decode_tok_per_s=row["decode_tok_per_s"], ms_per_decode_step=step_ms,
+        weight_read_bound_ms=bound_ms,
+        decode_tok_per_s_at_bound=32 / bound_ms * 1e3,
+        moe_mlp_ms_per_step=mlp_ms, moe_mlp_share=mlp_ms / step_ms,
+        prefill_s=row["prefill_s"], graph_capture_s=row["graph_capture_s"],
+        admit_capture_s=row["admit_capture_s"],
+        graph_pool_gb=row["graph_pool_gb"],
+        serve_peak_mem_gb=serve_peak_gb,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        planted_gap=planted, **greedy_row)
+    emit(phase="moe_serve_summary", **summary)
+    del params, mlps, x
+    torch.cuda.empty_cache()
+    return dict(row, **summary)
+
+
+def moe_step_grads(torch, eng, cfg, sample, spec):
+    """One forward and backward of the mean next-token NLL plus the router
+    aux over ``sample``'s micro-batches under ``cfg``, no optimizer step:
+    the summed loss and aux, and every master's gradient (the engine's
+    params keep their values)."""
+    from areal_tpu_torch.train.engine import _leaves, vmapped_next_token_logprobs
+
+    params = _leaves(eng.params)
+    for p in params:
+        p.grad = None
+    _, packed, _ = eng._make_micro_batches(sample, spec)
+    loss_sum = aux_sum = 0.0
+    for pb in packed:
+        arrays = eng._put_batch(pb)
+        live = (arrays["segment_ids"] > 0).sum()
+        lp, aux = vmapped_next_token_logprobs(eng.params, cfg, arrays,
+                                              with_aux=True)
+        loss = -lp.sum() / live + aux
+        loss.backward()
+        loss_sum += float(loss.detach())
+        aux_sum += float(aux.detach())
+    grads = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    return loss_sum, aux_sum, grads
+
+
+def moe_train_phase(torch):
+    """The ``train`` phase's GRPO round (critic-free PPO actor, decoupled
+    loss, 2 minibatches; 2 prompts x 8 samples, 16374 tokens, micro-batches
+    of 8192) at Mixtral-8x7B's widths cut to 2 layers: f32 masters, bf16
+    compute, full remat, chunked loss. First one forward and backward
+    under each dispatch on the same weights and batch (MOE_TRAIN_TOL, the
+    aux finite and > 0); then, under dense and then ragged from the same
+    seed-0 weights on the same batch, a first round (one-time costs) and
+    a counted, timed one: finite stats, the guard passed, the weights
+    moved, flash launches 2 x (inference + 2 x train micro-batches)
+    forward and 2 x train micro-batches backward. Returns the ragged
+    trainer (for ``moe_weight_sync``) and the rows."""
+    import gc
+
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model import PPOHyperparameters, make_interface
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+    from areal_tpu_torch.train import batching
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
+    cfg = mixtral_cfg(MOE_PHASE["train_layers"], remat_policy="full",
+                      loss_chunk_size=2048)
+    L = cfg.n_layers
+    spec = MicroBatchSpec(max_tokens_per_mb=MOE_PHASE["train_mb_tokens"])
+    hp = PPOHyperparameters(disable_value=True, group_adv_norm=True,
+                            use_decoupled_loss=True, ppo_n_minibatches=2)
+
+    def batch():
+        return rollout_sample(np.random.default_rng(0), n_prompts=2, group=8,
+                              prompt_len=512, resp_lo=256, resp_hi=1024,
+                              vocab=cfg.vocab_size,
+                              group_budget=spec.max_tokens_per_mb)
+
+    sample = batch()
+    tokens = int(sum(sum(inner) for inner in
+                     sample.seqlens["packed_input_ids"]))
+    n_inf = len(batching.split_into_micro_batches(
+        sample, spec.n_mbs, spec.max_tokens_per_mb, 1))
+    n_train = sum(len(batching.split_into_micro_batches(
+        mb, spec.n_mbs, spec.max_tokens_per_mb, 1))
+        for mb in sample.split(hp.ppo_n_minibatches))
+
+    def engine(dispatch):
+        return TrainEngine(with_dispatch(cfg, dispatch),
+                           optimizer=OptimizerConfig(lr=1e-5),
+                           device="cuda").init_random(0).setup_optimizer(100)
+
+    eng = engine("dense")
+    # the same weights and batch under each dispatch, no optimizer step
+    loss = {}
+    aux = {}
+    loss["dense"], aux["dense"], grads = moe_step_grads(
+        torch, eng, eng.cfg, sample, spec)
+    want = [g.to(torch.bfloat16) for g in grads]   # room for the second set
+    del grads
+    loss["ragged"], aux["ragged"], got = moe_step_grads(
+        torch, eng, with_dispatch(cfg, "ragged"), sample, spec)
+    errs = [normwise(torch, g, w) for g, w in zip(got, want)]
+    del got, want
+    torch.cuda.empty_cache()
+    loss_rel = abs(loss["ragged"] - loss["dense"]) / abs(loss["dense"])
+    if not (max(errs) <= MOE_TRAIN_TOL["grad_normwise"]
+            and loss_rel <= MOE_TRAIN_TOL["loss_rtol"]
+            and all(np.isfinite(a) and a > 0 for a in aux.values())):
+        raise AssertionError(
+            f"moe_train: dense vs ragged loss {loss} (rel {loss_rel}), aux "
+            f"{aux}, gradient normwise errors up to {max(errs)}; limits "
+            f"{MOE_TRAIN_TOL}")
+    check = dict(loss=loss, aux=aux, loss_rel_err=loss_rel,
+                 grad_max_normwise_err=max(errs),
+                 grad_mean_normwise_err=float(np.mean(errs)),
+                 tol=MOE_TRAIN_TOL)
+
+    def grpo_round(eng, actor, sample):
+        t0 = time.perf_counter()
+        sample.update_(actor.inference(eng, sample, spec))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = actor.train_step(eng, sample, spec)
+        torch.cuda.synchronize()
+        bad = {k: v for k, v in stats.items() if not np.isfinite(v)}
+        if bad or stats["guard/step_ok"] != 1.0:
+            raise AssertionError(f"moe_train: stats {stats}")
+        return stats, t1 - t0, time.perf_counter() - t1
+
+    rows = {}
+    for dispatch in ("dense", "ragged"):
+        if dispatch == "ragged":
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = engine("ragged")
+        actor = make_interface("ppo_actor", hp=hp)
+        torch.cuda.reset_peak_memory_stats()
+        first, first_inf_s, first_train_s = grpo_round(eng, actor, batch())
+        probe = eng.params["layers"][1]["mlp"]["w_up"][0, :64].detach().clone()
+        # the main path's run: every launch counted from here on
+        cuda_flash.reset_launches()
+        stats, inf_s, train_s = grpo_round(eng, actor, batch())
+        fwd, bwd = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+        if torch.equal(eng.params["layers"][1]["mlp"]["w_up"][0, :64], probe):
+            raise AssertionError(f"moe_train {dispatch}: weights did not move")
+        if fwd != L * (n_inf + 2 * n_train) or bwd != L * n_train:
+            raise AssertionError(
+                f"moe_train {dispatch}: flash launches fwd {fwd} bwd {bwd}; "
+                f"expected {L * (n_inf + 2 * n_train)} and {L * n_train}")
+        rows[dispatch] = dict(
+            dispatch=dispatch, layers=L,
+            full_layers=MIXTRAL_8X7B["num_hidden_layers"],
+            cut="memory: f32 master, gradient and AdamW moments, 50.6 GB",
+            tokens=tokens, mb_tokens=spec.max_tokens_per_mb,
+            inference_mbs=n_inf, train_mbs=n_train,
+            first_round_inference_s=first_inf_s,
+            first_round_train_step_s=first_train_s,
+            inference_s=inf_s, train_step_s=train_s,
+            s_per_optimizer_step=train_s / 2,
+            trained_tok_per_s=tokens / train_s,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            flash_fwd_launches=fwd, flash_bwd_launches=bwd,
+            first_round_stats={k: first[k] for k in ("actor_loss",
+                                                     "grad_norm")},
+            stats={k: stats[k] for k in ("actor_loss", "grad_norm",
+                                         "importance_weight", "lr")})
+        emit(phase="moe_train", **rows[dispatch])
+        del probe, actor
+    emit(phase="moe_train_check", **check)
+    return eng, dict(rows=rows, check=check,
+                     flash_fwd_launches=sum(r["flash_fwd_launches"]
+                                            for r in rows.values()),
+                     flash_bwd_launches=sum(r["flash_bwd_launches"]
+                                            for r in rows.values()))
+
+
+def moe_weight_sync_phase(torch, trainer):
+    """The 2-layer Mixtral trainer (its weights moved by ``moe_train``)
+    exports with ``save_hf(family="mixtral")`` (f32), and a running 2-layer
+    Mixtral server (bf16, dense dispatch, other weights) reloads the export
+    through ``POST /update_weights_from_disk`` with 4 requests in flight.
+    Checks: the interrupted requests answer partially at version 0, the
+    server moves to version 1, greedy tokens after the reload equal a
+    fresh engine's on the trainer's params, and the export loaded into a
+    fresh ``TrainEngine`` equals the trainer's params bit for bit."""
+    import os
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.base import recover
+    from areal_tpu_torch.gen.engine import GenerationEngine, GenRequest
+    from areal_tpu_torch.gen.server import serve
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.train.engine import TrainEngine
+
+    # the trainer's optimizer state is not exported: free its 25 GB
+    trainer.optimizer = None
+    torch.cuda.empty_cache()
+    cfg = with_dispatch(trainer.cfg, "dense")
+    where, depth, free = export_dir_and_depth(
+        cfg, os.path.dirname(os.path.abspath(__file__)))
+    if depth < cfg.n_layers:
+        raise AssertionError(f"moe_weight_sync: no room for two f32 exports "
+                             f"of {cfg.n_layers} layers: {free}")
+    trainer.version = 1
+    root = tempfile.mkdtemp(prefix="areal_moe_sync_", dir=where)
+    srv = None
+    try:
+        path = os.path.join(root, "export")
+        t0 = time.perf_counter()
+        trainer.save_hf(path, "mixtral")
+        export_s = time.perf_counter() - t0
+        if recover.read_manifest(path) is None:
+            raise AssertionError("moe_weight_sync: export not committed")
+        nbytes = os.path.getsize(os.path.join(path, "model.safetensors"))
+        eng = GenerationEngine(
+            cfg, tfm.init_params(cfg, seed=1, device="cuda",
+                                 dtype=torch.bfloat16),
+            max_slots=8, max_seqlen=2048, page_size=128, seed=0,
+            device="cuda")
+        srv = serve(eng, "127.0.0.1", 0, decode_steps=16)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, size=256).tolist()
+                   for _ in range(4)]
+        # graphed decode finishes a 1000-token request faster than the
+        # overlapped load takes: keep four requests in flight until the
+        # update answers (as weight_sync does)
+        with ThreadPoolExecutor(64) as ex:
+            futs = [ex.submit(post, srv.port, "/generate", {
+                "rid": f"inflight{i}", "input_ids": p,
+                "sampling_params": {"max_new_tokens": 1000, "greedy": True}})
+                for i, p in enumerate(prompts)]
+            deadline = time.time() + 120
+            while eng.stats["decode_steps"] < 32:
+                if time.time() > deadline:
+                    raise AssertionError("moe_weight_sync: no decode")
+                time.sleep(0.01)
+            t0 = time.perf_counter()
+            upd = ex.submit(post, srv.port, "/update_weights_from_disk", {
+                "model_path": path, "version": trainer.version,
+                "allow_interrupt": True})
+            while not upd.done() and len(futs) < 60:
+                if sum(not f.done() for f in futs) < 4:
+                    futs.append(ex.submit(post, srv.port, "/generate", {
+                        "rid": f"feed{len(futs)}",
+                        "input_ids": prompts[len(futs) % 4][:100],
+                        "sampling_params": {"max_new_tokens": 1000,
+                                            "greedy": True}}))
+                time.sleep(0.005)
+            status, ans = upd.result()
+            reload_s = time.perf_counter() - t0
+            partials = [f.result()[1] for f in futs]
+        after = get(srv.port, "/metrics_json")
+        n_partial = sum(a.get("finish_reason") == "interrupted"
+                        and a.get("version") == 0
+                        and 0 < len(a["output_ids"]) < 1000
+                        for a in partials)
+        if status != 200 or not ans.get("success") or (
+                ans.get("num_paused_requests", 0) <= 0) or (
+                n_partial != ans["num_paused_requests"]) or (
+                after["version"] != 1 or after["paused"]):
+            raise AssertionError(f"moe_weight_sync: update {status} {ans}, "
+                                 f"{n_partial} partial answers, metrics "
+                                 f"{after}")
+        fresh = GenerationEngine(cfg, trainer.params, max_slots=8,
+                                 max_seqlen=2048, page_size=128, seed=0,
+                                 device="cuda")
+        n_checked = 0
+        for i, p in enumerate(prompts[:2]):
+            _, got = post(srv.port, "/generate", {
+                "rid": f"after{i}", "input_ids": p,
+                "sampling_params": {"max_new_tokens": 32, "greedy": True}})
+            fresh.submit(GenRequest(rid="f", input_ids=p, max_new_tokens=32,
+                                    greedy=True))
+            (want,) = fresh.run_until_done(16)
+            if got["output_ids"] != want.output_ids or got["version"] != 1:
+                raise AssertionError(
+                    f"moe_weight_sync: after the reload {got['output_ids']} "
+                    f"!= {want.output_ids} from the trainer's params")
+            n_checked += len(want.output_ids)
+        admission_graphed("moe_weight_sync", eng.stats, eng)
+        srv.stop()
+        srv = None
+        del eng, fresh
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = TrainEngine(trainer.cfg, device="cuda").load_hf(path)
+        load_s = time.perf_counter() - t0
+        same = tree_leaves(tfm, tfm.tree_map(
+            lambda a, b: torch.tensor(torch.equal(a, b)), trainer.params,
+            loaded.params))
+        if loaded.hf_family != "mixtral" or not all(same):
+            raise AssertionError("moe_weight_sync: the export loaded into a "
+                                 "fresh TrainEngine differs from the "
+                                 "trainer's params")
+        del loaded
+    finally:
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    row = dict(layers=cfg.n_layers,
+               full_layers=MIXTRAL_8X7B["num_hidden_layers"],
+               cut="memory: the trainer's f32 state (moe_train's)",
+               export_bytes=nbytes, export_s=export_s, reload_s=reload_s,
+               trainer_load_s=load_s,
+               export_gb_per_s=nbytes / export_s / 1e9,
+               reload_gb_per_s=nbytes / reload_s / 1e9,
+               num_paused_requests=ans["num_paused_requests"],
+               weight_update_s=after["weight_update_s"],
+               greedy_tokens_checked=n_checked, version=after["version"],
+               bit_exact_reload=True, export_dir_free_gb=free[where] / 1e9)
+    emit(phase="moe_weight_sync", **row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_phase(torch, profile=False):
+    """``moe_parity``, ``moe_serve``, ``moe_train`` and
+    ``moe_weight_sync`` in turn; the counts the kernel line reads."""
+    import gc
+
+    def release():
+        # an engine is a reference cycle (its programs hold bound methods):
+        # only the collector returns its pool, graphs and weights
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    moe_parity_phase(torch)
+    release()
+    served = moe_serve_phase(torch, profile)
+    release()
+    trainer, trained = moe_train_phase(torch)
+    release()
+    synced = moe_weight_sync_phase(torch, trainer)
+    del trainer
+    release()
+    emit(phase="moe", seconds=time.perf_counter() - t0)
+    return dict(paged_decode_launches=served["paged_decode_launches"],
+                fused_sample_launches=served["fused_sample_launches"],
+                flash_fwd_launches=trained["flash_fwd_launches"],
+                flash_bwd_launches=trained["flash_bwd_launches"],
+                weight_sync=synced)
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -5256,6 +6270,7 @@ def main(argv=None) -> int:
     trained = train_phase(torch, args.profile) if "train" in phases else {}
     synced = (sync_ppo_phase(torch, args.profile) if "sync_ppo" in phases
               else {})
+    moe = moe_phase(torch, args.profile) if "moe" in phases else {}
     kernels = []
     for variant, case in (("bfloat16", "slice_bf16"), ("int8", "slice_int8")):
         k = kern.get(case, {})
@@ -5312,6 +6327,40 @@ def main(argv=None) -> int:
             "bound_by": fs.get("bound_by"),
             "library_ms": fs.get("library_ms"),
         })
+    # the three kernels at Mixtral-8x7B's shapes, each with the launches
+    # that the moe phase counted (moe_serve samples with the plain sampler,
+    # the default, so its fused-sampler count reads 0)
+    pm, fm, sm = (kern.get("mixtral_bf16", {}), flash.get("mixtral_bf16", {}),
+                  fused.get("mixtral_bf16", {}))
+    kernels.append({
+        "name": "paged_decode[mixtral_bf16]", "route": "cuda",
+        "source": cuda_paged.SOURCE, "replaces": cuda_paged.REPLACES,
+        "launches": moe.get("paged_decode_launches", 0),
+        "max_abs_err": pm.get("max_abs_err"), "ms": pm.get("kernel_ms"),
+        "plain_ms": pm.get("plain_ms"), "bound_ms": pm.get("bound_ms"),
+        "bound_by": pm.get("bound_by"), "library_ms": pm.get("library_ms"),
+    })
+    for name, part, replaces in (("flash_fwd", "fwd", cuda_flash.REPLACES_FWD),
+                                 ("flash_bwd", "bwd", cuda_flash.REPLACES_BWD)):
+        kernels.append({
+            "name": f"{name}[mixtral_bf16]", "route": "cuda",
+            "source": cuda_flash.SOURCE, "replaces": replaces,
+            "launches": moe.get(f"flash_{part}_launches", 0),
+            "max_abs_err": fm.get(f"{part}_max_abs_err"),
+            "ms": fm.get(f"{part}_ms"), "plain_ms": fm.get(f"plain_{part}_ms"),
+            "bound_ms": fm.get(f"{part}_bound_ms"),
+            "bound_by": fm.get(f"{part}_bound_by"),
+            "library_ms": fm.get(f"library_{part}_ms"),
+        })
+    kernels.append({
+        "name": "fused_sample[mixtral_bf16]", "route": "cuda",
+        "source": cuda_fused.SOURCE, "replaces": cuda_fused.REPLACES,
+        "launches": moe.get("fused_sample_launches", 0),
+        "max_abs_err": sm.get("max_abs_err"),
+        "ms": sm.get("kernel_ms"), "plain_ms": sm.get("plain_ms"),
+        "bound_ms": sm.get("bound_ms"), "bound_by": sm.get("bound_by"),
+        "library_ms": sm.get("library_ms"),
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if sorted(phases) != sorted(PHASES) or sorted(args.kernels) != sorted(SOURCES):

@@ -148,7 +148,7 @@ def test_reader_rejects_damaged_files(tmp_path):
 TINY = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=2, vocab_size=128,
             max_position_embeddings=128)
-FAMILIES = ["llama", "mistral", "qwen2", "qwen3", "gemma", "gpt2"]
+FAMILIES = ["llama", "mistral", "qwen2", "qwen3", "gemma", "gpt2", "mixtral"]
 
 
 def _hf_model(family):
@@ -175,6 +175,11 @@ def _hf_model(family):
         cfg = transformers.GPT2Config(n_embd=32, n_layer=2, n_head=4,
                                       vocab_size=128, n_positions=128)
         model = transformers.GPT2LMHeadModel(cfg)
+    elif family == "mixtral":
+        cfg = transformers.MixtralConfig(**TINY, num_local_experts=4,
+                                         num_experts_per_tok=2,
+                                         router_aux_loss_coef=0.02)
+        model = transformers.MixtralForCausalLM(cfg)
     else:
         raise ValueError(family)
     return cfg, model
@@ -234,9 +239,56 @@ def test_bf16_checkpoint_widens_exactly(tmp_path):
 
 
 def test_unknown_family_and_moe_raise():
+    """An unknown ``model_type`` raises; mixtral, the MoE family, is
+    registered, and the port knows the reference's families."""
     with pytest.raises(KeyError, match="No converter"):
-        pt_hf.family_for_model_type("mixtral")
-    assert "mixtral" not in pt_hf.HF_FAMILIES
+        pt_hf.family_for_model_type("mixtral2")
+    assert pt_hf.family_for_model_type("mixtral").name == "mixtral"
+    assert set(pt_hf.HF_FAMILIES) == set(jax_hf.HF_FAMILIES)
+
+
+def test_mixtral_logits_match_transformers(tmp_path):
+    """A tiny ``MixtralForCausalLM`` (4 experts, top 2): its logits against
+    the port's ``forward_packed`` on the converted checkpoint, two packed
+    sequences (float32 both sides; atol 1e-4)."""
+    _, model = _hf_model("mixtral")
+    d = tmp_path / "mixtral"
+    model.save_pretrained(str(d), safe_serialization=True)
+    cfg, host = pt_hf.load_hf_checkpoint(str(d))
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = pt_tfm.params_from_numpy(host, device="cpu")
+    rng = np.random.default_rng(0)
+    seqs = [rng.integers(0, 128, n).tolist() for n in (13, 21)]
+    with torch.no_grad():
+        want = [model(torch.tensor([s])).logits[0].numpy() for s in seqs]
+        got = pt_tfm.forward_packed(
+            params, cfg, torch.tensor(seqs[0] + seqs[1]),
+            torch.tensor([1] * 13 + [2] * 21, dtype=torch.int32),
+            torch.tensor(list(range(13)) + list(range(21)), dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.concatenate(want), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_mixtral_checkpoints_load_across_the_packages_bit_for_bit(tmp_path):
+    """A Mixtral checkpoint written by either package loads in the other to
+    the bit (the ``[L, X, E, F]`` expert leaves included)."""
+    from areal_tpu.models.config import MoEConfig as JaxMoE
+    from areal_tpu_torch.models.config import MoEConfig as PtMoE
+
+    moe = dict(num_experts=4, top_k=2, aux_loss_coeff=0.02)
+    kw = dict(CFG_KW, use_attention_bias=False, mlp_type="moe")
+    jcfg, pcfg = JaxConfig(**kw, moe=JaxMoE(**moe)), PtConfig(**kw,
+                                                              moe=PtMoE(**moe))
+    tree = jax.device_get(jax_tfm.init_params(jcfg, jax.random.key(3)))
+    pt_hf.save_hf_checkpoint(tree, pcfg, "mixtral", str(tmp_path / "port"))
+    jax_hf.save_hf_checkpoint(tree, jcfg, "mixtral", str(tmp_path / "jax"))
+    for src, load in (("port", jax_hf.load_hf_checkpoint),
+                      ("jax", pt_hf.load_hf_checkpoint)):
+        cfg, got = load(str(tmp_path / src))
+        assert cfg.mlp_type == "moe" and cfg.moe.num_experts == 4
+        _assert_trees_equal(jax.tree.map(np.asarray, got),
+                            jax.tree.map(np.asarray, tree))
+    assert got["layers"]["mlp"]["w_gate"].shape == (2, 4, 32, 64)
 
 
 # --------------------------------------------------------------------------- #
