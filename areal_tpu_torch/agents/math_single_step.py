@@ -25,6 +25,7 @@ from areal_tpu_torch.api.agent import (
 from areal_tpu_torch.api.data import SequenceSample
 from areal_tpu_torch.api.env import EnvironmentService
 from areal_tpu_torch.api.model import GenerationHyperparameters
+from areal_tpu_torch.base import tracing
 
 
 @dataclasses.dataclass
@@ -78,7 +79,10 @@ class MathSingleStepAgent(Agent):
         if all(len(o) == 0 for o in act.output_ids):
             return []
         answers = self._decode(act.output_ids)
-        _, success, *_ = await env.step((qid, answers))
+        # the reward hop joins the trajectory's trace (this coroutine runs
+        # inside the rollout task's activated context)
+        with tracing.span("rollout/reward", qid=str(qid)):
+            _, success, *_ = await env.step((qid, answers))
         reward_time = time.time()  # lifecycle stamp: reward computed
         rewards = [
             ((float(s) - 0.5) * 2 - self.reward_bias) * self.reward_scaling

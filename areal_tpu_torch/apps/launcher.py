@@ -30,10 +30,17 @@ A ``reward`` model spec puts a trained reward model into the async
 trainer's PPO graph (``reward_inf``); ``run_sync_ppo`` ignores it, as the
 reference does.
 
+Every spawned worker installs a flight recorder (``<fileroot>/flight/``
+on a crash, preemption, watchdog trip or guard rollback), starts a span
+flusher when ``AREAL_TRACE_FLUSH_S`` asks for one and, with
+``AREAL_TELEMETRY_EXPORT`` on, a telemetry exporter for its role (gen
+server, manager, rollout worker, trainer). With ``AREAL_NAME_RESOLVE_RPC
+=host:port`` the workers rendezvous through the TCP name-resolve server
+(``base/name_resolve_server.py``) instead of the file root.
+
 Not ported yet, and raising ``NotImplementedError``: the serving gateway
-and the evaluator roles, tensor-parallel or speculative-decoding servers,
-the TCP name-resolve backend and the elastic trainer world
-(``ROADMAP.md``).
+and the evaluator roles, tensor-parallel servers and the elastic trainer
+world (``ROADMAP.md``).
 """
 
 import asyncio
@@ -71,19 +78,44 @@ def _setup_worker_env(cfg, device: str = ""):
         "AREAL_NAME_RESOLVE_ROOT",
         os.path.join(cfg.fileroot or constants.default_root(), "name_resolve"),
     )
-    if os.environ.get("AREAL_NAME_RESOLVE_RPC"):
-        raise NotImplementedError(
-            "the TCP name-resolve backend (AREAL_NAME_RESOLVE_RPC) is not "
-            "ported yet (ROADMAP.md)")
-    name_resolve.reconfigure(
-        name_resolve.NameResolveConfig(
-            type="file", root=constants.name_resolve_root()
+    # cross-process rendezvous: the TCP server when one is advertised
+    # (several hosts, no shared filesystem), else the file root
+    rpc_addr = constants.name_resolve_rpc()
+    if rpc_addr:
+        name_resolve.reconfigure(
+            name_resolve.NameResolveConfig(type="rpc", root=rpc_addr))
+    else:
+        name_resolve.reconfigure(
+            name_resolve.NameResolveConfig(
+                type="file", root=constants.name_resolve_root()
+            )
         )
-    )
     constants.set_experiment_trial_names(cfg.experiment_name, cfg.trial_name)
     if cfg.fileroot:
         constants.set_fileroot(cfg.fileroot)
     seeding.set_random_seed(cfg.seed, "worker")
+
+
+@contextlib.contextmanager
+def _worker_observability(worker_name: str):
+    """A spawned worker's black box and span flushing: a flight recorder
+    installed for the process (dumped on an exception that ends the worker:
+    multiprocessing reports those itself, so ``sys.excepthook`` never
+    sees them) and a span flusher when ``AREAL_TRACE_FLUSH_S`` > 0."""
+    from areal_tpu_torch.base import tracing
+    from areal_tpu_torch.system import worker_base
+
+    recorder = worker_base.FlightRecorder(worker_name).install()
+    flusher = tracing.SpanFlusher.maybe_start(worker_name)
+    try:
+        yield
+    except Exception as e:
+        recorder.dump("crash", {"exc": type(e).__name__, "msg": str(e)})
+        raise
+    finally:
+        if flusher is not None:
+            flusher.stop()
+        recorder.uninstall()
 
 
 def _load_engine(spec, is_critic=False, with_optimizer=True, total_steps=100,
@@ -206,11 +238,17 @@ def gen_engine(cfg, server_idx: int):
 def gen_server_main(cfg, server_idx: int):
     _check_gen_ported(cfg.gen)
     _setup_worker_env(cfg, cfg.gen.device)
+    with _worker_observability(f"gen_server/{server_idx}"):
+        _gen_server(cfg, server_idx)
+
+
+def _gen_server(cfg, server_idx: int):
     from areal_tpu_torch.base import constants, name_resolve, names
     from areal_tpu_torch.gen.server import serve
     from areal_tpu_torch.system.worker_base import (
         ExperimentStatusWatch,
         Heartbeat,
+        TelemetryExporter,
     )
 
     engine = gen_engine(cfg, server_idx)
@@ -231,12 +269,30 @@ def gen_server_main(cfg, server_idx: int):
     hb = Heartbeat(
         cfg.experiment_name, cfg.trial_name, f"gen_server/{server_idx}"
     ).start()
+    tele = TelemetryExporter(
+        cfg.experiment_name, cfg.trial_name,
+        f"gen_server/{server_idx}", "gen_server",
+        step_fn=lambda: max(engine.version, 0),
+        gauges_fn=lambda: {
+            "gen_running": float(engine.n_running()),
+            "gen_pending": float(engine.n_pending()),
+            # the device-memory headroom gauges the fleet view sums
+            "kv_pool_bytes": float(engine.kv_pool_bytes()),
+            "kv_pool_occupancy": engine.kv_pool_occupancy(),
+            "kv_pool_demand_occupancy": engine.kv_pool_demand_occupancy(),
+            "n_pages_free": float(engine.pool.n_free),
+            "draft_kv_pool_bytes": float(engine.draft_kv_pool_bytes()),
+            "draft_version": float(engine.draft_version),
+        },
+    ).maybe_start()
     try:
         while watch.alive():
             time.sleep(1.0)
     finally:
         hb.stop()
         srv.stop()
+        # after the server: the final snapshot holds every answer served
+        tele.stop()
 
 
 def gserver_manager_config(cfg):
@@ -263,6 +319,11 @@ def gserver_manager_config(cfg):
 
 def gserver_manager_main(cfg):
     _setup_worker_env(cfg, "cpu")
+    with _worker_observability("gserver_manager"):
+        _gserver_manager(cfg)
+
+
+def _gserver_manager(cfg):
     from areal_tpu_torch.base import name_resolve, names
     from areal_tpu_torch.system.gserver_manager import (
         GserverManager,
@@ -271,6 +332,7 @@ def gserver_manager_main(cfg):
     from areal_tpu_torch.system.worker_base import (
         ExperimentStatusWatch,
         Heartbeat,
+        TelemetryExporter,
     )
 
     manager = GserverManager(gserver_manager_config(cfg))
@@ -284,16 +346,33 @@ def gserver_manager_main(cfg):
     watch = ExperimentStatusWatch(cfg.experiment_name, cfg.trial_name)
     hb = Heartbeat(cfg.experiment_name, cfg.trial_name,
                    "gserver_manager").start()
+    tele = TelemetryExporter(
+        cfg.experiment_name, cfg.trial_name, "gserver_manager", "manager",
+        step_fn=lambda: max(manager.version, 0),
+        gauges_fn=lambda: {
+            "rollouts_running": float(manager.rollout_stat.running),
+            "rollouts_submitted": float(manager.rollout_stat.submitted),
+            "rollouts_accepted": float(manager.rollout_stat.accepted),
+        },
+        # per-server breaker states: the fleet view's servers_* tallies
+        server_states_fn=manager.server_states,
+    ).maybe_start()
     try:
         while watch.alive():
             time.sleep(1.0)
     finally:
         hb.stop()
         manager.stop()
+        tele.stop()
 
 
 def rollout_worker_main(cfg, worker_idx: int):
     _setup_worker_env(cfg, "cpu")
+    with _worker_observability(f"rollout_worker/{worker_idx}"):
+        _rollout_worker(cfg, worker_idx)
+
+
+def _rollout_worker(cfg, worker_idx: int):
     from areal_tpu_torch.api.agent import make_agent
     from areal_tpu_torch.api.dataset import DatasetUtility, make_dataset
     from areal_tpu_torch.api.env import make_env
@@ -304,6 +383,7 @@ def rollout_worker_main(cfg, worker_idx: int):
     from areal_tpu_torch.system.worker_base import (
         ExperimentStatusWatch,
         Heartbeat,
+        TelemetryExporter,
     )
 
     util = DatasetUtility(
@@ -340,6 +420,16 @@ def rollout_worker_main(cfg, worker_idx: int):
     hb = Heartbeat(
         cfg.experiment_name, cfg.trial_name, f"rollout_worker/{worker_idx}"
     ).start()
+    tele = TelemetryExporter(
+        cfg.experiment_name, cfg.trial_name,
+        f"rollout_worker/{worker_idx}", "rollout",
+        step_fn=lambda: worker.push_cnt,
+        gauges_fn=lambda: {
+            "rollout_tasks_running": float(worker.n_tasks()),
+            "rollout_requeued": float(worker.requeued_cnt),
+            "rollout_dropped": float(worker.dropped_cnt),
+        },
+    ).maybe_start()
     try:
         asyncio.run(worker.run_async(should_stop=lambda: not watch.alive()))
     except http.ClientConnectionError:
@@ -351,6 +441,7 @@ def rollout_worker_main(cfg, worker_idx: int):
         logger.info("manager gone at teardown; rollout worker stops")
     finally:
         hb.stop()
+        tele.stop()
 
 
 def _load_ppo_engines(cfg, total_steps):
@@ -376,6 +467,11 @@ def _load_ppo_engines(cfg, total_steps):
 
 def trainer_main(cfg):
     _setup_worker_env(cfg, cfg.trainer_device)
+    with _worker_observability("trainer"):
+        _trainer(cfg)
+
+
+def _trainer(cfg):
     from areal_tpu_torch.base import constants
     from areal_tpu_torch.base.metrics import MetricLogger
     from areal_tpu_torch.system import worker_base
@@ -428,9 +524,15 @@ def trainer_main(cfg):
     if not recovered:
         # v0: the fleet starts from the trainer's init
         worker.publish_weights()
+    tele = worker_base.TelemetryExporter(
+        cfg.experiment_name, cfg.trial_name, "trainer", "trainer",
+        step_fn=lambda: worker.step,
+        gauges_fn=worker.telemetry_gauges,
+    ).maybe_start()
     try:
         worker.run(shutdown=shutdown)
     finally:
+        tele.stop()
         stream.close()
         if worker.metrics is not None:
             worker.metrics.close()

@@ -10,15 +10,14 @@ line, with the reference's keys:
 
 ``--device`` empty (the default) is the card, ``cpu`` the CPU. MFU is
 against ``--peak-flops``, by default one H100's dense bf16 peak
-(989 TFLOP/s, NVIDIA's data sheet, SXM part). ``AREAL_DUMP_TRACE`` asks
-the reference for a trace of the timed steps; the port's tracing twin is
-not there yet, so the knob is logged and ignored.
+(989 TFLOP/s, NVIDIA's data sheet, SXM part). With ``AREAL_DUMP_TRACE=1``
+the timed steps are recorded by ``torch.profiler`` and written as a Chrome
+trace under ``$AREAL_FILEROOT/traces/profile`` (``base/tracing.py``).
 """
 
 import argparse
 import json
 import logging
-import os
 import sys
 import time
 from typing import List
@@ -43,14 +42,12 @@ def run_profile(
 
     from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
     from areal_tpu_torch.base import flops as flops_mod
+    from areal_tpu_torch.base import tracing
     from areal_tpu_torch.interfaces.sft import sft_loss_fn
     from areal_tpu_torch.train.engine import TrainEngine
 
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    if os.environ.get("AREAL_DUMP_TRACE"):
-        logger.info("AREAL_DUMP_TRACE is set: the port has no tracing twin "
-                    "yet, so no trace is written")
     cfg = model_spec.model_config()
     eng = TrainEngine(cfg, model_spec.parallel_config(), model_spec.optimizer,
                       device=device or None)
@@ -78,11 +75,12 @@ def run_profile(
     for _ in range(max(n_warmup, 1)):
         eng.train_batch(sample, spec, sft_loss_fn, fetch_stats=False)
     sync()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        eng.train_batch(sample, spec, sft_loss_fn, fetch_stats=False)
-    sync()
-    dt = (time.perf_counter() - t0) / n_steps
+    with tracing.maybe_trace("profile"):
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.train_batch(sample, spec, sft_loss_fn, fetch_stats=False)
+        sync()
+        dt = (time.perf_counter() - t0) / n_steps
 
     fl = flops_mod.train_flops(cfg, T, seqlens=seqlens)
     return {

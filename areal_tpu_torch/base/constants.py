@@ -24,11 +24,23 @@ PREEMPT_DEADLINE_ENV = "AREAL_PREEMPT_DEADLINE_S"  # SIGTERM -> ckpt-save budget
 WATCHDOG_TIMEOUT_ENV = "AREAL_WATCHDOG_TIMEOUT_S"  # 0/unset disables the watchdog
 WATCHDOG_ABORT_ENV = "AREAL_WATCHDOG_ABORT"   # dump AND exit so the scheduler restarts
 TELEMETRY_EXPORT_ENV = "AREAL_TELEMETRY_EXPORT"
+# observability (base/tracing.py, system/worker_base.py FlightRecorder)
+TRACE_ENV = "AREAL_DUMP_TRACE"                # torch.profiler traces per step
+TRACE_SPANS_ENV = "AREAL_TRACE_SPANS"        # span ring + trace-id propagation
+TRACE_RING_ENV = "AREAL_TRACE_RING"          # completed-span ring capacity
+TRACE_FLUSH_ENV = "AREAL_TRACE_FLUSH_S"      # dedicated span-flush period
+TRACE_LOG_TAIL_ENV = "AREAL_TRACE_LOG_TAIL"  # flight-recorder log-tail lines
+NAME_RESOLVE_RPC_ENV = "AREAL_NAME_RESOLVE_RPC"  # host:port of the TCP store
 TRAIN_PREFETCH_ENV = "AREAL_TRAIN_PREFETCH"   # deferred stats (flush cadence)
 
 
 def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
     return os.environ.get(name, default)
+
+
+def log_level() -> str:
+    """``AREAL_LOG_LEVEL``: root log level of the port's loggers."""
+    return (env_str("AREAL_LOG_LEVEL", "INFO") or "INFO").upper()
 
 
 def kv_dtype() -> Optional[str]:
@@ -278,21 +290,77 @@ def name_resolve_root() -> str:
     )
 
 
+def name_resolve_rpc() -> Optional[str]:
+    """``AREAL_NAME_RESOLVE_RPC``: ``host:port`` of the TCP name-resolve
+    server (``base/name_resolve_server.py``; several hosts without a
+    shared filesystem); None -> the file backend."""
+    return env_str(NAME_RESOLVE_RPC_ENV)
+
+
+def trace_enabled() -> bool:
+    """``AREAL_DUMP_TRACE``: collect ``torch.profiler`` traces of the
+    wrapped steps (``tracing.maybe_trace``) and name regions in them
+    (``tracing.annotate``)."""
+    return env_flag(TRACE_ENV, False)
+
+
+def trace_step() -> int:
+    """``AREAL_TRACE_STEP`` (default 3): which training step the trainers
+    trace (tracing every step would grow without bound)."""
+    return env_int("AREAL_TRACE_STEP", 3)
+
+
 DEFAULT_TELEMETRY_INTERVAL_S = 15.0
 
 
 def telemetry_export_interval() -> float:
     """``AREAL_TELEMETRY_EXPORT`` (default off): per-worker telemetry
-    snapshot period in seconds; "true"/"on"/"1" -> 15 s. The exporter
-    itself waits for the telemetry twin; the knob is read so configs
-    carry over."""
+    snapshot period in seconds (``worker_base.TelemetryExporter``).
+    Unset/"0"/"false"/"off" disables the exporter entirely (no thread, no
+    snapshot); "true"/"on"/"1" enables it at the default 15 s; another
+    number sets the period."""
     raw = env_str(TELEMETRY_EXPORT_ENV)
     if raw is None or raw.strip().lower() in _OFF_STRINGS:
         return 0.0
     if raw.strip().lower() in ("true", "on", "1"):
+        # "1" means "enabled", not a one-second firehose
         return DEFAULT_TELEMETRY_INTERVAL_S
     return max(env_float(TELEMETRY_EXPORT_ENV, DEFAULT_TELEMETRY_INTERVAL_S),
                0.0)
+
+
+DEFAULT_TRACE_RING = 4096
+
+
+def trace_spans_enabled() -> bool:
+    """``AREAL_TRACE_SPANS`` (default on): stamp every ``tracing.span``
+    with W3C-style trace / span ids, record its completion into the
+    bounded per-process ring and carry the trace context over the HTTP
+    hops. "0"/"off" reverts spans to bare counter accumulation."""
+    return env_flag(TRACE_SPANS_ENV, True)
+
+
+def trace_ring_size() -> int:
+    """``AREAL_TRACE_RING`` (default 4096): capacity of the per-process
+    completed-span ring; the oldest spans are overwritten (counted in
+    ``trace/dropped``). Floored at 16, so a typed "0" cannot silently
+    turn the flight recorder's span evidence off."""
+    return max(16, env_int(TRACE_RING_ENV, DEFAULT_TRACE_RING))
+
+
+def trace_flush_interval() -> float:
+    """``AREAL_TRACE_FLUSH_S`` (default 0 = ride the telemetry exporter):
+    period of a dedicated thread draining the completed-span ring to
+    ``<fileroot>/trace_spans/<worker>.jsonl``. At 0 there is no such
+    thread: the ring is flushed on every telemetry publish and once when
+    the worker stops."""
+    return max(0.0, env_float(TRACE_FLUSH_ENV, 0.0))
+
+
+def trace_log_tail() -> int:
+    """``AREAL_TRACE_LOG_TAIL`` (default 200): recent log lines the flight
+    recorder keeps in memory for its dump (0 keeps none)."""
+    return max(0, env_int(TRACE_LOG_TAIL_ENV, 200))
 
 
 def watchdog_abort_enabled() -> bool:
@@ -333,6 +401,13 @@ def get_fileroot() -> str:
     )
 
 
+def trace_root() -> str:
+    """``AREAL_FILEROOT`` for profiler traces (``traces/<tag>``), else the
+    shared default root (not the per-user file root), as the reference
+    keeps it."""
+    return env_str("AREAL_FILEROOT", default_root())
+
+
 def set_fileroot(path: str):
     os.environ["AREAL_FILEROOT"] = path
 
@@ -359,5 +434,21 @@ def get_param_sync_root() -> str:
 
 def get_recover_root() -> str:
     p = os.path.join(get_save_root(), "recover")
+    os.makedirs(p, exist_ok=True)
+    return p
+
+
+def get_trace_span_root() -> str:
+    """Where the per-worker span flushes land (one jsonl per worker;
+    ``system/tracejoin.py`` merges them). Keyed by the file root only: the
+    records carry their own worker identity."""
+    p = os.path.join(get_fileroot(), "trace_spans")
+    os.makedirs(p, exist_ok=True)
+    return p
+
+
+def get_flight_root() -> str:
+    """Where flight-recorder dumps land (one JSON per dump)."""
+    p = os.path.join(get_fileroot(), "flight")
     os.makedirs(p, exist_ok=True)
     return p

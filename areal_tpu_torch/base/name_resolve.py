@@ -4,14 +4,18 @@ of ``areal_tpu/base/name_resolve.py``, same semantics):
 - ``MemoryNameRecordRepository``: an in-process dict, for tests and
   single-process runs (the module default);
 - ``FileNameRecordRepository``: a shared-filesystem store, one small text
-  file per key, for runs of several processes.
+  file per key, for runs of several processes;
+- ``RpcNameRecordRepository``: a TCP client of the self-hosted
+  ``base/name_resolve_server.py`` (newline-JSON, etcd-style keepalive
+  leases), for several hosts without a shared filesystem. Its wire format
+  is the reference's.
 
 ``add`` (with ``replace`` / ``delete_on_exit``), ``get``, ``wait`` (poll
 until a key appears), ``delete``, ``clear_subtree``, ``get_subtree``,
-``find_subtree`` and ``reset`` (drop everything this process added).
-``reconfigure(NameResolveConfig(type="file", root=...))`` swaps the module
-default, as the launcher does in every process of a run. The reference's
-TCP backend (``type="rpc"``) is not ported.
+``find_subtree``, ``watch_names`` and ``reset`` (drop everything this
+process added). ``reconfigure(NameResolveConfig(type="file", root=...))``
+(or ``type="rpc", root="host:port"``) swaps the module default, as the
+launcher does in every process of a run.
 """
 
 import dataclasses
@@ -21,7 +25,11 @@ import shutil
 import tempfile
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
+
+from areal_tpu_torch.base import constants, logging
+
+logger = logging.getLogger("name_resolve")
 
 ROOT_ENV = "AREAL_NAME_RESOLVE_ROOT"
 
@@ -80,6 +88,39 @@ class NameRecordRepository:
     def reset(self):
         """Delete every entry added (with delete_on_exit) by this repo."""
         raise NotImplementedError()
+
+    def watch_names(
+        self,
+        names: List[str],
+        call_back: Callable[[], None],
+        poll_frequency: float = 5.0,
+        wait_timeout: float = 300.0,
+    ):
+        """Spawn a daemon thread that fires ``call_back`` once any of
+        ``names`` disappears (after having existed)."""
+        if isinstance(names, str):
+            names = [names]
+
+        def _watch():
+            for name in names:
+                try:
+                    self.wait(name, timeout=wait_timeout)
+                except TimeoutError:
+                    logger.warning("watch_names: %s never appeared", name)
+                    call_back()
+                    return
+            while True:
+                try:
+                    for name in names:
+                        self.get(name)
+                except NameEntryNotFoundError:
+                    call_back()
+                    return
+                time.sleep(poll_frequency)
+
+        t = threading.Thread(target=_watch, daemon=True)
+        t.start()
+        return t
 
 
 def _under(key: str, root: str) -> bool:
@@ -238,10 +279,187 @@ class FileNameRecordRepository(NameRecordRepository):
                 pass
 
 
+class RpcNameRecordRepository(NameRecordRepository):
+    """TCP rendezvous backend (``base/name_resolve_server.py``): several
+    hosts without a shared filesystem and without etcd. One persistent socket
+    (newline-JSON protocol) with reconnect; a daemon thread refreshes the
+    lease of every key added with ``keepalive_ttl`` (etcd-style: a dead
+    process's keys expire, which is what death-watches rely on).
+
+    Address: ``host:port``, from the config root or
+    ``AREAL_NAME_RESOLVE_RPC``.
+    """
+
+    def __init__(self, address: Optional[str] = None):
+        import socket as _socket
+
+        address = address or constants.name_resolve_rpc()
+        if not address or ":" not in address:
+            raise ValueError(
+                "rpc name_resolve needs 'host:port' (config root or "
+                "AREAL_NAME_RESOLVE_RPC)"
+            )
+        host, _, port = address.rpartition(":")
+        self._addr = (host, int(port))
+        self._socket_mod = _socket
+        self._sock = None
+        self._rfile = None
+        self._lock = threading.Lock()
+        self._to_delete = set()
+        self._leases: Dict[str, float] = {}      # name -> ttl
+        self._lease_values: Dict[str, str] = {}  # name -> value (for re-add)
+        self._keepalive: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    def _connect_locked(self):
+        if self._sock is not None:
+            return
+        s = self._socket_mod.create_connection(self._addr, timeout=10.0)
+        s.settimeout(30.0)
+        self._sock = s
+        self._rfile = s.makefile("rb")
+
+    # ops safe to blindly re-send after a lost reply; mutating ops are NOT:
+    # a retried add whose first attempt landed would raise a spurious
+    # NameEntryExistsError for the caller's own key
+    _IDEMPOTENT = frozenset({"get", "get_subtree", "find_subtree", "touch",
+                             "ping"})
+
+    def _call(self, req: dict) -> dict:
+        import json as _json
+
+        with self._lock:
+            for attempt in (0, 1):
+                sent = False
+                try:
+                    self._connect_locked()
+                    self._sock.sendall((_json.dumps(req) + "\n").encode())
+                    sent = True
+                    line = self._rfile.readline()
+                    if not line:
+                        raise ConnectionError("server closed connection")
+                    return _json.loads(line)
+                except (OSError, ConnectionError):
+                    self._sock = None
+                    if attempt or (sent and req["op"] not in self._IDEMPOTENT):
+                        raise
+
+    def _ensure_keepalive(self):
+        if self._keepalive is not None:
+            return
+
+        def _loop():
+            while not self._stop.wait(1.0):
+                with self._lock:
+                    leases = dict(self._leases)
+                if not leases:
+                    continue
+                # one touch per distinct TTL — refreshing every key with
+                # the minimum would silently shorten longer leases
+                by_ttl: Dict[float, List[str]] = {}
+                for n, t in leases.items():
+                    by_ttl.setdefault(t, []).append(n)
+                for ttl, names in by_ttl.items():
+                    try:
+                        resp = self._call(
+                            {"op": "touch", "names": names, "ttl": ttl}
+                        )
+                        # a lease that lapsed (we stalled past the TTL) is
+                        # gone for good server-side; re-ADD it — an explicit
+                        # re-registration after the death-watch window
+                        for n in resp.get("missing", []):
+                            with self._lock:
+                                value = self._lease_values.get(n)
+                            if value is not None:
+                                self._call({
+                                    "op": "add", "name": n, "value": value,
+                                    "replace": True, "ttl": ttl,
+                                })
+                    except Exception:  # noqa: BLE001 - retried next tick
+                        pass
+
+        self._keepalive = threading.Thread(target=_loop, daemon=True)
+        self._keepalive.start()
+
+    def add(self, name, value, delete_on_exit=True, keepalive_ttl=None,
+            replace=False):
+        name = name.rstrip("/")
+        resp = self._call({
+            "op": "add", "name": name, "value": str(value),
+            "replace": replace, "ttl": keepalive_ttl,
+        })
+        if not resp["ok"]:
+            if resp.get("error") == "exists":
+                raise NameEntryExistsError(name)
+            raise RuntimeError(
+                f"name_resolve add({name!r}) failed: {resp.get('error')}"
+            )
+        if delete_on_exit:
+            self._to_delete.add(name)
+        if keepalive_ttl:
+            with self._lock:
+                self._leases[name] = float(keepalive_ttl)
+                self._lease_values[name] = str(value)
+            self._ensure_keepalive()
+
+    def get(self, name):
+        resp = self._call({"op": "get", "name": name.rstrip("/")})
+        if not resp["ok"]:
+            raise NameEntryNotFoundError(name)
+        return resp["value"]
+
+    def delete(self, name):
+        name = name.rstrip("/")
+        resp = self._call({"op": "delete", "name": name})
+        self._to_delete.discard(name)
+        with self._lock:
+            self._leases.pop(name, None)
+            self._lease_values.pop(name, None)
+        if not resp["ok"]:
+            raise NameEntryNotFoundError(name)
+
+    def clear_subtree(self, name_root):
+        self._call({"op": "clear_subtree", "name": name_root.rstrip("/")})
+        root = name_root.rstrip("/")
+        self._to_delete = {
+            n for n in self._to_delete
+            if not (n == root or n.startswith(root + "/"))
+        }
+
+    def get_subtree(self, name_root):
+        return self._call(
+            {"op": "get_subtree", "name": name_root.rstrip("/")}
+        )["values"]
+
+    def find_subtree(self, name_root):
+        return self._call(
+            {"op": "find_subtree", "name": name_root.rstrip("/")}
+        )["keys"]
+
+    def reset(self):
+        names = list(self._to_delete)
+        self._to_delete.clear()
+        with self._lock:
+            self._leases.clear()
+            self._lease_values.clear()
+        if names:
+            self._call({"op": "delete_many", "names": names})
+
+    def close(self):
+        self._stop.set()
+        with self._lock:
+            if self._sock is not None:
+                try:
+                    self._sock.close()
+                except OSError:
+                    pass
+                self._sock = None
+
+
 @dataclasses.dataclass
 class NameResolveConfig:
-    type: str = "file"  # "memory" | "file"
-    root: Optional[str] = None  # file: directory
+    type: str = "file"  # "memory" | "file" | "rpc"
+    root: Optional[str] = None  # file: directory; rpc: "host:port"
 
 
 _DEFAULT: NameRecordRepository = MemoryNameRecordRepository()
@@ -253,8 +471,7 @@ def make_repository(cfg: NameResolveConfig) -> NameRecordRepository:
     if cfg.type == "file":
         return FileNameRecordRepository(cfg.root)
     if cfg.type == "rpc":
-        raise NotImplementedError(
-            "the TCP name-resolve backend is not ported yet (ROADMAP.md)")
+        return RpcNameRecordRepository(cfg.root)
     raise ValueError(f"Unknown name_resolve backend: {cfg.type}")
 
 
@@ -306,6 +523,10 @@ def get_subtree(*args, **kwargs):
 
 def find_subtree(*args, **kwargs):
     return _DEFAULT.find_subtree(*args, **kwargs)
+
+
+def watch_names(*args, **kwargs):
+    return _DEFAULT.watch_names(*args, **kwargs)
 
 
 def reset():

@@ -45,3 +45,12 @@ def worker_status(experiment_name, trial_name, worker_name) -> str:
 
 def experiment_status(experiment_name, trial_name) -> str:
     return f"{trial_root(experiment_name, trial_name)}/experiment_status"
+
+
+def telemetry(experiment_name, trial_name, worker_name) -> str:
+    """Per-worker telemetry snapshot (JSON) published by the exporter."""
+    return f"{trial_root(experiment_name, trial_name)}/telemetry/{worker_name}"
+
+
+def telemetry_root(experiment_name, trial_name) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/telemetry"

@@ -25,6 +25,7 @@ import shutil
 from typing import Dict, Iterator, List, Optional, Tuple
 
 from areal_tpu_torch.base import constants
+from areal_tpu_torch.base import metrics as metrics_mod
 
 logger = logging.getLogger("areal_tpu_torch.recover")
 
@@ -231,7 +232,8 @@ def resolve_committed(path: str) -> Optional[str]:
     if best != path:
         # the canonical dir was missing/uncommitted/stale and a committed
         # sibling (a crash between manifest fsync and the renames) is
-        # promoted
+        # promoted: the event guard/ckpt_fallbacks counts
+        metrics_mod.counters.add(metrics_mod.GUARD_CKPT_FALLBACKS)
         logger.warning(
             "promoting newest committed checkpoint %s -> %s "
             "(a previous save crashed mid-commit)", best, path,

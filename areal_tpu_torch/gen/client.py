@@ -14,9 +14,12 @@ so the number of calls in flight is bounded by nothing but the callers).
   from the long ``timeout`` that bounds a generate.
 - A 4xx/5xx answer raises ``ClientResponseError`` carrying ``status``, as
   ``aiohttp.ClientResponseError`` does in the reference.
-
-The reference's fault-injection points and tracing context are not
-ported.
+- Named fault-injection points (``gen.http`` before every attempt,
+  ``gen.weight_update`` before a weight update; ``base/faults.py``) let
+  tests script failures; retries count in ``ft/client_retries``.
+- ``generate`` runs in a ``gen_client/generate`` span, and both generate
+  calls carry the caller's trace context in the body's ``trace`` field,
+  so the server's spans join the caller's trace.
 """
 
 import asyncio
@@ -26,7 +29,8 @@ import random
 import time
 from typing import Dict, List, Optional
 
-from areal_tpu_torch.base import http
+from areal_tpu_torch.base import faults, http, tracing
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.base.http import (  # noqa: F401  (re-exported)
     ClientConnectionError,
     ClientError,
@@ -40,6 +44,7 @@ class DeadlineExceeded(asyncio.TimeoutError):
 
 
 # the request never completed: safe to retry even non-idempotent calls
+# (ConnectionError includes faults.FaultInjected)
 CONNECTION_ERRORS = (ClientConnectionError, ConnectionError, asyncio.TimeoutError)
 # 5xx the fleet emits while pausing/restarting: transient by contract
 RETRYABLE_STATUS = (502, 503, 504)
@@ -97,6 +102,7 @@ class GenAPIClient:
         method: str,
         server_url: str,
         endpoint: str,
+        op: str,
         json_body: Optional[Dict] = None,
         timeout: Optional[float] = None,
         retry_connection_only: bool = False,
@@ -108,6 +114,8 @@ class GenAPIClient:
         attempt = 0
         while True:
             try:
+                await faults.maybe_fail_async(
+                    "gen.http", url=server_url, op=op)
                 return await http.request_json(
                     method, f"{server_url}{endpoint}", json_body,
                     timeout=self.timeout if timeout is None else timeout)
@@ -125,6 +133,7 @@ class GenAPIClient:
                 if not retryable or attempt >= self.retry.max_attempts:
                     raise
                 self.retries += 1
+                metrics_mod.counters.add(metrics_mod.FT_CLIENT_RETRIES)
                 await asyncio.sleep(self.retry.delay(attempt - 1, self._rng))
 
     async def generate(
@@ -134,12 +143,18 @@ class GenAPIClient:
         input_ids: List[int],
         sampling_params: Dict,
     ) -> APIGenerateResult:
-        d = await self._request_json(
-            "POST", server_url, "/generate",
-            json_body={"rid": rid, "input_ids": input_ids,
-                       "sampling_params": sampling_params},
-            retry_connection_only=True,
-        )
+        with tracing.span("gen_client/generate", rid=rid):
+            body = {"rid": rid, "input_ids": input_ids,
+                    "sampling_params": sampling_params}
+            trace = tracing.wire_context()
+            if trace is not None:
+                # the hop's trace context: the server activates it, so its
+                # spans join this one as children
+                body["trace"] = trace
+            d = await self._request_json(
+                "POST", server_url, "/generate", op="generate",
+                json_body=body, retry_connection_only=True,
+            )
         return APIGenerateResult(
             rid=d["rid"],
             output_ids=d["output_ids"],
@@ -172,6 +187,9 @@ class GenAPIClient:
         ``"deadline"`` frame and frees the slot when it runs out."""
         body = {"rid": rid, "input_ids": input_ids,
                 "sampling_params": sampling_params}
+        trace = tracing.wire_context()
+        if trace is not None:
+            body["trace"] = trace
         t_deadline = None
         if deadline_s is not None and deadline_s > 0:
             body["deadline_s"] = float(deadline_s)
@@ -183,6 +201,8 @@ class GenAPIClient:
                 raise DeadlineExceeded(
                     f"deadline expired before the stream for {rid} opened")
             try:
+                await faults.maybe_fail_async(
+                    "gen.http", url=server_url, op="generate_stream")
                 stream = await http.open_stream("POST", url, body,
                                                 timeout=self.timeout)
                 break
@@ -200,6 +220,7 @@ class GenAPIClient:
                         f"deadline expired during connect backoff for {rid}"
                     ) from e
                 self.retries += 1
+                metrics_mod.counters.add(metrics_mod.FT_CLIENT_RETRIES)
                 await asyncio.sleep(delay)
         try:
             while True:
@@ -224,11 +245,13 @@ class GenAPIClient:
         version: Optional[int] = None,
         allow_interrupt: bool = True,
     ) -> Dict:
+        await faults.maybe_fail_async("gen.weight_update", url=server_url)
         # connection-only retries: a refused connection fails in
         # milliseconds, but a black-holing server burns the timeout at most
         # once (the manager's fan-out awaits the slowest server)
         return await self._request_json(
             "POST", server_url, "/update_weights_from_disk",
+            op="update_weights",
             json_body={"model_path": model_path, "version": version,
                        "allow_interrupt": allow_interrupt},
             retry_connection_only=True,
@@ -239,29 +262,32 @@ class GenAPIClient:
         server's next chunk dispatch). Control-plane call: short per-call
         timeout, idempotent, so the full retry policy applies."""
         return await self._request_json(
-            "POST", server_url, "/spec_decode",
+            "POST", server_url, "/spec_decode", op="spec_decode",
             json_body={"enabled": bool(enabled)},
             timeout=self.request_timeout,
         )
 
     async def post_json(self, server_url: str, endpoint: str,
-                        json_body: Dict) -> Dict:
+                        json_body: Dict, op: str = "control") -> Dict:
         """Idempotent control-plane POST (manager ``/add_server``, ...):
         short per-call timeout, full retry policy."""
         return await self._request_json(
-            "POST", server_url, endpoint, json_body=json_body,
+            "POST", server_url, endpoint, op=op, json_body=json_body,
             timeout=self.request_timeout,
         )
 
     async def metrics(self, server_url: str) -> Dict:
         return await self._request_json(
-            "GET", server_url, "/metrics_json", timeout=self.request_timeout,
+            "GET", server_url, "/metrics_json", op="metrics",
+            timeout=self.request_timeout,
         )
 
     async def health(self, server_url: str) -> bool:
         """One probe with the short per-call timeout, never retried (the
         breaker's half-open logic supplies the retry cadence)."""
         try:
+            await faults.maybe_fail_async(
+                "gen.http", url=server_url, op="health")
             await http.request_json("GET", f"{server_url}/health",
                                     timeout=self.request_timeout)
             return True

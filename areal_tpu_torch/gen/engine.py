@@ -79,7 +79,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from areal_tpu_torch.base import constants
+from areal_tpu_torch.base import constants, tracing
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.base.device import resolve_device, torch_dtype
 from areal_tpu_torch.gen.drafter import (
     Drafter,
@@ -441,6 +442,9 @@ class GenerationEngine:
         )
         self._spec_k_choices = sorted({1, 2, 4, 8} | {self.spec_k})
         self._accept_window: List[float] = []
+        if self.spec:
+            metrics_mod.counters.gauge(metrics_mod.GEN_SPEC_K_CURRENT,
+                                       float(self.spec_k))
         # accept length -> (step, slot) count over every spec chunk
         self.spec_accept_hist: Dict[int, int] = {}
         self.accepting = True  # False = decode only, no new admissions
@@ -701,15 +705,20 @@ class GenerationEngine:
     # ------------------------------------------------------------------ #
 
     def submit(self, req: GenRequest):
-        need = len(req.input_ids) - 1 + min(req.max_new_tokens, self.G)
-        if need > self.S:
-            raise ValueError(
-                f"prompt {len(req.input_ids)} + max_new "
-                f"{req.max_new_tokens} exceeds per-slot capacity {self.S}"
-            )
-        with self._pending_lock:
-            self._pending.append(req)
-            self._req_meta[req.rid] = req
+        # runs on the server's handler thread, so the span inherits the
+        # request's activated trace context: the engine-layer hop of the
+        # distributed trace (chunk spans are batch-level and root their own)
+        with tracing.span("gen_engine/submit", rid=req.rid,
+                          prompt_len=len(req.input_ids)):
+            need = len(req.input_ids) - 1 + min(req.max_new_tokens, self.G)
+            if need > self.S:
+                raise ValueError(
+                    f"prompt {len(req.input_ids)} + max_new "
+                    f"{req.max_new_tokens} exceeds per-slot capacity {self.S}"
+                )
+            with self._pending_lock:
+                self._pending.append(req)
+                self._req_meta[req.rid] = req
 
     def free_slots(self) -> int:
         return sum(s is None for s in self._slots)
@@ -760,6 +769,17 @@ class GenerationEngine:
     def kv_pool_occupancy(self) -> float:
         """Fraction of pool pages currently held (slots + prefix cache)."""
         return 1.0 - self.pool.n_free / max(self.n_pages, 1)
+
+    def _observe_occupancy(self):
+        """Fold the pool occupancy into the telemetry histogram: host
+        arithmetic on the page counts, at a chunk dispatch."""
+        occ = self.kv_pool_occupancy()
+        metrics_mod.counters.observe(metrics_mod.GEN_KV_POOL_OCCUPANCY, occ)
+        if self._draft is not None:
+            # lockstep pools: the draft pool's occupancy is the target's,
+            # under its own name
+            metrics_mod.counters.observe(
+                metrics_mod.GEN_DRAFT_KV_POOL_OCCUPANCY, occ)
 
     def kv_pool_demand_occupancy(self) -> float:
         """Occupancy excluding prefix-cache-only pages (instantly
@@ -1619,12 +1639,22 @@ class GenerationEngine:
             self.stats["fused_sample_steps"] += n_steps
             self.stats["fused_topk_steps"] += n_steps * with_topk
             self.stats["sampler_fallback_rows"] += n_fallback * n_steps
+            metrics_mod.counters.add(metrics_mod.GEN_FUSED_SAMPLE_STEPS,
+                                     n_steps)
+            if n_fallback:
+                metrics_mod.counters.add(
+                    metrics_mod.GEN_SAMPLER_FALLBACK_ROWS,
+                    n_fallback * n_steps)
 
     def _count_spec_steps(self, n_steps: int, fused: bool, n_fallback: int):
         self.stats["spec_steps"] += n_steps
         if fused:
             self.stats["spec_fused_steps"] += n_steps
             self.stats["sampler_fallback_rows"] += n_fallback * n_steps
+            if n_fallback:
+                metrics_mod.counters.add(
+                    metrics_mod.GEN_SAMPLER_FALLBACK_ROWS,
+                    n_fallback * n_steps)
 
     def _chunk_key(self, decode_steps: int, running: List[int]):
         """``(spec, key, warp_slots, tok_bound)`` for the resident slots:
@@ -1713,10 +1743,12 @@ class GenerationEngine:
         fetch, and in ``chunk_flag_blocked`` every one that still had to
         wait for the card."""
         self.stats["chunk_flag_fetches"] += 1
+        metrics_mod.counters.add(metrics_mod.GEN_CHUNK_FLAG_FETCHES)
         done = inflight.io.done
         if done is not None:
             if not done.query():
                 self.stats["chunk_flag_blocked"] += 1
+                metrics_mod.counters.add(metrics_mod.GEN_CHUNK_FLAG_BLOCKED)
             done.synchronize()
         seconds = self._clock.seconds(*inflight.decode)
         self.stats["decode_s"] += seconds
@@ -1740,9 +1772,14 @@ class GenerationEngine:
         acc = accepted[live].astype(np.int64)
         self.stats["spec_draft_tokens"] += d
         self.stats["spec_accepted_tokens"] += int(acc.sum())
+        metrics_mod.counters.add(metrics_mod.GEN_SPEC_DRAFT_TOKENS, d)
+        metrics_mod.counters.add(metrics_mod.GEN_SPEC_ACCEPTED_TOKENS,
+                                 int(acc.sum()))
         for v, c in zip(*np.unique(acc, return_counts=True)):
             self.spec_accept_hist[int(v)] = (
                 self.spec_accept_hist.get(int(v), 0) + int(c))
+            metrics_mod.counters.observe(metrics_mod.GEN_SPEC_ACCEPT_LEN,
+                                         float(v), n=int(c))
         if self._draft is not None:
             q_acc = aux[2][live]
             self.stats["spec_q_accept_prob_sum"] += float(q_acc.sum())
@@ -1775,6 +1812,8 @@ class GenerationEngine:
                         "%.2f)", self.spec_k, new_k, mean_acc)
             self.spec_k = new_k
             self._accept_window.clear()
+            metrics_mod.counters.gauge(metrics_mod.GEN_SPEC_K_CURRENT,
+                                       float(new_k))
         else:
             del self._accept_window[: -self.SPEC_K_ADAPT_WINDOW]
 
@@ -1852,12 +1891,17 @@ class GenerationEngine:
         with self._lock:
             if self.paused:
                 return []
-            if self.pipeline:
-                return self._step_pipelined(decode_steps)
-            inflight = self._admit_and_dispatch(decode_steps)
-            if inflight is None:
-                return []
-            return self._harvest_chunk(inflight)
+            # batch-level chunk span on the engine thread: it roots its own
+            # trace (a request's hops join at submit) and times the host's
+            # dispatch and harvest, not the device's work
+            with tracing.span("gen_engine/chunk", steps=decode_steps) as attrs:
+                if self.pipeline:
+                    return self._step_pipelined(decode_steps)
+                inflight = self._admit_and_dispatch(decode_steps)
+                if inflight is None:
+                    return []
+                attrs["slots"] = len(inflight.running)
+                return self._harvest_chunk(inflight)
 
     def _step_pipelined(self, decode_steps: int) -> List[GenOutput]:
         new = self._admit_and_dispatch(decode_steps)
@@ -1877,6 +1921,7 @@ class GenerationEngine:
         running = [b for b, s in enumerate(self._slots) if s is not None]
         spec, key, warp_slots, tok_bound = self._chunk_key(decode_steps,
                                                            running)
+        self._observe_occupancy()
         return self._dispatch(spec, key, warp_slots, running,
                               self._spans if admitted else [], tok_bound)
 

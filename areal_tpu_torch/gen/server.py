@@ -53,7 +53,8 @@ import threading
 import time
 from typing import Dict, Optional
 
-from areal_tpu_torch.base import constants, hbm, http
+from areal_tpu_torch.base import constants, faults, hbm, http, tracing
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.gen.engine import GenerationEngine, GenOutput, GenRequest
 from areal_tpu_torch.models import hf as hf_conv
 from areal_tpu_torch.models import transformer as tfm
@@ -309,6 +310,12 @@ class GenerationHTTPServer:
             with self._futures_lock:
                 fut = self._futures.pop(o.rid, None)
             if fut is not None and not fut.done():
+                # the telemetry plane's activity counters, counted where
+                # the answer is made (so they agree with /metrics_json);
+                # a stream counts the tokens it sent when it ends
+                metrics_mod.counters.add(metrics_mod.GEN_SERVED)
+                metrics_mod.counters.add(metrics_mod.GEN_TOKENS,
+                                         len(o.output_ids))
                 fut.set_result(o)
             with self._streams_lock:
                 sub = self._streams.get(o.rid)
@@ -363,22 +370,27 @@ class GenerationHTTPServer:
         if self._error is not None:
             return 500, {"error": f"engine failed: {self._error!r}"}
         try:
-            req, _ = self._parse_request(body)
+            req, d = self._parse_request(body)
         except RequestValidationError as e:
             return 400, {"error": str(e)}
-        fut: concurrent.futures.Future = concurrent.futures.Future()
-        with self._futures_lock:
-            self._futures[req.rid] = fut
-        try:
-            self.engine.submit(req)
-        except ValueError as e:
+        # join the caller's distributed trace (or root a fresh one): the
+        # optional 'trace' body field is the wire context every internal
+        # client attaches; this handler thread holds it for the request
+        with tracing.activate(d.get("trace")), tracing.span(
+                "gen_server/generate", rid=req.rid):
+            fut: concurrent.futures.Future = concurrent.futures.Future()
             with self._futures_lock:
-                self._futures.pop(req.rid, None)
-            return 400, {"error": str(e)}
-        try:
-            out: GenOutput = fut.result()
-        except BaseException as e:  # noqa: BLE001 - engine failure -> 500
-            return 500, {"error": f"engine failed: {e!r}"}
+                self._futures[req.rid] = fut
+            try:
+                self.engine.submit(req)
+            except ValueError as e:
+                with self._futures_lock:
+                    self._futures.pop(req.rid, None)
+                return 400, {"error": str(e)}
+            try:
+                out: GenOutput = fut.result()
+            except BaseException as e:  # noqa: BLE001 - engine failure -> 500
+                return 500, {"error": f"engine failed: {e!r}"}
         return 200, {
             "rid": out.rid,
             "output_ids": out.output_ids,
@@ -403,21 +415,39 @@ class GenerationHTTPServer:
         sub = _StreamSub(queue=queue.Queue())
         with self._streams_lock:
             self._streams[req.rid] = sub
-        try:
-            self.engine.submit(req)
-        except ValueError as e:
-            with self._streams_lock:
-                self._streams.pop(req.rid, None)
-            return 400, {"error": str(e)}
+        with tracing.activate(d.get("trace")):
+            try:
+                self.engine.submit(req)
+            except ValueError as e:
+                with self._streams_lock:
+                    self._streams.pop(req.rid, None)
+                return 400, {"error": str(e)}
         return 200, http.Stream(
-            self._stream_frames(req.rid, sub, deadline_t),
+            self._stream_frames(req.rid, sub, deadline_t, d.get("trace")),
             on_close=functools.partial(self._close_stream, req.rid, sub),
         )
 
     def _stream_frames(self, rid: str, sub: _StreamSub,
-                       deadline_t: Optional[float]):
+                       deadline_t: Optional[float], trace=None):
         """The stream's frames, as the engine thread queues them; a
-        keep-alive comment after 0.5 s without any."""
+        keep-alive comment after 0.5 s without any. The whole stream is
+        one ``gen_server/generate_stream`` span in the caller's trace."""
+        with tracing.activate(trace), tracing.span(
+                "gen_server/generate_stream", rid=rid) as attrs:
+            attrs["frames"] = attrs["tokens"] = 0
+            try:
+                yield from self._frames(rid, sub, deadline_t, attrs)
+            except GeneratorExit:
+                # closed before its end: the client went away (not a
+                # server error; the close cancels the slot)
+                attrs["disconnected"] = True
+            finally:
+                metrics_mod.counters.add(metrics_mod.GEN_SERVED)
+                metrics_mod.counters.add(metrics_mod.GEN_TOKENS,
+                                         attrs["tokens"])
+
+    def _frames(self, rid: str, sub: _StreamSub,
+                deadline_t: Optional[float], attrs: dict):
         while True:
             now = time.monotonic()
             if deadline_t is not None and now >= deadline_t:
@@ -436,10 +466,21 @@ class GenerationHTTPServer:
             if ev is None:
                 yield b": chunk\n\n"
                 continue
+            try:
+                # the serving plane's fault points: a scripted backend
+                # death ends the stream without a final frame (the close
+                # cancels the slot, as after a real crash mid-stream); a
+                # scripted wedge stalls the frame
+                faults.maybe_fail("gw.backend_die_midstream", rid=rid)
+                faults.maybe_fail("gw.backend_wedge", rid=rid)
+            except faults.FaultInjected:
+                return
             if ev["finish_reason"]:
                 # harvested by the engine: nothing left to cancel
                 sub.finished = True
             yield _sse(ev)
+            attrs["frames"] += 1
+            attrs["tokens"] += len(ev.get("token_ids", ()))
             if sub.finished:
                 yield b"data: [DONE]\n\n"
                 return

@@ -7,29 +7,23 @@
   dropped at put and at pop; they never reach the optimizer.
 - Over ``capacity``, the oldest sample is dropped.
 
-``record_consumption`` folds a consumed sample's lifecycle stamps into
-``HISTOGRAMS`` (this module's observations; the reference feeds its
-process-global metrics instead).
+``record_consumption`` folds a consumed sample's lifecycle stamps into the
+process-global histograms (``base/metrics.py``) in a ``buffer/consume``
+span, which joins the trajectory's trace when the rollout worker stamped
+its ``traceparent``.
 """
 
 import logging
 import time
-from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from areal_tpu_torch.api.data import SequenceSample
+from areal_tpu_torch.base import metrics as metrics_mod
+from areal_tpu_torch.base import tracing
 
 logger = logging.getLogger("areal_tpu_torch.buffer")
-
-# the reference's histogram names
-STALENESS_VERSIONS = "staleness_versions"
-QUEUE_WAIT_S = "queue_wait_s"
-E2E_LATENCY_S = "e2e_latency_s"
-TTFC_S = "ttfc_s"
-REWARD_LAG_S = "reward_lag_s"
-HISTOGRAMS: Dict[str, List[float]] = defaultdict(list)
 
 
 def _meta_time(sample: SequenceSample, key: str) -> Optional[float]:
@@ -56,23 +50,35 @@ def record_batch_consumption(samples: List[SequenceSample],
 def record_consumption(sample: SequenceSample, current_version: int) -> None:
     """Staleness in versions, queue wait (rollout enqueue -> here),
     end-to-end latency (generation submit -> here), time to first chunk and
-    submit -> reward lag of one consumed sample."""
+    submit -> reward lag of one consumed sample, as histograms."""
     now = time.time()
-    v = sample_version_start(sample)
-    if v is not None:
-        HISTOGRAMS[STALENESS_VERSIONS].append(max(current_version - v, 0))
-    submit = _meta_time(sample, "submit_time")
-    enqueue = _meta_time(sample, "enqueue_time")
-    first_chunk = _meta_time(sample, "first_chunk_time")
-    reward = _meta_time(sample, "reward_time")
-    if enqueue is not None:
-        HISTOGRAMS[QUEUE_WAIT_S].append(max(now - enqueue, 0.0))
-    if submit is not None:
-        HISTOGRAMS[E2E_LATENCY_S].append(max(now - submit, 0.0))
-        if first_chunk is not None:
-            HISTOGRAMS[TTFC_S].append(max(first_chunk - submit, 0.0))
-        if reward is not None:
-            HISTOGRAMS[REWARD_LAG_S].append(max(reward - submit, 0.0))
+    qid = str(sample.ids[0]) if sample.ids else ""
+    parents = [p for p in (sample.metadata or {}).get("traceparent", ())
+               if p]
+    with tracing.activate(parents[0] if parents else None), tracing.span(
+            "buffer/consume", qid=qid) as span_attrs:
+        v = sample_version_start(sample)
+        if v is not None:
+            span_attrs["staleness"] = max(current_version - v, 0)
+            metrics_mod.counters.observe(
+                metrics_mod.STALENESS_VERSIONS, max(current_version - v, 0))
+        submit = _meta_time(sample, "submit_time")
+        enqueue = _meta_time(sample, "enqueue_time")
+        first_chunk = _meta_time(sample, "first_chunk_time")
+        reward = _meta_time(sample, "reward_time")
+        if enqueue is not None:
+            span_attrs["queue_wait_s"] = round(max(now - enqueue, 0.0), 4)
+            metrics_mod.counters.observe(metrics_mod.QUEUE_WAIT_S,
+                                         max(now - enqueue, 0.0))
+        if submit is not None:
+            metrics_mod.counters.observe(metrics_mod.E2E_LATENCY_S,
+                                         max(now - submit, 0.0))
+            if first_chunk is not None:
+                metrics_mod.counters.observe(
+                    metrics_mod.TTFC_S, max(first_chunk - submit, 0.0))
+            if reward is not None:
+                metrics_mod.counters.observe(
+                    metrics_mod.REWARD_LAG_S, max(reward - submit, 0.0))
 
 
 def sample_version_start(sample: SequenceSample) -> Optional[int]:

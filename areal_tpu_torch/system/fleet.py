@@ -15,14 +15,17 @@ has a record with the classic three-state breaker:
 
 The manager drives the breaker; this module is pure bookkeeping (no I/O),
 so the breaker policy lives in one place. A copy of
-``areal_tpu/system/fleet.py`` without its process-global metric counters
-(the reference's telemetry plane is not ported).
+``areal_tpu/system/fleet.py``, with its counters (``base/metrics.py``):
+``ft/evictions``, ``ft/readmissions``, ``ft/failures_observed``,
+``ft/probe_failures``.
 """
 
 import dataclasses
 import logging
 import time
 from typing import Dict, List, Optional
+
+from areal_tpu_torch.base import metrics as metrics_mod
 
 logger = logging.getLogger("areal_tpu_torch.fleet")
 
@@ -101,6 +104,7 @@ class FleetHealth:
         s.total_failures += 1
         s.consecutive_failures += 1
         s.last_failure_reason = reason
+        metrics_mod.counters.add(metrics_mod.FT_FAILURES_OBSERVED)
         if s.state == CLOSED and s.consecutive_failures >= self.fail_threshold:
             self.evict(url, reason or "consecutive failures")
             return True
@@ -116,6 +120,7 @@ class FleetHealth:
         s.state = OPEN
         s.opened_at = self._clock()
         s.last_failure_reason = reason
+        metrics_mod.counters.add(metrics_mod.FT_EVICTIONS)
         logger.warning(
             "evicted gen server %s (%s; %d consecutive failures)",
             url, reason, s.consecutive_failures,
@@ -125,6 +130,7 @@ class FleetHealth:
         s.state = OPEN
         s.opened_at = self._clock()
         s.last_failure_reason = reason
+        metrics_mod.counters.add(metrics_mod.FT_PROBE_FAILURES)
 
     # ------------------------------------------------------------------ #
     # probing / re-admission
@@ -160,6 +166,7 @@ class FleetHealth:
         if acked_version is not None:
             s.acked_version = max(s.acked_version, acked_version)
         if was_out:
+            metrics_mod.counters.add(metrics_mod.FT_READMISSIONS)
             logger.info(
                 "re-admitted gen server %s at v%s", url, s.acked_version
             )

@@ -18,6 +18,7 @@ from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.dfg import DataFlowGraph, MFCDef, ParamReallocHook
 from areal_tpu_torch.api.model import ModelInterface, make_interface
 from areal_tpu_torch.base import flops as flops_mod
+from areal_tpu_torch.base import tracing
 from areal_tpu_torch.models import transformer as tfm
 
 logger = logging.getLogger("areal_tpu_torch.function_executor")
@@ -98,14 +99,17 @@ class FunctionExecutor:
                     self._apply_hook(h, mfc)
                 sub = sample.select(mfc.input_keys) if mfc.input_keys else sample
                 if mfc.interface_type == "train_step":
-                    out = iface.train_step(engine, sub, mb_spec)
+                    # a named region of the MFC in a profiler trace
+                    with tracing.annotate(f"mfc:{mfc.name}"):
+                        out = iface.train_step(engine, sub, mb_spec)
                     stats.update(out)
                     total_flops += flops_mod.train_flops(
                         engine.cfg, n_tokens, seqlens
                     )
                 else:  # inference | generate
                     fn = getattr(iface, mfc.interface_type)
-                    out = fn(engine, sub, mb_spec)
+                    with tracing.annotate(f"mfc:{mfc.name}"):
+                        out = fn(engine, sub, mb_spec)
                     if out is not None:
                         out.remap_keys_(mfc.output_key_remap)
                         missing = set(mfc.output_keys) - set(out.keys)

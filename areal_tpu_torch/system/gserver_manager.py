@@ -28,9 +28,13 @@ Threads: every route runs on an HTTP thread of its own and serializes on
 one ``threading.Lock``, the scope of the reference's ``asyncio.Lock``; the
 weight fan-out awaits OUTSIDE it, so allocation and routing continue
 during a reload. The poll and probe loops run on one event loop in a
-background thread (``start`` / ``stop``). The reference's tracing spans,
-fault-injection points and process-global metric counters are not ported:
-what a route or a test reads lives in ``rollout_stat`` and ``counters``.
+background thread (``start`` / ``stop``). Each route joins the caller's
+trace from the body's ``trace`` field (``manager/schedule``,
+``manager/allocate``, ``manager/finish``; the fan-out is
+``manager/weight_update``) and bumps the process-global ``manager/`` and
+``ft/`` counters beside its own ``counters``; ``/metrics_json`` carries
+the fleet's merged telemetry (``fleet_telemetry``) when the exporter is
+on.
 """
 
 import asyncio
@@ -42,7 +46,15 @@ import time
 from collections import defaultdict
 from typing import Dict, List, Optional
 
-from areal_tpu_torch.base import http, name_resolve, names, recover
+from areal_tpu_torch.base import (
+    constants,
+    http,
+    name_resolve,
+    names,
+    recover,
+    tracing,
+)
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.gen.client import GenAPIClient
 from areal_tpu_torch.system.fleet import FleetHealth
 
@@ -292,13 +304,16 @@ class GserverManager:
         with self._lock:
             urls = [u for u in self.server_urls if self.fleet.is_healthy(u)]
         t0 = time.monotonic()
-        async with GenAPIClient(timeout=self.config.flush_request_timeout) as c:
-            results = await asyncio.gather(
-                *(c.update_weights_from_disk(url, path, version=version,
-                                             allow_interrupt=True)
-                  for url in urls),
-                return_exceptions=True,
-            )
+        with tracing.span("manager/weight_update", version=version,
+                          servers=len(urls)):
+            async with GenAPIClient(
+                    timeout=self.config.flush_request_timeout) as c:
+                results = await asyncio.gather(
+                    *(c.update_weights_from_disk(url, path, version=version,
+                                                 allow_interrupt=True)
+                      for url in urls),
+                    return_exceptions=True,
+                )
         n_paused, n_ok = 0, 0
         with self._lock:
             for url, r in zip(urls, results):
@@ -308,6 +323,8 @@ class GserverManager:
                     logger.error("weight update v%d failed on %s: %r",
                                  version, url, r)
                     self.counters["weight_update_failures"] += 1
+                    metrics_mod.counters.add(
+                        metrics_mod.FT_WEIGHT_UPDATE_FAILURES)
                     self.fleet.evict(url, f"weight update v{version} failed")
                     self._remap_stickies()
                 else:
@@ -350,6 +367,7 @@ class GserverManager:
             if (self._catchup_paths.get(old, 0) > 0
                     or self.fleet.min_acked_version() < v):
                 self.counters["prune_deferred"] += 1
+                metrics_mod.counters.add(metrics_mod.FT_PRUNE_DEFERRED)
                 logger.info("deferring prune of %s (v%d): not every healthy "
                             "server has acked it", old, v)
                 break
@@ -479,6 +497,7 @@ class GserverManager:
             del self._qid_to_server[qid]
         if dead:
             self.counters["sticky_remaps"] += len(dead)
+            metrics_mod.counters.add(metrics_mod.FT_STICKY_REMAPS, len(dead))
             logger.info("remapped %d sticky qids off evicted servers", len(dead))
 
     # ------------------------------------------------------------------ #
@@ -490,6 +509,7 @@ class GserverManager:
         if not urls and self.server_urls:
             # whole fleet evicted: 503 + Retry-After (the probe cadence)
             self.counters["route_no_healthy"] += 1
+            metrics_mod.counters.add(metrics_mod.FT_ROUTE_NO_HEALTHY)
             raise _HTTPError(
                 503, {"error": "no healthy generation server (all breakers "
                                "open)"},
@@ -506,8 +526,18 @@ class GserverManager:
         return url
 
     def schedule_request(self, meta: dict) -> dict:
+        # join the caller's trace (the body's ``trace`` field carries the
+        # traceparent and qid): routing decisions land in the rollout's
+        # trace tree
+        qid = str(meta.get("qid"))
+        with tracing.activate(meta.get("trace"), qid=qid), tracing.span(
+                "manager/schedule", qid=qid):
+            return self._schedule_request_locked(meta)
+
+    def _schedule_request_locked(self, meta: dict) -> dict:
         with self._lock:
             self.counters["scheduled"] += 1
+            metrics_mod.counters.add(metrics_mod.MANAGER_SCHEDULED)
             prev_url = meta.get("previous_server_url")
             if (prev_url and meta.get("previous_version") == self.version
                     and self.fleet.is_healthy(prev_url)):
@@ -536,6 +566,12 @@ class GserverManager:
             return {"url": url, "version": self.version}
 
     def allocate_rollout(self, d: dict) -> dict:
+        qid = str(d.get("qid"))
+        with tracing.activate(d.get("trace"), qid=qid), tracing.span(
+                "manager/allocate", qid=qid):
+            return self._allocate_rollout_locked(d)
+
+    def _allocate_rollout_locked(self, d: dict) -> dict:
         with self._lock:
             has_capacity = (
                 self.rollout_stat.running < self.config.max_concurrent_rollouts
@@ -546,6 +582,7 @@ class GserverManager:
                 self.rollout_stat.running += 1
                 self._active_rollouts.add(str(d.get("qid")))
                 self.counters["allocated"] += 1
+                metrics_mod.counters.add(metrics_mod.MANAGER_ALLOCATED)
                 self.counters["max_running"] = max(
                     self.counters["max_running"], self.rollout_stat.running)
                 return {"success": True, "reason": ""}
@@ -567,6 +604,12 @@ class GserverManager:
             return {"success": False, "reason": "; ".join(reason)}
 
     def finish_rollout(self, d: dict) -> dict:
+        qid = str(d.get("qid"))
+        with tracing.activate(d.get("trace"), qid=qid), tracing.span(
+                "manager/finish", qid=qid, accepted=bool(d.get("accepted"))):
+            return self._finish_rollout_locked(d)
+
+    def _finish_rollout_locked(self, d: dict) -> dict:
         with self._lock:
             qid = str(d["qid"])
             # release everything this rollout accumulated, multi-turn
@@ -631,7 +674,26 @@ class GserverManager:
             s = self.fleet.get(url)
             return {"evicted": evicted, "state": s.state if s else "unknown"}
 
+    def fleet_telemetry(self) -> Optional[dict]:
+        """Aggregate of every published worker telemetry snapshot (the
+        fleet's second consumer besides the trainer: ``/metrics_json``
+        shows the merged view). None when the telemetry plane is off or
+        nothing has published yet."""
+        from areal_tpu_torch.system import telemetry
+
+        if constants.telemetry_export_interval() <= 0:
+            return None
+        return telemetry.collect_fleet_scalars(
+            self.config.experiment_name, self.config.trial_name)
+
+    def server_states(self) -> Dict[str, str]:
+        """Each server's breaker state (the exporter's per-server view)."""
+        with self._lock:
+            return {u: s["state"] for u, s in self.fleet.snapshot().items()}
+
     def metrics(self) -> dict:
+        # outside the lock: the collection walks the name_resolve store
+        fleet_telemetry = self.fleet_telemetry()
         with self._lock:
             return {
                 "version": self.version,
@@ -645,8 +707,7 @@ class GserverManager:
                 "tenant_requests": dict(self._tenant_requests),
                 "tenant_tokens": {t: round(v, 1)
                                   for t, v in self._tenant_tokens.items()},
-                # the reference's merged worker telemetry (not ported)
-                "fleet_telemetry": None,
+                "fleet_telemetry": fleet_telemetry,
                 "counters": dict(self.counters),
             }
 

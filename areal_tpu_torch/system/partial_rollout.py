@@ -9,19 +9,26 @@ version of its first chunk) and ``version_end`` (of its last), so a
 sequence whose tokens span a weight update says so. The n samples of one
 qid come back as one ``BundledGenerationOutputs``.
 
-HTTP goes through ``base/http.py`` (asyncio connections, no threads); the
-reference's tracing spans are not ported.
+HTTP goes through ``base/http.py`` (asyncio connections, no threads).
+Each group runs in a ``rollout/group`` span; where the rollout worker
+registered the trajectory's trace context for the qid
+(``trace_parents``), the group joins that trace (the reference's group
+roots a trace of its own), so one qid's hops from the worker through the
+manager to the server form one trace. Chunk routing is a
+``rollout/schedule`` span whose context rides the manager call.
 """
 
 import asyncio
 import logging
+import re
 import time
 import uuid
 from typing import Dict, List, Optional
 
 from areal_tpu_torch.api.agent import BundledGenerationOutputs, GenerationFailedError
 from areal_tpu_torch.api.model import GenerationHyperparameters
-from areal_tpu_torch.base import http
+from areal_tpu_torch.base import http, tracing
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.gen.client import ClientError, ClientResponseError, GenAPIClient
 
 logger = logging.getLogger("areal_tpu_torch.partial_rollout")
@@ -52,19 +59,31 @@ class PartialRolloutManager:
         # by finish reason, and generate failures
         self.client = GenAPIClient(timeout=timeout)
         self.stats: Dict[str, int] = {"chunks": 0, "server_failures": 0}
+        # qid -> the trajectory's wire trace context (set by the rollout
+        # worker around its agent task; multi-turn "<qid>-tK" groups look
+        # up their base qid)
+        self.trace_parents: Dict[str, dict] = {}
 
     async def _schedule(self, qid: str, prompt_len: int, group_size: int,
                         budget: int, prev_url: Optional[str],
                         prev_version: Optional[int]):
-        d = await http.request_json(
-            "POST", f"{self.manager_url}/schedule_request", {
+        with tracing.span("rollout/schedule", qid=qid):
+            body = {
                 "qid": qid,
                 "prompt_len": prompt_len,
                 "group_size": group_size,
                 "new_token_budget": budget,
                 "previous_server_url": prev_url,
                 "previous_version": prev_version,
-            }, timeout=self.timeout)
+            }
+            trace = tracing.wire_context(qid=qid)
+            if trace is not None:
+                # the hop's trace context: the manager activates it, so its
+                # routing span joins this tree
+                body["trace"] = trace
+            d = await http.request_json(
+                "POST", f"{self.manager_url}/schedule_request", body,
+                timeout=self.timeout)
         return d["url"], d["version"]
 
     async def _report_failure(self, url: str, qid: str, reason: str):
@@ -129,6 +148,7 @@ class PartialRolloutManager:
                 # re-schedule this chunk (the accumulated tokens are kept)
                 server_failures += 1
                 self.stats["server_failures"] += 1
+                metrics_mod.counters.add(metrics_mod.FT_GEN_SERVER_FAILURES)
                 await self._report_failure(url, qid, repr(e))
                 if server_failures >= self.max_server_failures:
                     raise GenerationFailedError(
@@ -166,11 +186,18 @@ class PartialRolloutManager:
         error = None
         submit_time = time.time()  # lifecycle stamp: group submitted
         try:
-            results = await asyncio.gather(
-                *(self._gen_one(qid, prompt_ids, gconfig)
-                  for _ in range(gconfig.n)),
-                return_exceptions=True,
-            )
+            # run_step spawns this task outside any rollout context, so the
+            # group activates its trajectory's context (or roots a trace of
+            # its own) with the qid riding it
+            parent = self.trace_parents.get(qid) or self.trace_parents.get(
+                re.sub(r"-t\d+$", "", qid))
+            with tracing.activate(parent, qid=qid), tracing.span(
+                    "rollout/group", qid=qid, group_size=gconfig.n):
+                results = await asyncio.gather(
+                    *(self._gen_one(qid, prompt_ids, gconfig)
+                      for _ in range(gconfig.n)),
+                    return_exceptions=True,
+                )
             for r in results:
                 # one failed member fails the group: a partial group would
                 # bias the grouped-advantage baseline

@@ -28,6 +28,7 @@ import threading
 from queue import Empty
 from typing import Any, Dict, List, Optional
 
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.base import name_resolve, names, network
 
 logger = logging.getLogger("areal_tpu_torch.push_pull_stream")
@@ -58,6 +59,7 @@ class JsonPusher:
             return True
         except queue.Full:
             self.drop_cnt += 1
+            metrics_mod.counters.add(metrics_mod.FT_PUSH_DROPS)
             logger.warning(
                 "push queue full (puller dead or backlogged); dropped "
                 "trajectory (%d drops so far)", self.drop_cnt,

@@ -6,11 +6,18 @@ pushes accepted trajectories as JSON to the trainer-side puller and
 reports completion.
 
 Manager calls go over ``base/http.py`` (asyncio connections) where the
-reference holds an aiohttp session, so the methods take no session. The
-reference's tracing spans, its ``rollout.push`` fault-injection point and
-its process-global counters are not ported; the worker's own counts
-(``push_cnt``, ``accepted_cnt``, ``requeued_cnt``, ``dropped_cnt``,
-``denied_cnt``) stay.
+reference holds an aiohttp session, so the methods take no session.
+
+Each trajectory attempt roots one trace with its qid riding it: the
+``rollout/allocate``, ``rollout/trajectory`` and ``rollout/finish`` spans,
+the manager's spans (the calls carry the context in their ``trace``
+field), the partial-rollout group and its generate hops, and the
+trainer's consumption (pushed trajectories carry their ``traceparent`` in
+their metadata). The ``rollout.push`` fault point scripts a push failure;
+the worker's counts (``push_cnt``, ``accepted_cnt``, ``requeued_cnt``,
+``dropped_cnt``, ``denied_cnt``) also go to the process-global counters
+(``rollout/pushed``, ``rollout/accepted``, ``ft/rollout_requeues``,
+``ft/rollout_dropped``).
 """
 
 import asyncio
@@ -23,7 +30,8 @@ from typing import Deque, Dict, Optional
 from areal_tpu_torch.api.agent import Agent
 from areal_tpu_torch.api.data import SequenceSample
 from areal_tpu_torch.api.env import EnvironmentService
-from areal_tpu_torch.base import http, name_resolve, names
+from areal_tpu_torch.base import faults, http, name_resolve, names, tracing
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.system.partial_rollout import PartialRolloutManager
 from areal_tpu_torch.system.push_pull_stream import NameResolvingJsonPusher
 
@@ -105,19 +113,39 @@ class RolloutWorker:
         return None
 
     async def allocate_new_rollout(self, qid) -> bool:
-        d = await http.request_json(
-            "POST", f"{self.manager_url}/allocate_rollout", {"qid": str(qid)},
-            timeout=MANAGER_TIMEOUT_S)
-        return bool(d["success"])
+        with tracing.span("rollout/allocate", qid=str(qid)):
+            body = {"qid": str(qid)}
+            trace = tracing.wire_context(qid=str(qid))
+            if trace is not None:
+                # the manager activates it: the gate decision joins the tree
+                body["trace"] = trace
+            d = await http.request_json(
+                "POST", f"{self.manager_url}/allocate_rollout", body,
+                timeout=MANAGER_TIMEOUT_S)
+            return bool(d["success"])
 
     async def finish_rollout(self, qid, accepted: bool):
-        await http.request_json(
-            "POST", f"{self.manager_url}/finish_rollout",
-            {"qid": str(qid), "accepted": accepted},
-            timeout=MANAGER_TIMEOUT_S)
+        with tracing.span("rollout/finish", qid=str(qid)):
+            body = {"qid": str(qid), "accepted": accepted}
+            trace = tracing.wire_context(qid=str(qid))
+            if trace is not None:
+                body["trace"] = trace
+            await http.request_json(
+                "POST", f"{self.manager_url}/finish_rollout", body,
+                timeout=MANAGER_TIMEOUT_S)
 
     async def _rollout_task(self, prompt: SequenceSample):
         qid = str(prompt.ids[0])
+        with tracing.span("rollout/trajectory", qid=qid):
+            # the partial-rollout group of this qid joins the trajectory's
+            # trace (its task is spawned outside this context)
+            self.prm.trace_parents[qid] = tracing.wire_context(qid=qid)
+            try:
+                await self._rollout_task_body(prompt, qid)
+            finally:
+                self.prm.trace_parents.pop(qid, None)
+
+    async def _rollout_task_body(self, prompt: SequenceSample, qid: str):
         try:
             try:
                 trajs = await self.agent.collect_trajectory(
@@ -133,14 +161,28 @@ class RolloutWorker:
                 round_failed = False
             n_pushed = 0
             try:
+                if trajs:
+                    try:
+                        # scripted push-path failure (nothing delivered
+                        # yet, so the requeue it triggers cannot duplicate)
+                        faults.maybe_fail("rollout.push", qid=qid)
+                    except faults.FaultInjected as e:
+                        self._handle_rollout_failure(qid, prompt, e)
+                        trajs, accepted, round_failed = [], False, True
+                traceparent = tracing.traceparent()
                 for t in trajs:
                     # lifecycle stamp: entering the rollout -> trainer stream
                     t.metadata["enqueue_time"] = [time.time()] * len(t.ids)
+                    if traceparent is not None:
+                        # the trainer's consumption joins this trace
+                        t.metadata["traceparent"] = [traceparent] * len(t.ids)
                     if self.pusher.push(t.as_json_compatible()):
                         n_pushed += 1
                         self.push_cnt += 1
+                        metrics_mod.counters.add(metrics_mod.ROLLOUT_PUSHED)
                 if accepted:
                     self.accepted_cnt += 1
+                    metrics_mod.counters.add(metrics_mod.ROLLOUT_ACCEPTED)
             except asyncio.CancelledError:
                 raise
             except Exception as e:
@@ -159,6 +201,7 @@ class RolloutWorker:
                     )
                     if accepted:
                         self.accepted_cnt += 1
+                        metrics_mod.counters.add(metrics_mod.ROLLOUT_ACCEPTED)
             if not round_failed:
                 # the retry counter resets only after the whole round
                 # (collect + deliver) succeeded
@@ -182,11 +225,13 @@ class RolloutWorker:
         self._attempts[qid] = attempts
         if attempts < self.max_rollout_attempts:
             self.requeued_cnt += 1
+            metrics_mod.counters.add(metrics_mod.FT_ROLLOUT_REQUEUES)
             logger.warning("rollout %s failed (attempt %d/%d): %r — requeued",
                            qid, attempts, self.max_rollout_attempts, e)
             self._requeue.append(prompt)
         else:
             self.dropped_cnt += 1
+            metrics_mod.counters.add(metrics_mod.FT_ROLLOUT_DROPPED)
             logger.error("rollout %s failed %d times (%r); dropping sample",
                          qid, attempts, e)
             self._attempts.pop(qid, None)
@@ -241,23 +286,31 @@ class RolloutWorker:
                                 # the failed task is still unwinding; retry
                                 # the requeue next tick
                                 self._requeue.append(prompt)
-                        elif await self.allocate_new_rollout(qid):
-                            # the manager slot is held from here on: hand it
-                            # to the task (whose every exit reaches
-                            # finish_rollout) before any other bookkeeping
-                            self._tasks[qid] = asyncio.get_running_loop(
-                            ).create_task(self._rollout_task(prompt))
-                            self._used_qids.add(f"{qid}@{self._epoch}")
-                            self._route_queue(qid)
                         else:
-                            # gate closed (capacity/staleness): keep this
-                            # sample and back off
-                            self.denied_cnt += 1
-                            carry = prompt
-                            await asyncio.sleep(0.05)
+                            # one trace per trajectory attempt, rooted here
+                            # so the allocate hop and the rollout task (task
+                            # creation copies the context) share its id
+                            with tracing.activate(qid=qid):
+                                await self._start_rollout(qid, prompt)
+                            if qid not in self._tasks:
+                                # gate closed (capacity/staleness): keep
+                                # this sample and back off
+                                self.denied_cnt += 1
+                                carry = prompt
+                                await asyncio.sleep(0.05)
                 await self.prm.run_step()
         finally:
             dispatch.cancel()
+
+    async def _start_rollout(self, qid: str, prompt: SequenceSample):
+        if await self.allocate_new_rollout(qid):
+            # the manager slot is held from here on: hand it to the task
+            # (whose every exit reaches finish_rollout) before any other
+            # bookkeeping
+            self._tasks[qid] = asyncio.get_running_loop().create_task(
+                self._rollout_task(prompt))
+            self._used_qids.add(f"{qid}@{self._epoch}")
+            self._route_queue(qid)
 
     def n_tasks(self) -> int:
         return len(self._tasks)
@@ -290,6 +343,7 @@ class RolloutWorker:
         for t in pending:
             t.cancel()
         await asyncio.gather(*pending, return_exceptions=True)
+        metrics_mod.counters.add(metrics_mod.FT_DRAIN_ABANDONED, len(abandoned))
         logger.warning("drain timed out after %.0fs; cancelled %d rollout "
                        "tasks (qids: %s)", timeout, len(abandoned),
                        ", ".join(abandoned))

@@ -9,9 +9,9 @@ update is the same declared MFC graph the async trainer runs
 
 The port runs one process on one device, so the reference's
 ``multihost.is_main()`` is always true here. A step whose update the
-engine's guard skipped (``guard/step_ok`` < 1) is logged, as the port's
-``AsyncPPOTrainerWorker`` logs it; the process-global guard counters wait
-for the telemetry twin (``ROADMAP.md``).
+engine's guard skipped (``guard/step_ok`` < 1) is logged and counted in
+``guard/anomalous_steps`` and ``guard/update_skipped``, as the
+reference's is.
 """
 
 import logging
@@ -25,6 +25,7 @@ from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.dataset import dataset_metadata
 from areal_tpu_torch.api.model import GenerationHyperparameters, PPOHyperparameters
 from areal_tpu_torch.base import constants
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.base.metrics import MetricLogger
 from areal_tpu_torch.experiments import graphs
 from areal_tpu_torch.rewards.math_verify import grade_math_answers
@@ -196,6 +197,8 @@ class SyncPPOTrainerWorker:
         # generates from the trainer's own params, so the skip also keeps
         # the next rollout batch off poisoned weights
         if float(stats.get("guard/step_ok", 1.0)) < 1.0:
+            metrics_mod.counters.add(metrics_mod.GUARD_ANOMALOUS_STEPS)
+            metrics_mod.counters.add(metrics_mod.GUARD_SKIPPED_UPDATES)
             logger.warning(
                 "step %d: non-finite loss/grad_norm; optimizer update was "
                 "skipped on device", self.step,

@@ -21,8 +21,13 @@ preemption and the hang watchdog; committed recover checkpoints with
 
 The port runs one process on one card, so the reference's multihost
 collectives are local identities here (every host decision is this
-process's). The elastic world path, the fleet telemetry merge and the
-process-global counters wait for their twins (``ROADMAP.md``). The port's
+process's). The elastic world path waits for its slice (``ROADMAP.md``).
+The guard plane counts its decisions (``guard/anomalous_steps``,
+``guard/update_skipped``, ``guard/rollbacks``, ``guard/rollback_failed``)
+and dumps the flight recorder on a rollback; with the telemetry exporter
+on, each stats flush also logs the merged ``fleet/`` view of every
+worker's published counters. ``AREAL_DUMP_TRACE`` traces step
+``AREAL_TRACE_STEP`` with ``torch.profiler``. The port's
 ``PPOActorInterface.train_step`` pulls its stats to the host once per
 call, so ``flush_stats`` keeps the reference's logging cadence
 (``stats_log_freq_steps`` under ``AREAL_TRAIN_PREFETCH``) and its guard
@@ -39,7 +44,15 @@ import numpy as np
 
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model import PPOHyperparameters, make_interface
-from areal_tpu_torch.base import constants, hbm, name_resolve, names, recover
+from areal_tpu_torch.base import (
+    constants,
+    hbm,
+    name_resolve,
+    names,
+    recover,
+    tracing,
+)
+from areal_tpu_torch.base import metrics as metrics_mod
 from areal_tpu_torch.base import flops as flops_mod
 from areal_tpu_torch.base.metrics import MetricLogger
 from areal_tpu_torch.base.timeutil import EpochStepTimeFreqCtl
@@ -202,6 +215,7 @@ class AsyncPPOTrainerWorker:
             if t._areal_exc is not None:
                 # a failed export means the fleet would keep serving a
                 # version the trainer believes it published
+                metrics_mod.counters.add(metrics_mod.FT_PUBLISH_FAILURES)
                 raise RuntimeError(
                     "background weight publish failed"
                 ) from t._areal_exc
@@ -280,7 +294,13 @@ class AsyncPPOTrainerWorker:
             return None
         launches0 = cuda_ops.launch_counts()
         t0 = time.perf_counter()
-        stats = self.train_step(sample)
+        # AREAL_DUMP_TRACE=1 traces ONE step (AREAL_TRACE_STEP), with the
+        # executor's per-MFC regions in it
+        if tracing.trace_enabled() and self.step == tracing.trace_step():
+            with tracing.maybe_trace(f"ppo_step{self.step}"):
+                stats = self.train_step(sample)
+        else:
+            stats = self.train_step(sample)
         stats["timeperf/e2e"] = time.perf_counter() - t0
         if "flops" in stats:  # per-step throughput line
             stats["tflops_per_sec"] = (
@@ -300,6 +320,7 @@ class AsyncPPOTrainerWorker:
         })
         self._bump_training_samples(self._last_batch_groups)
         self.step += 1
+        metrics_mod.counters.add(metrics_mod.TRAIN_STEPS)
 
         if self.step % self.control.weight_sync_freq_steps == 0:
             self.publish_weights()
@@ -338,6 +359,8 @@ class AsyncPPOTrainerWorker:
             ok = float(stats.get("guard/step_ok", 1.0))
             if ok < 1.0:
                 self._consec_anomalies += 1
+                metrics_mod.counters.add(metrics_mod.GUARD_ANOMALOUS_STEPS)
+                metrics_mod.counters.add(metrics_mod.GUARD_SKIPPED_UPDATES)
                 logger.warning(
                     "step %d: non-finite loss/grad_norm (step_ok=%.2f); "
                     "optimizer update was skipped "
@@ -354,6 +377,32 @@ class AsyncPPOTrainerWorker:
         k = self.control.guard_rollback_steps
         if k and self._consec_anomalies >= k:
             self._rollback_to_committed()
+        # fleet telemetry rides the same cadence: one collection and merge
+        # of every worker's published snapshot per flush
+        self._maybe_log_fleet(pending[-1][0], pending[-1][1])
+
+    def _maybe_log_fleet(self, step: int, wall: float):
+        """Fold the merged ``fleet/`` view of every worker's published
+        telemetry into the metric sinks, with this process's LIVE registry
+        in place of its own published (older) snapshot. No-op when the
+        telemetry knob is off."""
+        if self.metrics is None or constants.telemetry_export_interval() <= 0:
+            return
+        from areal_tpu_torch.system import telemetry
+
+        local = telemetry.build_snapshot(
+            "trainer", "trainer", step=self.step,
+            gauges=self.telemetry_gauges(),
+        )
+        try:
+            scalars = telemetry.collect_fleet_scalars(
+                self.experiment_name, self.trial_name, local_snapshot=local)
+        except Exception:
+            logger.warning("fleet telemetry aggregation failed",
+                           exc_info=True)
+            return
+        if scalars:
+            self.metrics.log(scalars, step, prefix="fleet", wall_time=wall)
 
     def telemetry_gauges(self) -> Dict[str, float]:
         """Instantaneous trainer gauges: intake queue depths plus the
@@ -389,6 +438,7 @@ class AsyncPPOTrainerWorker:
             if self.critic_engine is not None:
                 self.critic_engine.validate_checkpoint(critic_path)
         except (FileNotFoundError, ValueError) as e:
+            metrics_mod.counters.add(metrics_mod.GUARD_ROLLBACK_FAILED)
             logger.error(
                 "anomaly rollback wanted but not every engine has a "
                 "restorable committed recover checkpoint (%s); continuing "
@@ -403,6 +453,12 @@ class AsyncPPOTrainerWorker:
         restored_version = self.actor_engine.version
         self.actor_engine.version = max(live_version, restored_version) + 1
         self._consec_anomalies = 0
+        metrics_mod.counters.add(metrics_mod.GUARD_ROLLBACKS)
+        worker_base.flight_dump("train_guard_rollback", {
+            "live_version": live_version,
+            "restored_version": restored_version,
+            "republished_version": self.actor_engine.version,
+        })
         logger.warning(
             "rolled back to committed checkpoint (engine step %d, restored "
             "v%d, republishing as v%d; live v%d) after %d consecutive "
@@ -416,6 +472,8 @@ class AsyncPPOTrainerWorker:
         if hasattr(self.stream, "clear"):
             stale += self.stream.clear()
         if stale:
+            metrics_mod.counters.add(metrics_mod.FT_STALE_DROPPED_ON_RECOVER,
+                                     stale)
             logger.warning(
                 "dropped %d suspect buffered/in-flight trajectories on "
                 "rollback", stale,
@@ -472,6 +530,7 @@ class AsyncPPOTrainerWorker:
         committed state."""
         self.preempted = True
         shutdown.request()
+        metrics_mod.counters.add(metrics_mod.FT_PREEMPTIONS)
         t0 = time.monotonic()
         logger.warning(
             "preemption: saving recover checkpoint at step %d "
@@ -563,6 +622,8 @@ class AsyncPPOTrainerWorker:
             self._ckpt_ctl.load_state_dict(ctl_state)
         stale = self.stream.clear() if hasattr(self.stream, "clear") else 0
         if stale:
+            metrics_mod.counters.add(metrics_mod.FT_STALE_DROPPED_ON_RECOVER,
+                                     stale)
             logger.warning(
                 "dropped %d stale in-flight trajectories on recover", stale
             )

@@ -17,10 +17,17 @@ workers spinning; workers may publish ``worker_status/<name>`` heartbeats.
   that, past a threshold, logs every thread's stack (and, with
   ``AREAL_WATCHDOG_ABORT``, exits :data:`EXIT_WATCHDOG`).
 
-The flight recorder and the telemetry exporter wait for the telemetry
-twin; where the reference dumps the flight recorder, the port logs.
+- :class:`TelemetryExporter` publishes the worker's counter snapshot
+  through name_resolve every ``AREAL_TELEMETRY_EXPORT`` seconds and
+  flushes its span ring with each publish (``system/telemetry.py``).
+- :class:`FlightRecorder` keeps recent span ends, counter deltas and a
+  log tail, and dumps them atomically to ``<fileroot>/flight/`` on a
+  watchdog trip, a preemption, a train-guard rollback or an unhandled
+  crash (:func:`flight_dump`).
 """
 
+import collections
+import json
 import logging
 import os
 import signal as signal_mod
@@ -30,7 +37,10 @@ import time
 import traceback
 from typing import Callable, Optional
 
-from areal_tpu_torch.base import constants, name_resolve, names
+from areal_tpu_torch.base import constants, faults, name_resolve, names
+from areal_tpu_torch.base import logging as port_logging
+from areal_tpu_torch.base import metrics as metrics_mod
+from areal_tpu_torch.base import tracing
 
 logger = logging.getLogger("areal_tpu_torch.worker_base")
 
@@ -174,6 +184,308 @@ def last_heartbeat(
 
 
 # --------------------------------------------------------------------- #
+# telemetry
+# --------------------------------------------------------------------- #
+
+
+class TelemetryExporter:
+    """Background thread publishing this worker's full telemetry snapshot
+    (counters + histograms + open spans + role gauges) through name_resolve
+    next to the heartbeat, every ``interval`` seconds.
+
+    Gated by ``AREAL_TELEMETRY_EXPORT`` (``constants.
+    telemetry_export_interval``): when the knob is off (the default),
+    :meth:`maybe_start` is a no-op — no thread, no snapshot building, zero
+    overhead. ``stop()`` publishes one final snapshot so the last state of
+    a cleanly-exiting worker is visible to the aggregator/ops CLI.
+
+    ``step_fn`` reports the worker's notion of progress (train step,
+    pushed count, ...); ``gauges_fn`` returns instantaneous role gauges
+    (queue depth, running rollouts, HBM bytes); ``server_states_fn``
+    (manager only) returns per-gen-server breaker states. All three are
+    called on the exporter thread and must be cheap and exception-safe —
+    a failing callback degrades to a snapshot without that section.
+    """
+
+    def __init__(
+        self,
+        experiment_name: str,
+        trial_name: str,
+        worker_name: str,
+        role: str,
+        interval: Optional[float] = None,
+        step_fn: Optional[Callable[[], int]] = None,
+        gauges_fn: Optional[Callable[[], dict]] = None,
+        server_states_fn: Optional[Callable[[], dict]] = None,
+        registry=None,
+    ):
+        self.experiment_name = experiment_name
+        self.trial_name = trial_name
+        self.worker_name = worker_name
+        self.role = role
+        self.interval = (
+            interval
+            if interval is not None
+            else constants.telemetry_export_interval()
+        )
+        self._step_fn = step_fn
+        self._gauges_fn = gauges_fn
+        self._server_states_fn = server_states_fn
+        self._registry = registry
+        self.published = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.interval > 0
+
+    def _call(self, fn, default):
+        if fn is None:
+            return default
+        try:
+            return fn()
+        except Exception:
+            logger.warning(
+                "telemetry %s callback failed", self.worker_name,
+                exc_info=True,
+            )
+            return default
+
+    def publish_once(self) -> dict:
+        from areal_tpu_torch.system import telemetry
+
+        snap = telemetry.build_snapshot(
+            self.worker_name,
+            self.role,
+            step=int(self._call(self._step_fn, 0) or 0),
+            registry=self._registry,
+            gauges=self._call(self._gauges_fn, {}),
+            server_states=self._call(self._server_states_fn, None),
+        )
+        telemetry.publish_snapshot(
+            self.experiment_name, self.trial_name, snap
+        )
+        self.published += 1
+        # The span ring rides the telemetry cadence: each publish also
+        # flushes completed distributed-tracing spans through the fileroot
+        # (tracejoin merges them across workers). Failure never breaks the
+        # snapshot publish.
+        if tracing.spans_enabled():
+            try:
+                tracing.flush(self.worker_name)
+            except Exception:
+                logger.warning(
+                    "span flush %s failed", self.worker_name, exc_info=True
+                )
+        return snap
+
+    def _loop(self):
+        while True:
+            try:
+                self.publish_once()
+            except Exception:
+                logger.warning("telemetry publish failed", exc_info=True)
+            if self._stop.wait(self.interval):
+                return
+
+    def maybe_start(self) -> "TelemetryExporter":
+        """Start the export thread iff the knob enables it (no-op
+        otherwise) — callers wire it unconditionally next to Heartbeat."""
+        if self.enabled and self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop,
+                name=f"telemetry:{self.worker_name}",
+                daemon=True,
+            )
+            self._thread.start()
+        return self
+
+    def stop(self):
+        if self._thread is None:
+            return
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._thread = None
+        try:
+            # final flush: counters bumped since the last tick (e.g. the
+            # trainer's last-step histograms) must reach the aggregator
+            self.publish_once()
+        except Exception:
+            logger.warning("final telemetry publish failed", exc_info=True)
+
+
+# --------------------------------------------------------------------- #
+# crash flight recorder
+# --------------------------------------------------------------------- #
+
+
+class _LogTail(logging.Handler):
+    """Root-logger handler keeping the last N formatted log lines in a
+    bounded deque — the flight recorder's log-tail evidence."""
+
+    def __init__(self, capacity: int):
+        super().__init__()
+        self.lines: collections.deque = collections.deque(
+            maxlen=max(1, capacity)
+        )
+        self.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
+        )
+
+    def emit(self, record):
+        try:
+            self.lines.append(self.format(record))
+        except Exception:  # a log record must never crash the worker
+            pass
+
+
+class FlightRecorder:
+    """Black box for a dying worker: on watchdog trip, train-guard
+    rollback, SIGTERM preemption, or unhandled crash, :meth:`dump` writes
+    one atomic JSON file to ``<fileroot>/flight/`` holding
+
+    - the most recent completed span ends (``tracing.recent_spans`` — a
+      ring the telemetry flush never drains),
+    - the spans still open at death (``tracing.live_spans``),
+    - counter deltas since the recorder was installed,
+    - the tail of the worker's log (``AREAL_TRACE_LOG_TAIL`` lines).
+
+    :meth:`install` registers the module-level recorder so any layer can
+    trigger a dump via :func:`flight_dump` without plumbing, attaches the
+    log-tail handler, and chains ``sys.excepthook`` so an unhandled
+    exception dumps before the traceback prints. Dumping is best-effort
+    and exception-safe — a failing dump logs, never masks the original
+    fault.
+    """
+
+    def __init__(
+        self,
+        worker_name: str,
+        root: Optional[str] = None,
+        span_tail: int = 128,
+        log_tail: Optional[int] = None,
+        registry=None,
+    ):
+        self.worker_name = worker_name
+        self._root = root
+        self.span_tail = span_tail
+        self._registry = (
+            registry if registry is not None else metrics_mod.counters
+        )
+        self._counters0 = self._registry.snapshot()
+        self._log = _LogTail(
+            log_tail if log_tail is not None else constants.trace_log_tail()
+        )
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._prev_excepthook = None
+        self.dumps = 0
+
+    # -- lifecycle ---------------------------------------------------- #
+
+    def install(self) -> "FlightRecorder":
+        global _flight
+        # the root logger, and the port's own root (which does not
+        # propagate: ``base/logging.py``)
+        for lg in self._loggers():
+            lg.addHandler(self._log)
+        self._prev_excepthook = sys.excepthook
+        sys.excepthook = self._excepthook
+        _flight = self
+        return self
+
+    @staticmethod
+    def _loggers():
+        return (logging.getLogger(), logging.getLogger(port_logging.ROOT))
+
+    def uninstall(self):
+        global _flight
+        for lg in self._loggers():
+            lg.removeHandler(self._log)
+        if self._prev_excepthook is not None:
+            sys.excepthook = self._prev_excepthook
+            self._prev_excepthook = None
+        if _flight is self:
+            _flight = None
+
+    def _excepthook(self, exc_type, exc, tb):
+        try:
+            self.dump(
+                "crash",
+                extra={
+                    "exc": exc_type.__name__,
+                    "traceback": traceback.format_exception(
+                        exc_type, exc, tb
+                    ),
+                },
+            )
+        finally:
+            (self._prev_excepthook or sys.__excepthook__)(exc_type, exc, tb)
+
+    # -- dumping ------------------------------------------------------ #
+
+    def _payload(self, reason: str, extra: Optional[dict]) -> dict:
+        return {
+            "schema": 1,
+            "worker": self.worker_name,
+            "pid": os.getpid(),
+            "reason": reason,
+            "time": time.time(),
+            "spans": tracing.recent_spans(self.span_tail),
+            "open_spans": tracing.live_spans(),
+            "counters": self._registry.delta(self._counters0),
+            "log_tail": list(self._log.lines),
+            "extra": extra or {},
+        }
+
+    def dump(self, reason: str, extra: Optional[dict] = None) -> Optional[str]:
+        """Write one flight dump; returns its path (None on failure)."""
+        try:
+            payload = self._payload(reason, extra)
+            root = self._root or constants.get_flight_root()
+            os.makedirs(root, exist_ok=True)
+            safe = self.worker_name.replace("/", "_") or "worker"
+            with self._lock:
+                self._seq += 1
+                seq = self._seq
+            path = os.path.join(
+                root, f"{safe}-{os.getpid()}-{seq:03d}-{reason}.json"
+            )
+            tmp = f"{path}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(payload, f)
+            os.replace(tmp, path)  # atomic: a watcher never reads torn JSON
+            self.dumps += 1
+            metrics_mod.counters.add(metrics_mod.TRACE_FLIGHT_DUMPS)
+            logger.error(
+                "flight recorder: dumped %s (%d span(s), %d log line(s))",
+                path, len(payload["spans"]), len(payload["log_tail"]),
+            )
+            return path
+        except Exception:
+            logger.warning("flight dump (%s) failed", reason, exc_info=True)
+            return None
+
+
+# The installed recorder (one per process); flight_dump() is the trigger
+# any layer (watchdog, preemption, train guard) calls without plumbing, a
+# no-op until a worker installs a recorder.
+_flight: Optional[FlightRecorder] = None
+
+
+def flight_recorder() -> Optional[FlightRecorder]:
+    return _flight
+
+
+def flight_dump(reason: str, extra: Optional[dict] = None) -> Optional[str]:
+    """Dump the installed flight recorder (None / no-op when absent)."""
+    if _flight is None:
+        return None
+    return _flight.dump(reason, extra)
+
+
+# --------------------------------------------------------------------- #
 # preemption
 # --------------------------------------------------------------------- #
 
@@ -191,6 +503,8 @@ class GracefulShutdown:
     saves a committed recover checkpoint, republishes ``model_version``
     and exits :data:`EXIT_PREEMPTED`. Handlers only install on the main
     thread (Python's rule); other threads can still call :meth:`request`.
+    The ``signal.term`` fault point scripts a delivery without process
+    machinery.
     """
 
     def __init__(self, deadline_s: float = 60.0, install: bool = True):
@@ -215,7 +529,7 @@ class GracefulShutdown:
         except ValueError:
             logger.warning(
                 "not on the main thread; preemption signal handlers not "
-                "installed (should_stop still honors request())"
+                "installed (should_stop still honors request()/faults)"
             )
         return self
 
@@ -232,12 +546,23 @@ class GracefulShutdown:
         self.request()
 
     def request(self):
-        if self.requested_at is None:
+        first = self.requested_at is None
+        if first:
             self.requested_at = time.monotonic()
         self._event.set()
+        if first:
+            # preemption evidence: what the worker was doing when it was
+            # told to stop (a real SIGTERM and the signal.term point alike);
+            # the trainer counts ft/preemptions when it honours the request
+            flight_dump("preempt", {"deadline_s": self.deadline_s})
 
     def should_stop(self) -> bool:
-        return self._event.is_set()
+        if self._event.is_set():
+            return True
+        if faults.maybe_trip("signal.term"):
+            self.request()
+            return True
+        return False
 
     def remaining(self) -> float:
         """Seconds left of the save deadline (inf before any request)."""
@@ -256,7 +581,8 @@ class GracefulShutdown:
 class HangWatchdog:
     """Detects a wedged worker: a monotonic heartbeat (:meth:`bump`, once
     per step) plus a daemon thread that, once the heartbeat goes stale past
-    ``timeout_s``, logs every thread's stack. With ``AREAL_WATCHDOG_ABORT``
+    ``timeout_s``, logs every thread's stack and the open ``tracing.span``
+    registry and dumps the flight recorder. With ``AREAL_WATCHDOG_ABORT``
     set it also exits :data:`EXIT_WATCHDOG` (``os._exit``: a hung device
     call ignores graceful teardown) so the scheduler restarts the world.
     """
@@ -323,7 +649,20 @@ class HangWatchdog:
                 f"--- thread {thread_names.get(tid, '?')} (id {tid}) ---"
             )
             lines.extend(l.rstrip() for l in traceback.format_stack(frame))
+        spans = tracing.live_spans()
+        if spans:
+            lines.append("--- open tracing spans ---")
+            for s in spans:
+                lines.append(
+                    f"{s['name']}: open {s['elapsed_s']:.1f}s "
+                    f"(thread {s['thread']})"
+                )
         logger.error("\n".join(lines))
         self.dumps += 1
+        metrics_mod.counters.add(metrics_mod.GUARD_WATCHDOG_DUMPS)
+        flight_dump(
+            "watchdog",
+            {"stalled_s": stalled, "timeout_s": self.timeout_s},
+        )
         if self._on_dump is not None:
             self._on_dump(stalled)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
-from areal_tpu_torch.base import recover, safetensors_io
+from areal_tpu_torch.base import faults, recover, safetensors_io, tracing
 from areal_tpu_torch.base.device import resolve_device, torch_dtype
 from areal_tpu_torch.models import hf as hf_conv
 from areal_tpu_torch.models import transformer as tfm
@@ -353,6 +353,7 @@ class TrainEngine:
         for k, tree in trees.get("opt_state", {}).items():
             safetensors_io.save_file(tree,
                                      os.path.join(staging, _CKPT_FILES[k]))
+        faults.maybe_fail("ckpt.save", path=path)  # die "mid-save"
         recover.commit_checkpoint(staging, path, {
             "step": self._step,
             "n_updates": self._n_updates,
@@ -545,26 +546,36 @@ class TrainEngine:
         they were (``guard/step_ok`` 0)."""
         if self.optimizer is None:
             raise RuntimeError("call setup_optimizer() first")
-        _, packed, weights = self._make_micro_batches(
-            sample, mb_spec,
-            weight_fn=loss_weight_fn or batching.count_action_tokens,
-        )
+        with tracing.span("train_pipe/pack"):
+            _, packed, weights = self._make_micro_batches(
+                sample, mb_spec,
+                weight_fn=loss_weight_fn or batching.count_action_tokens,
+            )
         weights = np.asarray(weights, np.float32)
         weights = weights / (weights.sum() or 1.0)
+        if faults.maybe_trip("train.step", step=self._step):
+            # poison this optimizer step (non-finite loss weights -> a
+            # non-finite loss and gradient): the guard must catch it and
+            # skip the update with no special case for the fault
+            weights = weights * np.float32(np.inf)
         self.optimizer.zero_grad(set_to_none=True)
         losses: List[torch.Tensor] = []
         stats: Dict[str, torch.Tensor] = {}
-        for pb, w in zip(packed, weights):
-            if w <= 0:
-                continue
-            loss, st = loss_fn(self.params, self.cfg, self._put_batch(pb))
-            (loss * float(w)).backward()
-            losses.append(loss.detach().float() * float(w))
-            for k, v in st.items():
-                if torch.as_tensor(v).dim() == 0:
-                    v = torch.as_tensor(v, dtype=torch.float32,
-                                        device=self.device).detach() * float(w)
-                    stats[k] = stats[k] + v if k in stats else v
+        with tracing.span("train_pipe/dispatch", n_mbs=len(packed)):
+            for pb, w in zip(packed, weights):
+                if w <= 0:
+                    continue
+                with tracing.span("train_pipe/put"):
+                    arrays = self._put_batch(pb)
+                loss, st = loss_fn(self.params, self.cfg, arrays)
+                (loss * float(w)).backward()
+                losses.append(loss.detach().float() * float(w))
+                for k, v in st.items():
+                    if torch.as_tensor(v).dim() == 0:
+                        v = torch.as_tensor(v, dtype=torch.float32,
+                                            device=self.device
+                                            ).detach() * float(w)
+                        stats[k] = stats[k] + v if k in stats else v
         params = _leaves(self.params)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
@@ -625,10 +636,15 @@ class TrainEngine:
         by_key: Dict[Any, np.ndarray] = {}
         with torch.no_grad():
             for mb, pb in zip(mbs, packed):
-                out = output_fn(self.params, self.cfg, self._put_batch(pb))
-                out = out.float().cpu().numpy()
-                for p, arr in zip(pb.placements, pb.unpack(out)):
-                    by_key[(mb.ids[p.item_idx], p.seq_idx)] = arr
+                with tracing.span("fwd_pipe/put"):
+                    arrays = self._put_batch(pb)
+                with tracing.span("fwd_pipe/dispatch"):
+                    out = output_fn(self.params, self.cfg, arrays)
+                with tracing.span("fwd_pipe/fetch"):
+                    out = out.float().cpu().numpy()
+                with tracing.span("fwd_pipe/unpack"):
+                    for p, arr in zip(pb.placements, pb.unpack(out)):
+                        by_key[(mb.ids[p.item_idx], p.seq_idx)] = arr
         main = sample.main_key()
         return [by_key[(item_id, j)]
                 for i, item_id in enumerate(sample.ids)

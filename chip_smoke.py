@@ -155,7 +155,32 @@ Phases, each printing one JSON line:
    captures = decode steps = paged-decode launches / layers), the
    recover checkpoint (version 2, 16 groups consumed) and, loaded into a
    fresh trainer on the card, its params equal to the v2 export bit for
-   bit. ``--keep-logs DIR`` keeps the run's log.
+   bit. ``--keep-logs DIR`` keeps the run's log. The world runs with the
+   observability plane on (OBS_WORLD_ENV: telemetry and span flushes
+   every 2 s, stats logged every step), so ``metrics.jsonl`` holds exactly
+   two ``ppo/`` lines and two ``fleet/`` lines and nothing else, and
+   ``observability_checks`` holds what the plane left: span flushes from
+   the four workers, a Chrome trace with events from four processes, one
+   trained qid's trace across the rollout worker, the manager and the gen
+   server (a ``gen_server/generate`` span under a ``gen_client/generate``
+   span) and the trained trajectory's trace reaching the trainer, ``python
+   -m areal_tpu_torch.apps.obs --once [--json]`` over every role with the
+   server's own token count, and the ``fleet/`` counters (``gen/served`` >
+   0, ``train/steps`` 2, ``staleness_versions`` observed once a group
+   trained, every ``ft/`` and ``guard/`` counter 0).
+6d. ``obs``: the fault-injection and observability plane at 2 layers of
+   the 1.5B widths, a flight recorder installed: a gen server (f32)
+   behind ``GenAPIClient`` answers 8 greedy requests, then the same 8 with
+   ``gen.http`` armed for 2 failures (answers equal, 2 retries counted,
+   paged-decode launches = layers x steps); a ``TrainEngine`` step with
+   ``train.step`` tripped leaves params and AdamW state bit-equal and the
+   guard counts it, a traced step's ``torch.profiler`` Chrome trace names
+   the flash forward and backward kernels and the ``annotate`` region,
+   flash launches = steps x layers x micro-batches (x 2 forward under full
+   remat); a save with ``ckpt.save`` armed raises and a fresh engine loads
+   the committed checkpoint bit for bit; one ``flight_dump`` holds the
+   recent client, server and engine spans and counter deltas equal to
+   OBS_EXPECTED.
 6c. ``agentic_ppo``: RM-scored async PPO with the multi-turn agent at the
    1.5B widths in one process: a bf16 32-slot server behind the gserver
    manager, one rollout worker running ``math-multi-turn`` (3 turns, 16
@@ -270,8 +295,8 @@ import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
           "serve_pipelined", "spec_serve", "weight_sync", "async_rollout",
-          "async_ppo", "agentic_ppo", "train_parity", "train", "sync_ppo",
-          "moe")
+          "async_ppo", "obs", "agentic_ppo", "train_parity", "train",
+          "sync_ppo", "moe")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -3589,6 +3614,149 @@ def live_group_members(pgid):
     return alive
 
 
+# what async_ppo's world runs with: telemetry published and spans flushed
+# every 2 s, and the trainer's stats (with the merged fleet/ view) logged
+# after every step rather than every 8
+OBS_WORLD_ENV = {"AREAL_TELEMETRY_EXPORT": "2", "AREAL_TRACE_FLUSH_S": "2",
+                 "AREAL_TRAIN_PREFETCH": "0"}
+# the world's workers, as their span flushes and snapshots name them, and
+# their telemetry roles
+OBS_WORKERS = ("gen_server/0", "gserver_manager", "rollout_worker/0",
+               "trainer")
+OBS_ROLES = ("gen_server", "manager", "rollout", "trainer")
+
+
+def metrics_partition(lines, n_steps, label):
+    """``metrics.jsonl`` of a run with the telemetry exporter on: exactly
+    ``n_steps`` ``ppo/`` lines and ``n_steps`` ``fleet/`` lines (one each
+    per logged step), and no other line. Returns (ppo lines, fleet
+    lines)."""
+    def kind(ln):
+        ks = {k.split("/", 1)[0] for k in ln if k not in ("step", "time")}
+        return ks.pop() if len(ks) == 1 else None
+
+    ppo = [ln for ln in lines if kind(ln) == "ppo"]
+    fleet = [ln for ln in lines if kind(ln) == "fleet"]
+    if len(ppo) != n_steps or len(fleet) != n_steps or (
+            len(ppo) + len(fleet) != len(lines)):
+        raise AssertionError(
+            f"{label}: metrics.jsonl holds {len(ppo)} ppo/ and {len(fleet)} "
+            f"fleet/ lines of {len(lines)} (want {n_steps} of each, nothing "
+            f"else): {[sorted(ln)[:4] for ln in lines]}")
+    return ppo, fleet
+
+
+def observability_checks(fileroot, fleet, *, n_steps, groups, gen_tokens,
+                         env, label):
+    """What the async-PPO world's observability plane left, checked:
+    - ``<fileroot>/trace_spans/`` holds a span flush from every worker,
+      and ``tracejoin.chrome_trace`` over them has events from four pids;
+    - one trained qid (the trainer consumed it) resolves to one trace whose
+      spans come from the rollout worker, the manager and the gen server
+      (and the trainer), where a ``gen_server/generate`` span's parent is a
+      ``gen_client/generate`` span;
+    - ``python -m areal_tpu_torch.apps.obs <fileroot> --once --json``
+      exits 0 over the four workers' final snapshots, whose ``gen/tokens``
+      equal the server's own count, and its table shows every role;
+    - the ``fleet/`` lines: ``gen/served`` > 0, ``train/steps`` = steps,
+      ``staleness_versions`` observed once a group trained, every ``ft/``
+      and ``guard/`` counter 0.
+    Returns the readings for the phase's line."""
+    import os
+
+    from areal_tpu_torch.system import telemetry, tracejoin
+
+    span_root = os.path.join(fileroot, "trace_spans")
+    flushed = sorted(os.listdir(span_root))
+    want = [w.replace("/", "_") + ".jsonl" for w in OBS_WORKERS]
+    if [f for f in want if f not in flushed]:
+        raise AssertionError(f"{label}: span flushes {flushed}, want {want}")
+    spans = tracejoin.scan(fileroot)
+    doc = tracejoin.chrome_trace(spans)
+    pids = {e["pid"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    if len(pids) < 4:
+        raise AssertionError(f"{label}: the Chrome trace has events from "
+                             f"{len(pids)} processes")
+    consumed = [s for s in spans if s.get("worker") == "trainer"
+                and s["name"] == "buffer/consume"]
+    if len(consumed) != groups:
+        raise AssertionError(f"{label}: {len(consumed)} buffer/consume "
+                             f"spans for {groups} groups trained")
+
+    def crossing(tid):
+        """The trace's workers, and its gen_server/generate spans whose
+        parent is a gen_client/generate span."""
+        mine = tracejoin.trace_spans(spans, tid) if tid else []
+        by_id = {s["span_id"]: s for s in mine}
+        hops = [s for s in mine if s["name"] == "gen_server/generate"
+                and by_id.get(s["parent_id"], {}).get("name")
+                == "gen_client/generate"]
+        return {s.get("worker") for s in mine}, hops, len(mine)
+
+    fleet_side = {"rollout_worker/0", "gserver_manager", "gen_server/0"}
+    # a qid resolves to its newest trajectory (the rollouts may have started
+    # a trained prompt again): the first trained qid whose newest trace
+    # crosses the rollout worker, the manager and the gen server
+    qid = tid = None
+    for c in consumed:
+        found = tracejoin.resolve_trace_id(spans, c["attrs"]["qid"])
+        workers, hops, n_spans = crossing(found)
+        if fleet_side <= workers and hops:
+            qid, tid = c["attrs"]["qid"], found
+            break
+    # the trained trajectory itself, by the trace id its consumption
+    # carried: the fleet's hops and the trainer's, in one trace
+    trained = tracejoin.resolve_trace_id(spans, consumed[0]["trace_id"])
+    t_workers, t_hops, _ = crossing(trained)
+    if qid is None or not (fleet_side | {"trainer"}) <= t_workers or (
+            not t_hops):
+        raise AssertionError(
+            f"{label}: no trained qid's trace crosses {fleet_side}; the "
+            f"trained trace {trained} has spans from {t_workers}:\n"
+            f"{tracejoin.render_tree(spans, trained or '')}")
+    obs = [sys.executable, "-m", "areal_tpu_torch.apps.obs", fileroot,
+           "--once"]
+    out_json = subprocess.run(obs + ["--json"], env=env, capture_output=True,
+                              text=True, timeout=120)
+    out_text = subprocess.run(obs, env=env, capture_output=True, text=True,
+                              timeout=120)
+    if out_json.returncode or out_text.returncode:
+        raise AssertionError(f"{label}: obs exited {out_json.returncode} / "
+                             f"{out_text.returncode}: {out_json.stderr}"
+                             f"{out_text.stderr}")
+    agg = json.loads(out_json.stdout.strip().splitlines()[-1])
+    roles_missing = [r for r in OBS_ROLES if f" {r} " not in out_text.stdout]
+    if agg.get("workers") != len(OBS_WORKERS) or roles_missing or (
+            agg.get("gen/tokens") != gen_tokens):
+        raise AssertionError(
+            f"{label}: obs shows {agg.get('workers')} workers, roles missing "
+            f"{roles_missing}, gen/tokens {agg.get('gen/tokens')} against "
+            f"the server's {gen_tokens}:\n{out_text.stdout}")
+    last = fleet[-1]
+    bad = [{k: v for k, v in ln.items()
+            if k.startswith(("fleet/ft/", "fleet/guard/")) and v != 0}
+           for ln in fleet]
+    n_ft = sum(1 for k in last if k.startswith("fleet/ft/"))
+    if any(bad) or n_ft != len(telemetry._ft_catalog()) or not last.get("fleet/gen/served", 0) > 0 or (
+            last.get("fleet/train/steps") != n_steps) or (
+            last.get("fleet/staleness_versions/count") != groups) or not (
+            0 < last.get("fleet/gen/tokens", 0) <= gen_tokens):
+        raise AssertionError(f"{label}: fleet/ lines {fleet}")
+    return dict(
+        span_files=len(flushed), spans_flushed=len(spans),
+        chrome_trace_pids=len(pids), trace_qid=qid,
+        trace_workers=sorted(workers), trace_spans=n_spans,
+        trained_trace_workers=sorted(t_workers),
+        fleet_gen_served=last["fleet/gen/served"],
+        fleet_gen_tokens=last["fleet/gen/tokens"],
+        obs_gen_tokens=agg["gen/tokens"],
+        fleet_staleness_p50=last.get("fleet/staleness_versions/p50"),
+        fleet_queue_wait_s_p50=last.get("fleet/queue_wait_s/p50"),
+        fleet_e2e_latency_s_p50=last.get("fleet/e2e_latency_s/p50"),
+        fleet_trace_dropped=last.get("fleet/trace/dropped", 0.0),
+    )
+
+
 def async_ppo_phase(torch, keep_logs=None):
     """The port's normal entry point as a user runs it: ``python -m
     areal_tpu_torch.apps.main async-ppo`` with dotted overrides, at the
@@ -3665,6 +3833,9 @@ def async_ppo_phase(torch, keep_logs=None):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [pkg_parent] + [p for p in [env.get("PYTHONPATH")] if p])
+    # the observability plane on: telemetry published and spans flushed
+    # every 2 s, stats (and the fleet/ view) logged every step
+    env.update(OBS_WORLD_ENV)
     log_path = os.path.join(work, "async_ppo.log")
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -3706,7 +3877,9 @@ def async_ppo_phase(torch, keep_logs=None):
         save_root = os.path.join(fileroot, "checkpoints", exp, trial)
         log_root = os.path.join(fileroot, "logs", exp, trial)
         with open(os.path.join(log_root, "metrics.jsonl")) as f:
-            lines = [json.loads(ln) for ln in f if ln.strip()]
+            lines, fleet = metrics_partition(
+                [json.loads(ln) for ln in f if ln.strip()],
+                c["total_train_steps"], "async_ppo")
         keys = ("ppo/actor_loss", "ppo/grad_norm", "ppo/n_tokens")
         if len(lines) != c["total_train_steps"] or not all(
                 np.isfinite(ln.get(k, np.nan)) for ln in lines for k in keys):
@@ -3727,6 +3900,10 @@ def async_ppo_phase(torch, keep_logs=None):
             k: srv[f"engine_{k}"] for k in (
                 "extend_replays", "extend_captures", "prefill_waves",
                 "commit_replays", "commit_captures", "commit_waves")})
+        obs_row = observability_checks(
+            fileroot, fleet, n_steps=c["total_train_steps"],
+            groups=c["total_train_steps"] * c["train_batch_size"],
+            gen_tokens=srv["gen_tokens"], env=env, label="async_ppo")
         ckpt = os.path.join(save_root, "recover", "trainer", "actor")
         manifest = recover.read_manifest(ckpt)
         info = recover.load(os.path.join(save_root, "recover"))
@@ -3807,8 +3984,306 @@ def async_ppo_phase(torch, keep_logs=None):
         trainer_peak_mem_gb=max(ln.get("ppo/hbm_peak_bytes_in_use", 0)
                                 for ln in lines) / 1e9,
         server_peak_mem_gb=srv.get("hbm_peak_bytes_in_use", 0) / 1e9,
+        **obs_row,
     )
     emit(phase="async_ppo", **row)
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# the observability and fault-injection plane on the card
+# --------------------------------------------------------------------------- #
+
+OBS_PHASE = dict(layers=2, n_requests=8, prompt_len=256, max_new=48,
+                 slots=8, max_seqlen=1024, http_faults=2, train_seqs=8,
+                 train_prompt=256, train_resp=(128, 384), mb_tokens=4096)
+# the ft/, guard/ and faults/ counters the phase's script must move, and by
+# how much (the flight dump's counter deltas are held to these)
+OBS_EXPECTED = {"ft/client_retries": 2, "faults/gen.http": 2,
+                "faults/train.step": 1, "guard/anomalous_steps": 1,
+                "guard/update_skipped": 1, "faults/ckpt.save": 1}
+
+
+def obs_watched(delta):
+    return {k: v for k, v in delta.items()
+            if k.startswith(("ft/", "guard/", "faults/")) and v}
+
+
+def obs_phase(torch):
+    """The observability and fault-injection plane on the card, at 2 layers
+    of the 1.5B widths, with a flight recorder installed for the phase:
+    - a gen server (f32, so greedy tokens do not depend on how requests
+      batch) behind ``GenAPIClient`` answers 8 greedy requests, then the
+      same 8 with ``gen.http`` armed for 2 failures: every request answered,
+      the tokens equal, ``ft/client_retries`` 2 and ``faults/gen.http`` 2,
+      paged-decode launches = layers x decode steps;
+    - a ``TrainEngine`` (f32 masters, bf16 compute, full remat) takes an SFT
+      step, commits a checkpoint, takes a step with ``train.step`` tripped
+      (``guard/step_ok`` 0; params and AdamW state bit-equal to before it;
+      the trainer worker's guard counts one anomalous step), then a step
+      under ``maybe_trace`` with ``AREAL_DUMP_TRACE=1`` that moves the
+      weights; its Chrome trace names the flash forward and backward
+      kernels and the ``annotate`` region; flash launches = steps x layers
+      x micro-batches (x 2 forward: full remat);
+    - ``ckpt.save`` armed: the next save raises, ``recover`` resolves the
+      committed directory, and a fresh engine on the card loads it equal
+      to the params at that save, bit for bit;
+    - ``flight_dump``: one JSON with the recent ``gen_client/generate``,
+      ``gen_server/generate`` and ``gen_engine/chunk`` spans and counter
+      deltas equal to OBS_EXPECTED; ``trace/flight_dumps`` 1."""
+    import asyncio
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.api.model import PPOHyperparameters
+    from areal_tpu_torch.base import constants, faults, recover, tracing
+    from areal_tpu_torch.base import metrics as m
+    from areal_tpu_torch.gen.client import GenAPIClient, RetryPolicy
+    from areal_tpu_torch.gen.engine import GenerationEngine
+    from areal_tpu_torch.gen.server import serve
+    from areal_tpu_torch.interfaces.sft import sft_loss_fn
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.ops.cuda import flash_attention as cuda_flash
+    from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
+    from areal_tpu_torch.system import worker_base
+    from areal_tpu_torch.system.trainer_worker import (
+        AsyncPPOTrainerWorker,
+        TrainerControl,
+    )
+    from areal_tpu_torch.train.engine import OptimizerConfig, TrainEngine
+
+    c = OBS_PHASE
+    t_phase = time.perf_counter()
+    full = dataclasses.replace(qwen_1p5b_cfg(), n_layers=c["layers"])
+    L = full.n_layers
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    parent, _, _ = export_dir_and_depth(full, root_dir, copies=3)
+    work = tempfile.mkdtemp(prefix="areal_obs_", dir=parent)
+    env0 = {k: os.environ.get(k)
+            for k in ("AREAL_FILEROOT", constants.TRACE_ENV)}
+    os.environ["AREAL_FILEROOT"] = work
+    constants.set_experiment_trial_names("chip_smoke", "obs")
+    faults.reset()
+    tracing.drain()
+    rec = worker_base.FlightRecorder(
+        "chip_smoke/obs", root=os.path.join(work, "flight"),
+        span_tail=256).install()
+    before = m.counters.snapshot()
+    try:
+        # -- the client's retries through a transient fault ----------------
+        cfg = dataclasses.replace(full, dtype="float32")
+        params = tfm.init_params(cfg, seed=0, device="cuda",
+                                 dtype=torch.float32)
+        eng = GenerationEngine(cfg, params, max_slots=c["slots"],
+                               max_seqlen=c["max_seqlen"], page_size=128,
+                               seed=0, device="cuda")
+        del params
+        srv = serve(eng, "127.0.0.1", 0, decode_steps=DECODE_STEPS)
+        url = f"http://127.0.0.1:{srv.port}"
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, c["prompt_len"]).tolist()
+                   for _ in range(c["n_requests"])]
+
+        async def serve_all(tag):
+            retry = RetryPolicy(max_attempts=3, backoff_base_s=0.01,
+                                backoff_cap_s=0.05)
+            async with GenAPIClient(timeout=300, retry=retry, seed=0) as cl:
+                outs = await asyncio.gather(*(
+                    cl.generate(url, f"{tag}{i}", p,
+                                {"max_new_tokens": c["max_new"],
+                                 "greedy": True})
+                    for i, p in enumerate(prompts)))
+            return [o.output_ids for o in outs]
+
+        cuda_paged.reset_launches()
+        steps0 = eng.stats["decode_steps"]
+        t0 = time.perf_counter()
+        plain = asyncio.run(serve_all("plain"))
+        k0 = m.counters.snapshot()
+        rule = faults.inject("gen.http", op="generate",
+                             times=c["http_faults"])
+        faulted = asyncio.run(serve_all("faulted"))
+        faults.reset()
+        serve_s = time.perf_counter() - t0
+        http_delta = obs_watched(m.counters.delta(k0))
+        steps = eng.stats["decode_steps"] - steps0
+        paged = cuda_paged.launches
+        srv.stop()
+        gen_tokens = sum(len(t) for t in plain + faulted)
+        if faulted != plain or rule.fired != c["http_faults"] or any(
+                len(t) != c["max_new"] for t in plain) or http_delta != {
+                "ft/client_retries": 2, "faults/gen.http": 2}:
+            raise AssertionError(
+                f"obs: faulted answers equal {faulted == plain}, fired "
+                f"{rule.fired}, counters {http_delta}")
+        if steps <= 0 or paged != L * steps:
+            raise AssertionError(f"obs: paged-decode launches {paged} for "
+                                 f"{L} layers x {steps} decode steps")
+        del eng, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- train.step tripped, a traced step, ckpt.save mid-save --------
+        tcfg = dataclasses.replace(full, remat_policy="full",
+                                   loss_chunk_size=2048)
+        te = TrainEngine(tcfg, optimizer=OptimizerConfig(lr=1e-5),
+                         device="cuda").init_random(0).setup_optimizer(100)
+
+        class NoStream:
+            def get_batch(self, n, timeout=0.1):
+                return []
+
+        worker = AsyncPPOTrainerWorker(
+            experiment_name="chip_smoke", trial_name="obs", actor_engine=te,
+            stream=NoStream(),
+            hp=PPOHyperparameters(disable_value=True, kl_ctl=0.0),
+            control=TrainerControl(total_train_steps=10),
+            train_batch_size=2, hf_family="qwen2")
+        trng = np.random.default_rng(4)
+        lens = [c["train_prompt"] + int(r) for r in trng.integers(
+            *c["train_resp"], size=c["train_seqs"])]
+        sample = SequenceSample.from_default(
+            ids=list(range(len(lens))), seqlens=lens, data={
+                "packed_input_ids": trng.integers(
+                    0, tcfg.vocab_size, sum(lens)).astype(np.int64),
+                "prompt_mask": np.concatenate([
+                    np.r_[np.ones(c["train_prompt"], bool),
+                          np.zeros(n - c["train_prompt"], bool)]
+                    for n in lens])})
+        spec = MicroBatchSpec(max_tokens_per_mb=c["mb_tokens"])
+
+        def leaves():
+            return [t.detach().clone() for _, t in
+                    recover.tree_leaves_with_path(te.params)]
+
+        def adam():
+            return [v.detach().clone() for st in te.optimizer.state.values()
+                    for v in st.values() if torch.is_tensor(v)]
+
+        def train(tag):
+            stats = te.train_batch(sample, spec, sft_loss_fn)
+            torch.cuda.synchronize()
+            worker._pending_stats = [(tag, time.time(),
+                                      {"guard/step_ok": stats["guard/step_ok"]})]
+            worker.flush_stats()
+            return stats
+
+        cuda_flash.reset_launches()
+        t0 = time.perf_counter()
+        ok_a = train(0)["guard/step_ok"]
+        ckpt = os.path.join(work, "ckpt")
+        t1 = time.perf_counter()
+        te.save_checkpoint(ckpt, with_optim=False)
+        save_s = time.perf_counter() - t1
+        committed_step = te._step
+        at_save = leaves()
+        p0, s0 = leaves(), adam()
+        g0 = m.counters.get(m.GUARD_ANOMALOUS_STEPS)
+        faults.inject("train.step", action="trip", times=1)
+        ok_b = train(1)["guard/step_ok"]
+        faults.reset()
+        same_p = all(torch.equal(a, b) for a, b in zip(p0, leaves()))
+        s1 = adam()
+        same_s = len(s0) == len(s1) > 0 and all(
+            torch.equal(a, b) for a, b in zip(s0, s1))
+        anomalous = m.counters.get(m.GUARD_ANOMALOUS_STEPS) - g0
+        os.environ[constants.TRACE_ENV] = "1"
+        with tracing.maybe_trace("obs_train_step") as trace_path:
+            with tracing.annotate("obs:train_step"):
+                ok_c = train(2)["guard/step_ok"]
+        os.environ.pop(constants.TRACE_ENV)
+        moved = not all(torch.equal(a, b) for a, b in zip(p0, leaves()))
+        train_s = time.perf_counter() - t0 - save_s
+        fwd, bwd = cuda_flash.fwd_launches, cuda_flash.bwd_launches
+        n_mbs = len(te._make_micro_batches(sample, spec)[1])
+        if (ok_a, ok_b, ok_c) != (1.0, 0.0, 1.0) or not same_p or (
+                not same_s) or anomalous != 1 or not moved:
+            raise AssertionError(
+                f"obs: step_ok {(ok_a, ok_b, ok_c)}, params equal after the "
+                f"tripped step {same_p}, AdamW state equal {same_s}, "
+                f"anomalous steps {anomalous}, moved after {moved}")
+        if fwd != 3 * 2 * L * n_mbs or bwd != 3 * L * n_mbs:
+            raise AssertionError(f"obs: flash launches fwd {fwd} bwd {bwd} "
+                                 f"for 3 steps x {L} layers x {n_mbs} mbs")
+        with open(trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        kernels = {k: sorted(n for n in names if k in n)
+                   for k in ("flash_fwd", "flash_dq", "flash_dkdv")}
+        if not all(kernels.values()) or "obs:train_step" not in names:
+            raise AssertionError(f"obs: the profiler trace names the flash "
+                                 f"kernels {kernels}, annotate region "
+                                 f"{'obs:train_step' in names}")
+        faults.inject("ckpt.save", times=1)
+        try:
+            te.save_checkpoint(ckpt, with_optim=False)
+            raise AssertionError("obs: the save went through ckpt.save")
+        except faults.FaultInjected:
+            pass
+        finally:
+            faults.reset()
+        resolved = recover.resolve_committed(ckpt)
+        manifest = recover.read_manifest(ckpt)
+        t1 = time.perf_counter()
+        fresh = TrainEngine(tcfg, device="cuda").init_random(7)
+        fresh.load_checkpoint(ckpt, with_optim=False)
+        load_s = time.perf_counter() - t1
+        loaded = [t for _, t in recover.tree_leaves_with_path(fresh.params)]
+        if resolved != ckpt or manifest["step"] != committed_step or not all(
+                torch.equal(a, b) for a, b in zip(at_save, loaded)) or len(
+                loaded) != len(at_save):
+            raise AssertionError(
+                f"obs: after the failed save, resolved {resolved}, manifest "
+                f"step {manifest and manifest['step']} (committed at "
+                f"{committed_step}), loaded params equal "
+                f"{all(torch.equal(a, b) for a, b in zip(at_save, loaded))}")
+        ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f))
+                      for f in os.listdir(ckpt)) / 1e9
+        del te, fresh, worker, p0, s0, s1, at_save, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the flight recorder ------------------------------------------
+        d0 = m.counters.get(m.TRACE_FLIGHT_DUMPS)
+        path = worker_base.flight_dump("obs_phase")
+        with open(path) as f:
+            dump = json.load(f)
+        span_names = {sp["name"] for sp in dump["spans"]}
+        want = {"gen_client/generate", "gen_server/generate",
+                "gen_engine/chunk"}
+        watched = obs_watched(dump["counters"])
+        if not want <= span_names or watched != OBS_EXPECTED or (
+                m.counters.get(m.TRACE_FLIGHT_DUMPS) - d0 != 1) or (
+                rec.dumps != 1) or watched != obs_watched(
+                m.counters.delta(before)):
+            raise AssertionError(
+                f"obs: flight dump spans {sorted(span_names)}, counters "
+                f"{watched}, want {OBS_EXPECTED}; dumps {rec.dumps}")
+    finally:
+        faults.reset()
+        rec.uninstall()
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    row = dict(
+        layers=L, seconds=time.perf_counter() - t_phase,
+        requests=2 * c["n_requests"], faulted_tokens_equal=True,
+        gen_tokens=gen_tokens, serve_s=serve_s, decode_steps=steps,
+        paged_decode_launches=paged, http_counters=http_delta,
+        train_steps=3, train_mbs=n_mbs, train_s=train_s,
+        flash_fwd_launches=fwd, flash_bwd_launches=bwd,
+        trace_kernels={k: v[:2] for k, v in kernels.items()},
+        trace_events=len(names), ckpt_gb=ckpt_gb, save_s=save_s,
+        load_s=load_s, flight_spans=len(dump["spans"]),
+        flight_counters=watched,
+    )
+    emit(phase="obs", **row)
     return row
 
 
@@ -6263,6 +6738,8 @@ def main(argv=None) -> int:
         async_rollout_phase(torch)
     if "async_ppo" in phases:
         async_ppo_phase(torch, keep_logs=args.keep_logs)
+    if "obs" in phases:
+        obs_phase(torch)
     agentic = (agentic_ppo_phase(torch, keep_logs=args.keep_logs)
                if "agentic_ppo" in phases else {})
     if "train_parity" in phases:

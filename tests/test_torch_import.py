@@ -66,7 +66,13 @@ for n in ("areal_tpu_torch.ops.fused_sample",
           "areal_tpu_torch.system.sync_trainer",
           "areal_tpu_torch.interfaces.reward", "areal_tpu_torch.apps.profile",
           "areal_tpu_torch.datasets.prompt_answer",
-          "areal_tpu_torch.datasets.rw_paired"):
+          "areal_tpu_torch.datasets.rw_paired",
+          "areal_tpu_torch.base.logging", "areal_tpu_torch.base.faults",
+          "areal_tpu_torch.base.tracing",
+          "areal_tpu_torch.base.stats_tracker",
+          "areal_tpu_torch.base.name_resolve_server",
+          "areal_tpu_torch.system.telemetry",
+          "areal_tpu_torch.system.tracejoin", "areal_tpu_torch.apps.obs"):
     assert n in names, n
 """
 

@@ -581,9 +581,21 @@ def test_name_resolve_reconfigure_switches_backends(tmp_path):
         name_resolve.reconfigure(name_resolve.NameResolveConfig(type="memory"))
         with pytest.raises(name_resolve.NameEntryNotFoundError):
             name_resolve.get("a/b")
-        with pytest.raises(NotImplementedError, match="TCP"):
+        # the TCP backend: a client of the port's server
+        from areal_tpu_torch.base import name_resolve_server
+
+        srv = name_resolve_server.NameResolveServer("127.0.0.1", 0)
+        addr = srv.start()
+        try:
             name_resolve.reconfigure(name_resolve.NameResolveConfig(
-                type="rpc", root="localhost:1"))
+                type="rpc", root=addr))
+            name_resolve.add("a/b", "2")
+            assert name_resolve.get("a/b") == "2"
+            name_resolve.default_repository().close()
+        finally:
+            srv.stop()
+        with pytest.raises(ValueError, match="host:port"):
+            name_resolve.RpcNameRecordRepository("no-port")
         with pytest.raises(ValueError, match="Unknown"):
             name_resolve.make_repository(name_resolve.NameResolveConfig(
                 type="zk"))

@@ -4,10 +4,9 @@ preemption paths (the counterparts of ``tests/test_fault_tolerance.py``'s
 trainer scenarios, ``:485-890``), with the pure-Python pieces held against
 ``areal_tpu`` on the same inputs.
 
-The reference injects its crashes through ``base/faults``, which the port
-does not have yet; here a crash mid-save is a raise from the commit step
-(after the tensors are staged, before the rename), the same window the
-reference's ``ckpt.save`` fault point opens. Comparisons of params after a
+Here a crash mid-save is a raise from the commit step (after the tensors
+are staged, before the rename), the window the ``ckpt.save`` fault point
+opens (``tests/test_torch_faults.py`` scripts the point itself). Comparisons of params after a
 resume are exact (``torch.equal``): the checkpoint holds every bit of the
 training state.
 """

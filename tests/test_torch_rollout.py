@@ -210,18 +210,25 @@ def test_sequence_buffer_matches_reference(case):
 
 
 def test_record_consumption_observes_the_stamps():
-    pt_buffer.HISTOGRAMS.clear()
+    from areal_tpu_torch.base import metrics as pt_metrics
+
+    names = (pt_metrics.STALENESS_VERSIONS, pt_metrics.TTFC_S,
+             pt_metrics.REWARD_LAG_S, pt_metrics.QUEUE_WAIT_S,
+             pt_metrics.E2E_LATENCY_S)
+    for n in names:
+        pt_metrics.counters.clear(n)
     t = _traj(SequenceSample, "a", 3)
     now = time.time()
     t.metadata.update(submit_time=[now - 10.0], enqueue_time=[now - 4.0],
                       first_chunk_time=[now - 9.5], reward_time=[now - 2.0])
     pt_buffer.record_batch_consumption([t], current_version=5)
-    h = pt_buffer.HISTOGRAMS
-    assert h[pt_buffer.STALENESS_VERSIONS] == [2]
-    assert h[pt_buffer.TTFC_S] == [pytest.approx(0.5)]
-    assert h[pt_buffer.REWARD_LAG_S] == [pytest.approx(8.0)]
-    assert 4.0 <= h[pt_buffer.QUEUE_WAIT_S][0] < 5.0
-    assert 10.0 <= h[pt_buffer.E2E_LATENCY_S][0] < 11.0
+    h = {n: pt_metrics.counters.histogram(n) for n in names}
+    assert all(x.count == 1 for x in h.values())
+    assert h[pt_metrics.STALENESS_VERSIONS].sum == 2
+    assert h[pt_metrics.TTFC_S].sum == pytest.approx(0.5)
+    assert h[pt_metrics.REWARD_LAG_S].sum == pytest.approx(8.0)
+    assert 4.0 <= h[pt_metrics.QUEUE_WAIT_S].sum < 5.0
+    assert 10.0 <= h[pt_metrics.E2E_LATENCY_S].sum < 11.0
 
 
 # --------------------------------------------------------------------------- #
