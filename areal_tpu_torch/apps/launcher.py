@@ -3,8 +3,9 @@ async-PPO world, and the in-process recipes (sync PPO, SFT, paired
 reward-model training): the counterpart of ``areal_tpu/apps/launcher.py``.
 
 Each worker role runs as a spawned process: the generation servers, the
-gserver manager, the rollout workers and the trainer. They rendezvous
-through the file-backed name_resolve under the experiment's file root.
+gserver manager, the serving gateway (``gateway.enabled``), the rollout
+workers and the trainer. They rendezvous through the file-backed
+name_resolve under the experiment's file root.
 The launcher owns the experiment's lifecycle record (running / stopped),
 watches its children and, on a failure with ``recover_mode=auto``, stops
 the world and restarts it (restart-the-world recovery, resuming from the
@@ -38,14 +39,14 @@ server, manager, rollout worker, trainer). With ``AREAL_NAME_RESOLVE_RPC
 =host:port`` the workers rendezvous through the TCP name-resolve server
 (``base/name_resolve_server.py``) instead of the file root.
 
-Not ported yet, and raising ``NotImplementedError``: the serving gateway
-and the evaluator roles, tensor-parallel servers and the elastic trainer
-world (``ROADMAP.md``).
+Not ported yet, and raising ``NotImplementedError``: the evaluator role,
+tensor-parallel servers and the elastic trainer world (``ROADMAP.md``).
 """
 
 import asyncio
 import contextlib
 import dataclasses
+import functools
 import logging
 import multiprocessing as mp
 import os
@@ -142,10 +143,6 @@ def _load_engine(spec, is_critic=False, with_optimizer=True, total_steps=100,
 def _check_ported(cfg):
     """Raise before anything starts for options whose workers are not
     ported yet."""
-    if cfg.gateway.enabled:
-        raise NotImplementedError(
-            "the serving gateway (gateway_main) is not ported yet "
-            "(ROADMAP.md)")
     if cfg.evaluator.enabled:
         raise NotImplementedError(
             "the evaluator (evaluator_main) is not ported yet (ROADMAP.md)")
@@ -366,6 +363,219 @@ def _gserver_manager(cfg):
         tele.stop()
 
 
+def gateway_main(cfg):
+    """Serving-gateway worker: the OpenAI-compatible API and the
+    continuous-batching scheduler over the discovered gen servers, with an
+    optional autoscaler resizing the ROUTED subset live (and mirroring
+    every add/remove to the gserver manager so RL sticky routing follows)
+    and an optional brownout ladder. The scheduler runs on this process's
+    event loop; the HTTP frontend answers on threads of its own."""
+    _setup_worker_env(cfg, "cpu")
+    with _worker_observability("gateway"):
+        asyncio.run(_gateway(cfg))
+
+
+async def _gateway(cfg):
+    from areal_tpu_torch.base import constants, name_resolve, names, network
+    from areal_tpu_torch.gateway.api import (
+        ByteFallbackCodec,
+        GatewayConfig,
+        GatewayServer,
+        HFTokenizerCodec,
+        serve_gateway,
+    )
+    from areal_tpu_torch.gateway.autoscaler import (
+        Autoscaler,
+        AutoscalerConfig,
+        ScaleSignals,
+    )
+    from areal_tpu_torch.gateway.qos import TenantSpec
+    from areal_tpu_torch.gateway.scheduler import ContinuousBatchScheduler
+    from areal_tpu_torch.system import telemetry
+    from areal_tpu_torch.system.worker_base import (
+        ExperimentStatusWatch,
+        Heartbeat,
+        TelemetryExporter,
+    )
+
+    gspec = cfg.gateway
+    # discovered fleet = scale-out ceiling; routed set starts full
+    all_urls = []
+    for i in range(cfg.gen.n_servers):
+        key = names.gen_server(cfg.experiment_name, cfg.trial_name, i)
+        name_resolve.wait(key, timeout=300)
+        all_urls.append(name_resolve.get(key))
+    # spec value 0 defers to the env knobs — for NAMED tenants too, or
+    # listing a tenant in tenant_weights would silently strip its rate
+    # limit while the anonymous tenant kept one
+    rate = gspec.rate_tokens_per_s or constants.gateway_rate_tps()
+    burst = gspec.burst_tokens or constants.gateway_burst()
+    tenants = {
+        name: TenantSpec(
+            name=name, weight=w,
+            rate_tokens_per_s=rate, burst_tokens=burst,
+            default_deadline_s=gspec.default_deadline_s,
+        )
+        for name, w in gspec.tenant_weights.items()
+    }
+    scheduler = ContinuousBatchScheduler(
+        list(all_urls),
+        tenants,
+        default_tenant=TenantSpec(
+            name=gspec.default_tenant,
+            rate_tokens_per_s=rate,
+            burst_tokens=burst,
+            default_deadline_s=gspec.default_deadline_s,
+        ),
+        max_queue=gspec.max_queue if gspec.max_queue >= 0 else None,
+        admit_occupancy=(
+            gspec.admit_occupancy if gspec.admit_occupancy >= 0 else None
+        ),
+        hedge_enabled=gspec.hedge,
+    )
+    await scheduler.start()
+    tok_path = cfg.tokenizer_path or cfg.actor.path
+    codec = (
+        HFTokenizerCodec(tok_path) if tok_path
+        else ByteFallbackCodec(cfg.actor.model_config().vocab_size)
+    )
+    gw = GatewayServer(
+        scheduler, codec,
+        GatewayConfig(
+            model_id=cfg.experiment_name,
+            default_tenant=gspec.default_tenant,
+            api_keys=dict(gspec.api_keys),
+            require_api_key=gspec.require_api_key,
+            max_tokens_cap=cfg.gen.max_new_tokens_cap,
+        ),
+    )
+    port = gspec.port or constants.gateway_port() or network.find_free_port()
+    runner = await serve_gateway(gw, "127.0.0.1", port)
+    name_resolve.add(
+        names.gateway(cfg.experiment_name, cfg.trial_name),
+        f"http://127.0.0.1:{port}",
+        replace=True,
+    )
+    loop = asyncio.get_running_loop()
+    bg_tasks: set = set()
+    autoscaler_task = None
+    if gspec.autoscale:
+        # the manager's address before the first routed-set edit: the
+        # reference looks it up at each edit and drops an edit made before
+        # the manager has published it, so the manager would go on routing
+        # to a server the gateway removed
+        mgr_url = await loop.run_in_executor(None, functools.partial(
+            name_resolve.wait,
+            names.gserver_manager(cfg.experiment_name, cfg.trial_name),
+            timeout=300))
+
+        async def sync_manager(url: str, add: bool):
+            from areal_tpu_torch.gen.client import GenAPIClient
+
+            try:
+                async with GenAPIClient(timeout=10.0) as c:
+                    await c.post_json(
+                        mgr_url,
+                        "/add_server" if add else "/remove_server",
+                        {"url": url}, op="autoscale",
+                    )
+            except Exception:
+                logger.exception("manager routed-set sync failed")
+
+        def mirror(urls, add: bool):
+            for u in urls:
+                t = loop.create_task(sync_manager(u, add=add))
+                bg_tasks.add(t)
+                t.add_done_callback(bg_tasks.discard)
+
+        def fetch_signals():
+            scalars = telemetry.collect_fleet_scalars(
+                cfg.experiment_name, cfg.trial_name) or {}
+            routed = scheduler.server_urls()
+            # occupancy averages over the ROUTED set: idle unrouted
+            # servers report ~0 and would dilute routed-pool saturation
+            # below the grow threshold
+            sig = ScaleSignals.from_fleet_scalars(
+                scalars, routed=len(routed),
+                n_gen_servers=max(len(routed), 1),
+            )
+            # the gateway's own queue is live, not telemetry-lagged
+            sig.queue_depth = float(scheduler.queue_depth())
+            return sig
+
+        def grow(n: int) -> int:
+            routed = scheduler.server_urls()
+            spare = [u for u in all_urls if u not in routed][:n]
+            if spare:
+                scheduler.set_servers(routed + spare)
+                mirror(spare, add=True)
+            return len(spare)
+
+        def shrink(n: int) -> int:
+            routed = scheduler.server_urls()
+            n = min(n, max(len(routed) - gspec.min_servers, 0))
+            victims = routed[len(routed) - n:] if n else []
+            if victims:
+                scheduler.set_servers(
+                    [u for u in routed if u not in victims])
+                mirror(victims, add=False)
+            return len(victims)
+
+        autoscaler = Autoscaler(
+            AutoscalerConfig(
+                min_servers=gspec.min_servers,
+                max_servers=cfg.gen.n_servers,
+                interval_s=gspec.autoscale_interval_s,
+                cooldown_s=gspec.autoscale_cooldown_s,
+            ),
+            fetch_signals, grow, shrink,
+        )
+        autoscaler_task = loop.create_task(autoscaler.run())
+
+    brownout_task = None
+    if gspec.brownout:
+        from areal_tpu_torch.gateway.brownout import (
+            BrownoutConfig,
+            wire_brownout,
+        )
+
+        controller = wire_brownout(
+            BrownoutConfig(
+                interval_s=gspec.brownout_interval_s,
+                min_hold_s=gspec.brownout_min_hold_s,
+                clamp_max_tokens=gspec.brownout_clamp_max_tokens,
+                weight_floor=gspec.brownout_weight_floor,
+            ),
+            scheduler, gw.config, scheduler._client,
+        )
+        brownout_task = loop.create_task(controller.run())
+
+    watch = ExperimentStatusWatch(cfg.experiment_name, cfg.trial_name)
+    hb = Heartbeat(cfg.experiment_name, cfg.trial_name, "gateway").start()
+    tele = TelemetryExporter(
+        cfg.experiment_name, cfg.trial_name, "gateway", "gateway",
+        gauges_fn=lambda: {
+            "gw_queue_depth": float(scheduler.queue_depth()),
+            "gw_inflight": float(scheduler.inflight()),
+            "gw_routed_servers": float(len(scheduler.server_urls())),
+        },
+    ).maybe_start()
+    try:
+        while watch.alive():
+            await asyncio.sleep(1.0)
+    finally:
+        tele.stop()
+        hb.stop()
+        for t in (autoscaler_task, brownout_task):
+            if t is not None:
+                t.cancel()
+        await asyncio.gather(
+            *[t for t in (autoscaler_task, brownout_task) if t is not None],
+            *bg_tasks, return_exceptions=True)
+        await scheduler.stop()
+        await runner.cleanup()
+
+
 def rollout_worker_main(cfg, worker_idx: int):
     _setup_worker_env(cfg, "cpu")
     with _worker_observability(f"rollout_worker/{worker_idx}"):
@@ -540,6 +750,17 @@ def _trainer(cfg):
         sys.exit(worker_base.EXIT_PREEMPTED)
 
 
+# the worker role mains by role name (the reference's ``ROLE_MAINS``, less
+# the evaluator, which is not ported)
+ROLE_MAINS = {
+    "gen_server": gen_server_main,
+    "gserver_manager": gserver_manager_main,
+    "gateway": gateway_main,
+    "rollout_worker": rollout_worker_main,
+    "trainer": trainer_main,
+}
+
+
 # --------------------------------------------------------------------------- #
 # orchestration
 # --------------------------------------------------------------------------- #
@@ -586,6 +807,12 @@ def _spawn_all(cfg) -> Dict[str, mp.Process]:
         ctx.Process(target=gserver_manager_main, args=(cfg,), daemon=True),
         True,
     )
+    if cfg.gateway.enabled:
+        start(
+            "gateway",
+            ctx.Process(target=gateway_main, args=(cfg,), daemon=True),
+            True,
+        )
     for i in range(cfg.rollout.n_workers):
         start(
             f"rollout_worker/{i}",

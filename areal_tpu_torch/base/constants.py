@@ -213,6 +213,69 @@ def train_prefetch_enabled() -> bool:
 
 
 # --------------------------------------------------------------------- #
+# the serving gateway (gateway/): the reference's knobs, same defaults
+# --------------------------------------------------------------------- #
+
+GATEWAY_PORT_ENV = "AREAL_GATEWAY_PORT"          # 0 = pick a free port
+GATEWAY_RATE_TPS_ENV = "AREAL_GW_RATE_TPS"       # per-tenant token bucket
+GATEWAY_BURST_ENV = "AREAL_GW_BURST"             # token-bucket burst size
+GATEWAY_MAX_QUEUE_ENV = "AREAL_GW_MAX_QUEUE"     # gateway queue cap
+GATEWAY_ADMIT_OCC_ENV = "AREAL_GW_ADMIT_OCCUPANCY"  # KV-pool admit gate
+GATEWAY_HEDGE_ENV = "AREAL_GW_HEDGE"             # hedged dispatch on/off
+GATEWAY_DEADLINE_S_ENV = "AREAL_GW_DEADLINE_S"   # default request deadline
+
+
+def gateway_port() -> int:
+    """``AREAL_GATEWAY_PORT`` (default 0 = pick a free port): TCP port the
+    OpenAI-compatible serving gateway binds."""
+    return env_int(GATEWAY_PORT_ENV, 0)
+
+
+def gateway_rate_tps() -> float:
+    """``AREAL_GW_RATE_TPS`` (default 0 = unlimited): default per-tenant
+    token-bucket refill rate in tokens/second (prompt + budgeted new
+    tokens are charged at admission; unused budget is refunded at
+    completion). Per-tenant overrides come from the gateway config."""
+    return env_float(GATEWAY_RATE_TPS_ENV, 0.0)
+
+
+def gateway_burst() -> float:
+    """``AREAL_GW_BURST`` (default 0 = 4x the refill rate, itself 0 =
+    unlimited): default per-tenant token-bucket burst capacity."""
+    return env_float(GATEWAY_BURST_ENV, 0.0)
+
+
+def gateway_max_queue() -> int:
+    """``AREAL_GW_MAX_QUEUE`` (default 256): gateway-wide cap on queued
+    (not yet dispatched) requests; past it new requests get 429."""
+    return env_int(GATEWAY_MAX_QUEUE_ENV, 256)
+
+
+def gateway_admit_occupancy() -> float:
+    """``AREAL_GW_ADMIT_OCCUPANCY`` (default 0.95): KV-pool occupancy
+    fraction past which the gateway stops dispatching to a server (the
+    request waits in the fair queue instead of deep-queuing behind a
+    full pool)."""
+    return env_float(GATEWAY_ADMIT_OCC_ENV, 0.95)
+
+
+def gateway_hedge() -> bool:
+    """``AREAL_GW_HEDGE`` (default on): hedge a still-unstarted request to
+    a second healthy backend once its time-to-first-token exceeds the live
+    ``gw/ttft_s`` p95. The loser is cancelled; hedge volume is capped per
+    tenant."""
+    return env_flag(GATEWAY_HEDGE_ENV, True)
+
+
+def gateway_deadline_s() -> float:
+    """``AREAL_GW_DEADLINE_S`` (default 0 = none): default per-request
+    deadline in seconds for tenants without an explicit
+    ``default_deadline_s`` in their spec. Clients override per request via
+    the ``timeout`` body field or ``X-Request-Deadline`` header."""
+    return env_float(GATEWAY_DEADLINE_S_ENV, 0.0)
+
+
+# --------------------------------------------------------------------- #
 # the remote reward sandbox (rewards/remote.py)
 # --------------------------------------------------------------------- #
 

@@ -31,8 +31,8 @@ Actions
   step, simulate a delivered SIGTERM). ``maybe_fail`` ignores trip rules.
 
 Injection-point catalog (the reference's, point for point; the points
-marked * have no call site in the port yet: the elastic trainer world and
-the serving gateway come in later slices):
+marked * have no call site in the port yet: the elastic trainer world
+comes in a later slice):
 
 ====================  ========================================  ==========
 point                 where                                      kwargs
@@ -60,7 +60,7 @@ point                 where                                      kwargs
                       (delay: the backend stalls before its
                       first chunk -- the straggler the hedge
                       path exists for)
-``gw.deadline_storm`` * gateway scheduler _pick_server (trip:      (none)
+``gw.deadline_storm`` gateway scheduler _pick_server (trip:        (none)
                       report zero dispatch capacity so queued
                       requests age out against their deadlines)
 ====================  ========================================  ==========

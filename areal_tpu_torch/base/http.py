@@ -5,6 +5,9 @@
   the raw body returning ``(status, payload)`` or ``(status, payload,
   headers)``; the payload goes out as JSON, or, when it is a ``Stream``,
   frame by frame until the stream ends, on a connection closed after it.
+  A route marked with ``with_request`` receives the whole ``Request``
+  instead: its body, its headers (looked up case-insensitively) and a
+  ``client_gone()`` probe of the connection, for a handler that waits.
 - Client: ``request`` is one request on a connection of its own over
   ``asyncio.open_connection``, so any number of calls can be in flight on
   one event loop without threads (what aiohttp gives the reference), and
@@ -78,6 +81,32 @@ class Stream:
                 self.on_close()
 
 
+class Request:
+    """What a ``with_request`` route receives: ``body`` (bytes),
+    ``headers`` (names lowercased; ``header(name)`` looks one up in any
+    case) and ``client_gone()``, whether the client has closed its end
+    since it sent the request."""
+
+    def __init__(self, body: bytes, headers: Dict[str, str],
+                 connection: socket.socket):
+        self.body = body
+        self.headers = {k.lower(): v for k, v in headers.items()}
+        self._connection = connection
+
+    def header(self, name: str, default: Optional[str] = None):
+        return self.headers.get(name.lower(), default)
+
+    def client_gone(self) -> bool:
+        return peer_closed(self._connection)
+
+
+def with_request(fn):
+    """Mark ``fn`` as a route of the whole ``Request`` (not of the body
+    alone)."""
+    fn.wants_request = True
+    return fn
+
+
 def peer_closed(sock: socket.socket) -> bool:
     """Whether the other end of ``sock`` has closed it (readable, and a
     peek reads end of file). A client sends its whole request before it
@@ -122,6 +151,8 @@ def make_handler(routes: Dict[Tuple[str, str], Route]):
             if fn is None:
                 status, payload = 404, {"error": f"no route {method} {self.path}"}
             else:
+                if getattr(fn, "wants_request", False):
+                    body = Request(body, dict(self.headers), self.connection)
                 status, payload, *rest = fn(body)
                 if rest:
                     headers = rest[0]

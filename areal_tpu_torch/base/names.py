@@ -31,6 +31,11 @@ def gserver_manager(experiment_name, trial_name) -> str:
     return f"{trial_root(experiment_name, trial_name)}/gserver_manager"
 
 
+def gateway(experiment_name, trial_name) -> str:
+    """The OpenAI-compatible serving gateway's address."""
+    return f"{trial_root(experiment_name, trial_name)}/gateway"
+
+
 def model_version(experiment_name, trial_name, model_name) -> str:
     return f"{trial_root(experiment_name, trial_name)}/model_version/{model_name}"
 

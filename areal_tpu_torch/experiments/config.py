@@ -5,9 +5,9 @@ the in-process ones (sync PPO, SFT, paired reward-model training), loaded
 from YAML with dotted-path overrides (``a.b.c=v``). The launcher compiles
 them into worker processes.
 
-``GatewaySpec`` and ``EvaluatorSpec`` are accepted so configs carry over;
-the launcher raises ``NotImplementedError`` when either is enabled (their
-workers are not ported yet). ``SFTExperiment`` and ``RWExperiment`` carry
+``EvaluatorSpec`` is accepted so configs carry over; the launcher raises
+``NotImplementedError`` when it is enabled (its worker is not ported
+yet). ``GatewaySpec.enabled`` spawns the serving gateway. ``SFTExperiment`` and ``RWExperiment`` carry
 one field the reference's do not: ``trainer_device``, as the PPO
 experiments have it (``""`` = the card, ``"cpu"``).
 """
@@ -99,9 +99,8 @@ class GenFleetSpec:
 
 @dataclasses.dataclass
 class GatewaySpec:
-    """The reference's OpenAI-compatible serving gateway over the fleet.
-    Accepted so configs carry over; ``enabled=True`` raises in the
-    launcher until the gateway is ported."""
+    """The OpenAI-compatible serving gateway over the fleet
+    (``apps/launcher.py::gateway_main``, ``gateway/``)."""
 
     enabled: bool = False
     # 0 -> AREAL_GATEWAY_PORT (itself 0 -> a free port)

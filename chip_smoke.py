@@ -181,6 +181,30 @@ Phases, each printing one JSON line:
    the committed checkpoint bit for bit; one ``flight_dump`` holds the
    recent client, server and engine spans and counter deltas equal to
    OBS_EXPECTED.
+6e. ``gateway``: the serving gateway in front of one gen server of the
+   1.5B profile (bf16, seed-0 weights, 32 slots of 2048, page 128,
+   graphed decode), in this process: a ``ContinuousBatchScheduler`` on an
+   event loop of its own thread and a ``GatewayServer`` with
+   ``ByteFallbackCodec(151936)``; tenants ``gold`` (weight 3) and
+   ``bronze`` (weight 1), each with a token bucket. A greedy
+   ``/v1/completions`` request alone, buffered and streamed, equals its
+   ``/generate`` twin token for token; 64 requests at once (32 a tenant,
+   prompts of 256-1024 ids, 128 new tokens, half greedy, half SSE, a
+   quarter chat) all answer 200, every greedy token within
+   SPEC_ARGMAX_TOL of a packed forward's max logit, never more than 32
+   in the engine; then, once the same 64 have also gone straight to
+   ``/generate_stream`` once (so each path's admission programs are
+   captured), the gateway's pass and the direct one timed in turns; a
+   backlog of 96 short requests a tenant, held in the fair
+   queue and released at once, serves ``gold`` GW_QOS_BAND times
+   ``bronze``'s tokens; a request above ``bronze``'s bucket answers 429
+   with ``Retry-After`` while ``gold`` answers 200; four invalid bodies
+   answer the reference's 400s, a missing API key 401, a 0.05 s deadline
+   held in the queue (``gw.deadline_storm``) 504 with its charge
+   refunded; an SSE client hanging up after its first frame frees its
+   slot; the brownout controller driven to its clamp level clamps a new
+   request's ``max_tokens``; the ``gw/`` counters agree with what was
+   sent and the paged-decode kernel launched.
 6c. ``agentic_ppo``: RM-scored async PPO with the multi-turn agent at the
    1.5B widths in one process: a bf16 32-slot server behind the gserver
    manager, one rollout worker running ``math-multi-turn`` (3 turns, 16
@@ -287,6 +311,7 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -295,8 +320,8 @@ import numpy as np
 
 PHASES = ("build", "kernels", "parity", "serve", "serve_fused", "serve_int8",
           "serve_pipelined", "spec_serve", "weight_sync", "async_rollout",
-          "async_ppo", "obs", "agentic_ppo", "train_parity", "train",
-          "sync_ppo", "moe")
+          "async_ppo", "obs", "gateway", "agentic_ppo", "train_parity",
+          "train", "sync_ppo", "moe")
 SOURCES = ("paged_decode", "flash_attention", "fused_sample")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per type
@@ -2391,6 +2416,160 @@ def decoder_scores(torch, tfm, cfg, params, prompts, outputs, batch=12):
     return argmax, lps
 
 
+PAGED_PATHS = ("paged_kernel", "paged_plain", "extend", "prefill_paged")
+
+
+def paged_path_scores(torch, tfm, cfg, params, prompts, outputs, path,
+                      batch=24, page=128):
+    """The engine's own model code teacher-forced over each sequence's
+    generated tokens, ``batch`` sequences at a time, outside the engine
+    (no CUDA graph, no batching with other requests, no sampler): the
+    prompts minus their last token are admitted through ``extend_paged``
+    in one-page chunks (the engine's ``admit_chunk``; the first with
+    ``skip_pool``), then the last prompt token and the answer are fed
+    through one of three paths:
+
+    - ``paged_kernel``: ``decode_step_paged`` a token at a time, with the
+      paged-decode kernel (the engine's decode);
+    - ``paged_plain``: the same steps with the kernel's plain version
+      (``decode_plain``) on the same CUDA tensors (swapped in here only);
+    - ``extend``: one-page chunks through ``verify_step_paged``, i.e.
+      ``paged_extend_attention`` over the pool, the admission path's
+      attention with the head applied;
+    - ``prefill_paged``: the control of the three. The prompts go through
+      the dense ``prefill`` instead (the packed attention, as the forward
+      that scores them and the plain decoder run it), their K/V are copied
+      into the pages, and the answer is fed as in ``paged_kernel``.
+
+    Returns, as ``decoder_scores`` does, each path's argmax and
+    temperature-1 logprob of each generated token (one array a
+    sequence)."""
+    from areal_tpu_torch.ops import paged_attention as paged_ops
+
+    if path not in PAGED_PATHS:
+        raise ValueError(f"unknown path {path!r}")
+    decode_attention = paged_ops.paged_decode_attention
+    if path == "paged_plain":
+        paged_ops.paged_decode_attention = paged_ops.decode_plain
+    argmax, lps = [], []
+    try:
+        for i in range(0, len(prompts), batch):
+            P, O = prompts[i:i + batch], outputs[i:i + batch]
+            B, n = len(P), max(map(len, O))
+            M = -(-max(len(p) + len(o) for p, o in zip(P, O)) // page)
+            cache = tfm.PagedKVCache.empty(cfg, B * M, page, device="cuda")
+            table = torch.arange(B * M, dtype=torch.int32,
+                                 device="cuda").view(B, M)
+            plen = torch.tensor([len(p) - 1 for p in P], dtype=torch.int32,
+                                device="cuda")
+            olen = torch.tensor([len(o) for o in O], dtype=torch.int32,
+                                device="cuda")
+            Sp = max(map(len, P)) - 1
+            pre = torch.tensor([p[:-1] + [0] * (Sp - len(p) + 1) for p in P],
+                               device="cuda")
+            feed = torch.tensor([[p[-1]] + o[:-1] + [0] * (n - len(o))
+                                 for p, o in zip(P, O)], device="cuda")
+            out = torch.tensor([o + [0] * (n - len(o)) for o in O],
+                               device="cuda")
+            am, lp = [], []
+            with torch.no_grad():
+                if path == "prefill_paged":
+                    dense = tfm.KVCache.empty(cfg, B, M * page, device="cuda")
+                    tfm.prefill(params, cfg, dense, pre, plen)
+                    for kv, src in enumerate((dense.k, dense.v)):
+                        cache.pages[:, :, kv].copy_(src.view(
+                            cfg.n_layers, B, M, page, *src.shape[3:]
+                        ).transpose(3, 4).reshape(cache.pages[:, :, kv].shape))
+                    del dense
+                else:
+                    for c0 in range(0, Sp, page):
+                        tfm.extend_paged(
+                            params, cfg, cache, pre[:, c0:c0 + page], table,
+                            plen.clamp(max=c0), (plen - c0).clamp(0, page),
+                            skip_pool=c0 == 0)
+                if path == "extend":
+                    for c0 in range(0, n, page):
+                        C = min(page, n - c0)
+                        n_new = (olen - c0).clamp(0, C)
+                        pos = torch.arange(C, device="cuda")[None]
+                        logits, cache = tfm.verify_step_paged(
+                            params, cfg, cache, feed[:, c0:c0 + C], table,
+                            plen + c0, n_new, pos < n_new[:, None])
+                        logp = torch.log_softmax(logits.float(), dim=-1)
+                        am.append(logp.argmax(-1))
+                        lp.append(logp.gather(
+                            2, out[:, c0:c0 + C, None])[..., 0])
+                else:
+                    lens = plen.clone()
+                    for j in range(n):
+                        logits, cache, lens = tfm.decode_step_paged(
+                            params, cfg, cache, feed[:, j], table, lens,
+                            j < olen)
+                        logp = torch.log_softmax(logits.float(), dim=-1)
+                        am.append(logp.argmax(-1)[:, None])
+                        lp.append(logp.gather(1, out[:, j:j + 1]))
+            am, lp = (torch.cat(v, 1).cpu().numpy() for v in (am, lp))
+            for k, o in enumerate(O):
+                argmax.append(am[k, :len(o)])
+                lps.append(lp[k, :len(o)])
+            del cache, logits
+    finally:
+        paged_ops.paged_decode_attention = decode_attention
+    torch.cuda.empty_cache()
+    return argmax, lps
+
+
+def prompt_attention_err(torch, cfg, n_seqs=4, plen=1023, page=128):
+    """The two prompt attentions that ``paged_path_scores`` sets apart,
+    at ``cfg``'s heads on ``n_seqs`` prompts of ``plen`` random bf16
+    tokens each, against the same attention in f32 (``attention_plain``
+    on the inputs widened): the extend path (``paged_extend_attention``,
+    one-page chunks over the pages, as admission runs it) and the packed
+    path (``packed_attention``: the flash kernel, as ``prefill`` and the
+    scoring forward run it). Normwise error of each."""
+    from areal_tpu_torch.ops import attention as attn_ops
+    from areal_tpu_torch.ops import paged_attention as paged_ops
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    H, Hkv, D = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    T, M = n_seqs * plen, -(-plen // page)
+    q, k, v = (torch.randn(T, h, D, generator=g, device="cuda").to(
+        torch.bfloat16) for h in (H, Hkv, Hkv))
+    seg = torch.arange(1, n_seqs + 1, dtype=torch.int32,
+                       device="cuda").repeat_interleave(plen)
+    scale = cfg.softmax_scale or D ** -0.5
+    with torch.no_grad():
+        want = attn_ops.attention_plain(q.float(), k.float(), v.float(), seg,
+                                        scale)[0]
+        packed = attn_ops.packed_attention(q, k, v, seg, softmax_scale=scale)
+        pages = torch.zeros(1, n_seqs * M, 2, Hkv, page, D,
+                            dtype=torch.bfloat16, device="cuda")
+        for kv, src in enumerate((k, v)):
+            padded = torch.zeros(n_seqs, M * page, Hkv, D,
+                                 dtype=torch.bfloat16, device="cuda")
+            padded[:, :plen] = src.view(n_seqs, plen, Hkv, D)
+            pages[0, :, kv] = padded.view(n_seqs, M, page, Hkv, D).transpose(
+                2, 3).reshape(n_seqs * M, Hkv, page, D)
+        table = torch.arange(n_seqs * M, dtype=torch.int32,
+                             device="cuda").view(n_seqs, M)
+        rows = [x.view(n_seqs, plen, *x.shape[1:]) for x in (q, k, v)]
+        outs = []
+        for c0 in range(0, plen, page):
+            C = min(page, plen - c0)
+            full = torch.full((n_seqs,), c0, dtype=torch.int32, device="cuda")
+            outs.append(paged_ops.paged_extend_attention(
+                *(x[:, c0:c0 + C] for x in rows), pages, 0, table, full,
+                torch.full_like(full, C), softmax_scale=scale,
+                skip_pool=c0 == 0))
+        extend = torch.cat(outs, 1).reshape(T, H, D)
+    err = dict(extend=normwise(torch, extend, want),
+               packed=normwise(torch, packed, want))
+    del want, packed, pages, extend
+    torch.cuda.empty_cache()
+    return err
+
+
 def verify_attention_ms(torch, eng, n_layers):
     """Device time (ms) of the verify pass's attention alone over one spec
     step's shapes (every slot at the mid-run resident length, the table
@@ -4288,6 +4467,558 @@ def obs_phase(torch):
 
 
 # --------------------------------------------------------------------------- #
+# the serving gateway
+# --------------------------------------------------------------------------- #
+
+# The gateway phase (``gateway``): the serving gateway in front of one gen
+# server of the 1.5B profile. ``GATEWAY``: the load's shapes; the backlog
+# holds ``backlog`` short requests a tenant in the fair queue and releases
+# them at once. ``bronze``'s bucket is sized to admit two passes of the
+# mixed load and the backlog with ``bronze_spare`` tokens to spare (refilling at
+# ``bronze_rate`` a second), so that a request of ``over_plen`` +
+# ``over_new`` tokens afterwards is above it.
+GATEWAY = dict(slots=32, max_seqlen=2048, page=128, per_tenant=32,
+               plen=(256, 1024), max_new=128, backlog=96, backlog_plen=64,
+               backlog_new=64, gold_rate=1e6, bronze_rate=2.0,
+               bronze_spare=500, over_plen=1024, over_new=1000, clamp=16)
+# With both tenants backlogged, weighted fair queueing serves gold (weight
+# 3) three times bronze's (weight 1) tokens while both wait: requests of
+# equal cost leave the queue three gold to one bronze. Counted from the
+# dispatch order, over the dispatches up to gold's last, within this band.
+GW_QOS_BAND = (2.6, 3.4)
+# The reference's 400 bodies (areal_tpu/gateway/api.py) for four invalid
+# /v1/completions bodies, and its 401 for a missing API key.
+GW_BAD_BODIES = [
+    ({}, "missing required field 'prompt'"),
+    ({"prompt": ""}, "prompt must be non-empty"),
+    ({"prompt": [1, 2], "max_tokens": 0}, "max_tokens must be in [1, 1024]"),
+    ({"prompt": [1, 2], "n": 2}, "n > 1 is not supported"),
+]
+
+
+class LoopThread:
+    """An event loop on a thread of its own: the gateway's scheduler and
+    everything it owns live on it (``run``: a coroutine there, waited)."""
+
+    def __init__(self):
+        import asyncio
+        import threading
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="gateway-loop", daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout=600):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def call(self, fn, *args):
+        async def go():
+            return fn(*args)
+
+        return self.run(go())
+
+    def close(self):
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+        self.loop.close()
+
+
+def recording_client():
+    """A ``GenAPIClient`` that records, by gen rid, every token each
+    stream yields, and the order the streams opened in: the gateway's
+    answers carry text, and the phase checks tokens."""
+    from areal_tpu_torch.gen.client import GenAPIClient
+
+    class RecordingClient(GenAPIClient):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.tokens = {}
+            self.order = []
+
+        async def generate_stream(self, server_url, rid, input_ids,
+                                  sampling_params, deadline_s=None):
+            self.order.append(rid)
+            got = self.tokens.setdefault(rid, [])
+            inner = super().generate_stream(server_url, rid, input_ids,
+                                            sampling_params, deadline_s)
+            try:
+                async for ev in inner:
+                    got.extend(ev.get("token_ids", []))
+                    yield ev
+            finally:
+                await inner.aclose()
+
+    return RecordingClient(timeout=3600.0)
+
+
+def gw_call(url, body, headers=None, stream=False, timeout=600):
+    """One POST to the gateway (``stream``: read its SSE frames as they
+    come). Returns status, headers, the JSON body or the frames, seconds
+    to the first frame with text and to the end."""
+    import urllib.error
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        r = urllib.request.urlopen(req, timeout=timeout)
+    except urllib.error.HTTPError as e:
+        return dict(status=e.code, headers=dict(e.headers),
+                    body=json.loads(e.read()), ttft=None,
+                    seconds=time.perf_counter() - t0)
+    with r:
+        if not stream:
+            return dict(status=r.status, headers=dict(r.headers),
+                        body=json.loads(r.read()), ttft=None,
+                        seconds=time.perf_counter() - t0)
+        frames, ttft, done = [], None, False
+        for line in r:
+            if not line.startswith(b"data:"):
+                continue
+            payload = line[5:].strip()
+            if payload == b"[DONE]":
+                done = True
+                break
+            frames.append(json.loads(payload))
+            choices = frames[-1].get("choices") or [{}]
+            text = choices[0].get("text") or choices[0].get(
+                "delta", {}).get("content")
+            if ttft is None and text:
+                ttft = time.perf_counter() - t0
+        return dict(status=r.status, headers=dict(r.headers), frames=frames,
+                    done=done, ttft=ttft, seconds=time.perf_counter() - t0)
+
+
+def direct_stream(port, body, timeout=600):
+    """``body`` straight to the gen server's ``/generate_stream``: tokens,
+    seconds to the first token and to the end."""
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate_stream",
+        data=json.dumps(body).encode(), method="POST")
+    toks, ttft = [], None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            if not line.startswith(b"data:") or b"[DONE]" in line:
+                continue
+            toks += json.loads(line[5:])["token_ids"]
+            if ttft is None and toks:
+                ttft = time.perf_counter() - t0
+    return dict(tokens=toks, ttft=ttft, seconds=time.perf_counter() - t0)
+
+
+def gw_rid(answer):
+    """The scheduler's rid of a gateway answer (its ``id`` is
+    ``cmpl-<rid>``); its first dispatch streams as ``<rid>-c0``."""
+    body = answer["body"] if "body" in answer else answer["frames"][0]
+    return body["id"][len("cmpl-"):]
+
+
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs, dtype=float), q))
+
+
+def gateway_mixed_load(vocab, codec, render_chat, seed):
+    """The mixed load's 64 requests: (gateway path, body, tenant, stream,
+    greedy, prompt ids), 32 a tenant, prompts of 256-1024 ids, half
+    greedy, half streamed, a quarter chat (a message of random letters,
+    whose bytes are its ids). The lengths are the same for every
+    ``seed``, the ids are the seed's: each pass of the load finds the
+    prefix cache cold."""
+    sizes = np.random.default_rng(16).integers(
+        GATEWAY["plen"][0], GATEWAY["plen"][1] + 1, 2 * GATEWAY["per_tenant"])
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, n in enumerate(sizes.tolist()):
+        tenant = ("gold", "bronze")[i % 2]
+        greedy, stream, chat = i % 4 < 2, (i // 2) % 2 == 0, i % 8 >= 6
+        body = {"max_tokens": GATEWAY["max_new"],
+                "temperature": 0.0 if greedy else 1.0, "stream": stream}
+        if chat:
+            text = "".join(chr(c) for c in rng.integers(97, 123, n - 20))
+            body["messages"] = [{"role": "user", "content": text}]
+            ids = codec.encode(render_chat(body["messages"]))
+            path = "/v1/chat/completions"
+        else:
+            ids = rng.integers(0, vocab, n).tolist()
+            body["prompt"] = ids
+            path = "/v1/completions"
+        out.append((path, body, tenant, stream, greedy, ids))
+    return out
+
+
+def gateway_phase(torch):
+    """Phase 6e (module docstring): the gateway's checks on the card, and
+    its decode tokens/s, TTFT and queue wait beside the same load straight
+    to the gen server (findings, not a claim)."""
+    from areal_tpu_torch.base import faults
+    from areal_tpu_torch.base import metrics as m
+    from areal_tpu_torch.gateway import api as gw_api
+    from areal_tpu_torch.gateway.autoscaler import ScaleSignals
+    from areal_tpu_torch.gateway.brownout import BrownoutConfig, wire_brownout
+    from areal_tpu_torch.gateway.qos import TenantSpec
+    from areal_tpu_torch.gateway.scheduler import ContinuousBatchScheduler
+    from areal_tpu_torch.gen.engine import GenerationEngine
+    from areal_tpu_torch.gen.server import serve
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.ops.cuda import paged_attention as cuda_paged
+
+    import logging
+
+    t_phase = time.perf_counter()
+    # a held queue trips the storm point at every dispatch attempt, each
+    # trip a warning: keep them out of the log
+    logging.getLogger("areal_torch.faults").setLevel(logging.ERROR)
+    G = GATEWAY
+    cfg = qwen_1p5b_cfg()
+    params = tfm.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    eng = GenerationEngine(cfg, params, max_slots=G["slots"],
+                           max_seqlen=G["max_seqlen"], page_size=G["page"],
+                           seed=0, device="cuda")
+    srv = serve(eng, "127.0.0.1", 0, decode_steps=DECODE_STEPS)
+    codec = gw_api.ByteFallbackCodec(cfg.vocab_size)
+    loads = [gateway_mixed_load(cfg.vocab_size, codec, gw_api.render_chat,
+                                seed) for seed in range(4)]
+    load = loads[0]
+    backlog_cost = G["backlog"] * (G["backlog_plen"] + G["backlog_new"])
+    # two passes of the mixed load, the backlog and the spare
+    bronze_burst = 2 * sum(len(ids) + G["max_new"]
+                           for _, _, t, _, _, ids in load
+                           if t == "bronze") + backlog_cost + G["bronze_spare"]
+    tenants = {
+        "gold": TenantSpec("gold", weight=3.0,
+                           rate_tokens_per_s=G["gold_rate"]),
+        "bronze": TenantSpec("bronze", weight=1.0,
+                             rate_tokens_per_s=G["bronze_rate"],
+                             burst_tokens=bronze_burst),
+    }
+    client = recording_client()
+    lt = LoopThread()
+    sched = ContinuousBatchScheduler(
+        [f"http://127.0.0.1:{srv.port}"], tenants, client=client)
+    runners = []
+    try:
+        lt.run(sched.start())
+        gws = [gw_api.GatewayServer(sched, codec, gw_api.GatewayConfig(
+            max_tokens_cap=eng.G, **kw))
+            for kw in ({}, dict(require_api_key=True,
+                                api_keys={"gold-key": "gold"}))]
+        for gw in gws:
+            runners.append(lt.run(gw_api.serve_gateway(gw, "127.0.0.1", 0)))
+        url, keyed = (f"http://127.0.0.1:{r.port}/v1/completions"
+                      for r in runners)
+        base = f"http://127.0.0.1:{runners[0].port}"
+        gold, bronze = ({"X-Tenant": t} for t in ("gold", "bronze"))
+        names = (m.GW_REQUESTS, m.GW_ADMITTED, m.GW_COMPLETED,
+                 m.GW_REJECTED_429, m.GW_REJECTED_4XX, m.GW_STREAMED_TOKENS,
+                 m.GW_DEADLINE_SHED)
+        c0 = {n: m.counters.get(n) for n in names}
+        cuda_paged.reset_launches()
+        sent = dict(requests=0, rejected_429=0, rejected_4xx=0, shed=0)
+
+        # 1. one greedy request alone, buffered and streamed, against its
+        # /generate twin alone on the server
+        rng = np.random.default_rng(5)
+        ids = rng.integers(0, cfg.vocab_size, size=100).tolist()
+        _, twin = post(srv.port, "/generate", {
+            "rid": "twin", "input_ids": ids,
+            "sampling_params": {"max_new_tokens": 64, "greedy": True}})
+        body = {"prompt": ids, "max_tokens": 64, "temperature": 0}
+        alone = [gw_call(url, body, gold),
+                 gw_call(url, dict(body, stream=True), gold, stream=True)]
+        sent["requests"] += 2
+        for a in alone:
+            toks = client.tokens.get(f"{gw_rid(a)}-c0")
+            text = (a["body"]["choices"][0]["text"] if "body" in a else
+                    "".join(f["choices"][0]["text"] for f in a["frames"]))
+            if a["status"] != 200 or toks != twin["output_ids"] or (
+                    text != codec.decode(twin["output_ids"])) or (
+                    "frames" in a and not a["done"]):
+                raise AssertionError(f"gateway: a lone request differs from "
+                                     f"its /generate twin: {toks} vs "
+                                     f"{twin['output_ids']}; {a}")
+
+        # 2. the mixed load through the gateway, then straight to the
+        # server; the engine's slot count sampled meanwhile
+        def run_load(fn, load):
+            peak = [0, 0]
+            stop = threading.Event()
+
+            def watch():
+                while not stop.is_set():
+                    peak[0] = max(peak[0], eng.n_running())
+                    peak[1] = max(peak[1], lt.call(sched.inflight))
+                    time.sleep(0.01)
+
+            w = threading.Thread(target=watch, daemon=True)
+            w.start()
+            s0 = dict(eng.stats)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(load)) as ex:
+                out = list(ex.map(fn, range(len(load)), load))
+            wall = time.perf_counter() - t0
+            stop.set()
+            w.join()
+            d = {k: eng.stats[k] - s0[k] for k in (
+                "decode_s", "graph_captures", "extend_captures",
+                "graph_capture_s", "admit_capture_s")}
+            return dict(out=out, wall=wall, peak=peak, stats=d)
+
+        def gw_pass(load):
+            """The mixed load through the gateway, checked; with the
+            pass's enqueue-to-first-token and queue-wait histograms."""
+            m.counters.clear(m.GW_TTFT_S)
+            m.counters.clear(m.GW_QUEUE_WAIT_S)
+            res = run_load(lambda i, r: gw_call(
+                base + r[0], r[1], gold if r[2] == "gold" else bronze,
+                stream=r[3]), load)
+            sent["requests"] += len(load)
+            res.update(ttft=m.counters.histogram(m.GW_TTFT_S),
+                       wait=m.counters.histogram(m.GW_QUEUE_WAIT_S))
+            bad = [(r[0], a["status"]) for r, a in zip(load, res["out"])
+                   if a["status"] != 200
+                   or ("frames" in a and not a["done"])]
+            if bad:
+                raise AssertionError(f"gateway: mixed load answered {bad}")
+            tokens = [client.tokens[f"{gw_rid(a)}-c0"] for a in res["out"]]
+            if max(res["peak"]) > G["slots"] or (
+                    res["ttft"].count != len(load)) or any(
+                    len(t) != G["max_new"] for t in tokens):
+                raise AssertionError(
+                    f"gateway: mixed load peak slots {res['peak']}, ttft "
+                    f"count {res['ttft'].count}, lengths "
+                    f"{[len(t) for t in tokens]}")
+            return res, tokens
+
+        gw_first, gw_tokens = gw_pass(load)
+        greedy = [(r[5], t) for r, t in zip(load, gw_tokens) if r[4]]
+        gaps = greedy_argmax_gaps(torch, tfm, cfg, params,
+                                  [p for p, _ in greedy],
+                                  [t for _, t in greedy])
+        if gaps.max() > SPEC_ARGMAX_TOL:
+            raise AssertionError(f"gateway: a greedy token {gaps.max()} "
+                                 f"below a packed forward's max logit")
+
+        def direct(tag):
+            def send(i, r):
+                sp = {"max_new_tokens": G["max_new"]}
+                sp.update({"greedy": True} if r[4] else {"temperature": 1.0})
+                return direct_stream(srv.port, {
+                    "rid": f"direct-{tag}-{i}", "input_ids": r[5],
+                    "sampling_params": sp})
+            return send
+
+        # then timed in turns once both have seen the load's shapes (a
+        # first pass captures the admission programs its batching needs),
+        # each pass on prompts of its own
+        run_load(direct("warm"), loads[1])
+        gw_run, _ = gw_pass(loads[2])
+        dr_run = run_load(direct("timed"), loads[3])
+
+        # 3. the backlog: both tenants' requests held in the fair queue
+        # (gw.deadline_storm: no dispatch capacity), then released at once
+        bl = [({"prompt": rng.integers(0, cfg.vocab_size,
+                                       G["backlog_plen"]).tolist(),
+                "max_tokens": G["backlog_new"], "temperature": 1.0}, h)
+              for _ in range(G["backlog"]) for h in (gold, bronze)]
+        faults.inject("gw.deadline_storm", action="trip")
+        try:
+            with ThreadPoolExecutor(len(bl)) as ex:
+                futs = [ex.submit(gw_call, url, b, h) for b, h in bl]
+                deadline = time.time() + 120
+                while lt.call(sched.queue_depth) < len(bl):
+                    if time.time() > deadline:
+                        raise AssertionError("gateway: the backlog did not "
+                                             "queue")
+                    time.sleep(0.01)
+                n_before = len(client.order)
+                faults.reset()
+                lt.call(sched._wake.set)
+                bl_out = [f.result() for f in futs]
+        finally:
+            faults.reset()
+        sent["requests"] += len(bl)
+        if any(a["status"] != 200 for a in bl_out):
+            raise AssertionError(f"gateway: backlog statuses "
+                                 f"{[a['status'] for a in bl_out]}")
+        tenant_of = {f"{gw_rid(a)}-c0": ("gold" if h is gold else "bronze")
+                     for a, (_, h) in zip(bl_out, bl)}
+        order = [r for r in client.order[n_before:] if r in tenant_of]
+        last_gold = max(i for i, r in enumerate(order)
+                        if tenant_of[r] == "gold")
+        served = {"gold": 0, "bronze": 0}
+        for r in order[:last_gold + 1]:
+            served[tenant_of[r]] += len(client.tokens[r])
+        qos_ratio = served["gold"] / max(served["bronze"], 1)
+        if not GW_QOS_BAND[0] <= qos_ratio <= GW_QOS_BAND[1]:
+            raise AssertionError(f"gateway: gold served {qos_ratio} x "
+                                 f"bronze's tokens, outside {GW_QOS_BAND}")
+
+        # 4. above bronze's bucket: 429 with Retry-After; gold still 200
+        over = {"prompt": rng.integers(0, cfg.vocab_size,
+                                       G["over_plen"]).tolist(),
+                "max_tokens": G["over_new"], "temperature": 0}
+        avail = lt.call(lambda: sched._bucket("bronze").available)
+        limited = gw_call(url, over, bronze)
+        ok_gold = gw_call(url, dict(over, max_tokens=8), gold)
+        sent["rejected_429"] += 1
+        sent["requests"] += 1
+        if limited["status"] != 429 or int(
+                limited["headers"].get("Retry-After", 0)) < 1 or (
+                limited["body"]["error"]["code"] != "rate_limit_exceeded") \
+                or ok_gold["status"] != 200:
+            raise AssertionError(f"gateway: over bronze's bucket "
+                                 f"({avail} left): {limited}, gold "
+                                 f"{ok_gold['status']}")
+
+        # 5. errors: the reference's 400s, a 401, a 504 shed in the queue
+        for b, msg in GW_BAD_BODIES:
+            a = gw_call(url, b)
+            want = {"error": {"message": msg, "type": "invalid_request_error",
+                              "code": "invalid_request_error"}}
+            if (a["status"], a["body"]) != (400, want):
+                raise AssertionError(f"gateway: {b} answered {a}")
+        a = gw_call(keyed, {"prompt": [1, 2], "max_tokens": 2})
+        if (a["status"], a["body"]) != (401, {"error": {
+                "message": "missing API key", "type": "invalid_request_error",
+                "code": "invalid_api_key"}}):
+            raise AssertionError(f"gateway: no API key answered {a}")
+        sent["rejected_4xx"] += len(GW_BAD_BODIES) + 1
+        t0 = time.perf_counter()
+        before = lt.call(lambda: sched._bucket("bronze").available)
+        faults.inject("gw.deadline_storm", action="trip")
+        try:
+            late = gw_call(url, {"prompt": [1, 2, 3], "max_tokens": 16,
+                                 "timeout": 0.05}, bronze)
+        finally:
+            faults.reset()
+        after = lt.call(lambda: sched._bucket("bronze").available)
+        sent["requests"] += 1
+        sent["shed"] += 1
+        refill = G["bronze_rate"] * (time.perf_counter() - t0)
+        if late["status"] != 504 or late["body"]["error"]["code"] != (
+                "deadline_exceeded") or not before <= after <= (
+                before + refill + 1e-6):
+            raise AssertionError(f"gateway: the deadline answered {late}; "
+                                 f"bucket {before} -> {after}")
+
+        # 6. an SSE client that hangs up after its first frame
+        import socket
+
+        sock = socket.create_connection(("127.0.0.1", runners[0].port))
+        data = json.dumps({"prompt": ids, "max_tokens": 1000,
+                           "temperature": 0, "stream": True}).encode()
+        sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+                     b"X-Tenant: gold\r\nContent-Type: application/json\r\n"
+                     + f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+        got = b""
+        while b"data: {" not in got:
+            chunk = sock.recv(4096)
+            if not chunk:
+                raise AssertionError(f"gateway: no first frame: {got!r}")
+            got += chunk
+        sock.close()
+        sent["requests"] += 1
+        t0 = time.perf_counter()
+        while eng.n_running() or eng.free_slots() < G["slots"] or lt.call(
+                sched.inflight):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("gateway: a disconnect kept its slot")
+            time.sleep(0.01)
+        disconnect_s = time.perf_counter() - t0
+
+        # 7. brownout: the controller at its clamp level clamps a new
+        # request's max_tokens; back at level 0 it does not
+        clock = [0.0]
+        ctrl = wire_brownout(BrownoutConfig(clamp_max_tokens=G["clamp"]),
+                             sched, gws[0].config, client,
+                             clock=lambda: clock[0])
+        ctrl.fetch_signals = lambda: ScaleSignals(routed=1, healthy=1,
+                                                  kv_occupancy=0.91)
+        level = lt.run(ctrl.step_once())
+        gauge = m.counters.get(m.GW_BROWNOUT_LEVEL)
+        clamped = gw_call(url, {"prompt": ids, "max_tokens": 64,
+                                "temperature": 0}, gold)
+        ctrl.fetch_signals = lambda: ScaleSignals(routed=1, healthy=1)
+        clock[0] = 1e6
+        level_after = lt.run(ctrl.step_once())
+        free = gw_call(url, {"prompt": ids, "max_tokens": 64,
+                             "temperature": 0}, gold)
+        sent["requests"] += 2
+        n_clamped = clamped["body"]["usage"]["completion_tokens"]
+        if (level, gauge, n_clamped, level_after) != (
+                1, 1.0, G["clamp"], 0) or free["body"]["usage"][
+                "completion_tokens"] != 64:
+            raise AssertionError(f"gateway: brownout level {level}, gauge "
+                                 f"{gauge}, clamped to {n_clamped}, then "
+                                 f"level {level_after}, {free}")
+
+        # 8. the counters against what was sent, once every request has
+        # settled on the loop (a request's release and its counters are
+        # one step there)
+        t0 = time.perf_counter()
+        while lt.call(sched.inflight):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("gateway: requests stayed in flight")
+            time.sleep(0.01)
+        launches = cuda_paged.launches
+        d = {n: m.counters.get(n) - c0[n] for n in names}
+        admitted = sent["requests"] - sent["shed"]
+        want = {m.GW_REQUESTS: sent["requests"], m.GW_ADMITTED: admitted,
+                m.GW_COMPLETED: admitted,
+                m.GW_REJECTED_429: sent["rejected_429"],
+                m.GW_REJECTED_4XX: sent["rejected_4xx"],
+                m.GW_STREAMED_TOKENS: sum(len(client.tokens[r])
+                                          for r in client.order),
+                m.GW_DEADLINE_SHED: sent["shed"]}
+        if d != want or launches <= 0:
+            raise AssertionError(f"gateway: counters {d}, sent {want}; "
+                                 f"paged-decode launches {launches}")
+    finally:
+        for r in runners:
+            r.close()
+        lt.run(sched.stop())
+        lt.close()
+        srv.stop()
+    gw_ttft = [a["ttft"] for a in gw_run["out"] if a["ttft"] is not None]
+    n_tok = len(load) * G["max_new"]
+    row = dict(
+        requests=sent["requests"], mixed_requests=len(load),
+        gateway_tok_per_s=n_tok / gw_run["wall"],
+        direct_tok_per_s=n_tok / dr_run["wall"],
+        gateway_decode_tok_per_s=n_tok / gw_run["stats"]["decode_s"],
+        direct_decode_tok_per_s=n_tok / dr_run["stats"]["decode_s"],
+        gateway_wall_s=gw_run["wall"], direct_wall_s=dr_run["wall"],
+        gateway_ttft_p50_s=gw_run["ttft"].percentile(50.0),
+        gateway_ttft_p95_s=gw_run["ttft"].percentile(95.0),
+        gateway_sse_ttft_p50_s=percentile(gw_ttft, 50),
+        gateway_sse_ttft_p95_s=percentile(gw_ttft, 95),
+        direct_ttft_p50_s=percentile([a["ttft"] for a in dr_run["out"]], 50),
+        direct_ttft_p95_s=percentile([a["ttft"] for a in dr_run["out"]], 95),
+        queue_wait_p50_s=gw_run["wait"].percentile(50.0),
+        queue_wait_p95_s=gw_run["wait"].percentile(95.0),
+        first_pass=dict(wall_s=gw_first["wall"], stats=gw_first["stats"],
+                        ttft_p50_s=gw_first["ttft"].percentile(50.0)),
+        captures=dict(gateway=gw_run["stats"], direct=dr_run["stats"]),
+        peak_slots=dict(gateway=gw_run["peak"], direct=dr_run["peak"]),
+        greedy_tokens=int(gaps.size), greedy_max_gap=float(gaps.max()),
+        qos_ratio=qos_ratio, qos_band=GW_QOS_BAND, served_tokens=served,
+        bronze_left=avail, disconnect_s=disconnect_s,
+        brownout_clamp=n_clamped, counters=d,
+        paged_decode_launches=launches,
+        seconds=time.perf_counter() - t_phase)
+    emit(phase="gateway", **row)
+    del eng, params
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------------- #
 # RM-scored async PPO with the multi-turn agent (the slice's path)
 # --------------------------------------------------------------------------- #
 
@@ -6142,11 +6873,21 @@ def moe_serve_phase(torch, profile=False):
     _, dec_lp = decoder_scores(torch, tfm, cfg, params, [p for p, _ in temp],
                                [a["output_ids"] for _, a in temp])
     cuts = np.cumsum([len(o) for o in outs])[:-1]
+    # the engine's model code outside the engine, one path at a time
+    # (PAGED_PATHS), teacher-forced over the greedy and temperature-1
+    # answers together
+    t1 = time.perf_counter()
+    forced = (prompts + [p for p, _ in temp],
+              outs + [a["output_ids"] for _, a in temp])
+    paths = {name: paged_path_scores(torch, tfm, cfg, params, *forced, name)
+             for name in PAGED_PATHS}
+    paths_s = time.perf_counter() - t1
     # a second yardstick, for the record: the same forward one sequence a
     # pack instead of 8, its argmax scored the same way
     pack1 = packed_scores(torch, tfm, cfg, params, prompts, outs, pack=1)
     scores = packed_scores(torch, tfm, cfg, params, prompts, outs, alt=dict(
-        decoder=dec_argmax, pack1=np.split(pack1["argmax"], cuts)))
+        decoder=dec_argmax, pack1=np.split(pack1["argmax"], cuts),
+        **{p: am[:len(prompts)] for p, (am, _) in paths.items()}))
     gaps, ref_gaps = (np.split(g, cuts) for g in (
         scores["gap"], scores["alt_gap"]["decoder"]))
     pack1_gaps = scores["alt_gap"]["pack1"]
@@ -6159,6 +6900,23 @@ def moe_serve_phase(torch, profile=False):
     lp_err = [np.abs(np.asarray(a["output_logprobs"]) - f)
               for (_, a), f in zip(temp, fwd_lp)]
     ref_lp_err = [np.abs(d - f) for d, f in zip(dec_lp, fwd_lp)]
+    path_rows = [dict(path="engine", greedy_share_within=float(np.mean(
+        scores["gap"] <= SPEC_ARGMAX_TOL)), lp_mean_abs_err=float(
+        np.concatenate(lp_err).mean())), dict(
+        path="decoder", greedy_share_within=float(np.mean(
+            scores["alt_gap"]["decoder"] <= SPEC_ARGMAX_TOL)),
+        lp_mean_abs_err=float(np.concatenate(ref_lp_err).mean()))]
+    for p, (_, lps) in paths.items():
+        path_rows.append(dict(
+            path=p, greedy_share_within=float(np.mean(
+                scores["alt_gap"][p] <= SPEC_ARGMAX_TOL)),
+            lp_mean_abs_err=float(np.concatenate([
+                np.abs(l - f) for l, f in zip(lps[len(prompts):],
+                                              fwd_lp)]).mean())))
+    emit(phase="moe_serve_paths", rows=path_rows, seconds=paths_s,
+         prompt_attention_normwise=prompt_attention_err(torch, cfg),
+         argmax_tol=SPEC_ARGMAX_TOL, greedy_tokens=int(scores["gap"].size),
+         sampled_tokens=int(sum(f.size for f in fwd_lp)))
     # planted faults: every layer routes every token to the wrong experts
     routers = [lp["mlp"]["router"] for lp in params["layers"]]
     kept = [r.clone() for r in routers]
@@ -6740,6 +7498,7 @@ def main(argv=None) -> int:
         async_ppo_phase(torch, keep_logs=args.keep_logs)
     if "obs" in phases:
         obs_phase(torch)
+    gateway = gateway_phase(torch) if "gateway" in phases else {}
     agentic = (agentic_ppo_phase(torch, keep_logs=args.keep_logs)
                if "agentic_ppo" in phases else {})
     if "train_parity" in phases:
@@ -6759,6 +7518,7 @@ def main(argv=None) -> int:
             "launches": served.get(variant, {}).get("paged_decode_launches", 0)
             + (agentic.get("paged_decode_launches", 0)
                + spec["launches"].get("paged_decode", 0)
+               + gateway.get("paged_decode_launches", 0)
                if variant == "bfloat16" else 0),
             "max_abs_err": k.get("max_abs_err"),
             "ms": k.get("kernel_ms"),

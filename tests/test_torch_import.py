@@ -72,7 +72,12 @@ for n in ("areal_tpu_torch.ops.fused_sample",
           "areal_tpu_torch.base.stats_tracker",
           "areal_tpu_torch.base.name_resolve_server",
           "areal_tpu_torch.system.telemetry",
-          "areal_tpu_torch.system.tracejoin", "areal_tpu_torch.apps.obs"):
+          "areal_tpu_torch.system.tracejoin", "areal_tpu_torch.apps.obs",
+          "areal_tpu_torch.gateway", "areal_tpu_torch.gateway.qos",
+          "areal_tpu_torch.gateway.scheduler",
+          "areal_tpu_torch.gateway.autoscaler",
+          "areal_tpu_torch.gateway.brownout", "areal_tpu_torch.gateway.api",
+          "areal_tpu_torch.gateway.__main__"):
     assert n in names, n
 """
 
@@ -106,10 +111,11 @@ def test_no_source_line_imports_jax_or_the_jax_package():
 def test_async_code_passes_the_hygiene_scanner():
     """No bare ``asyncio.gather``, no discarded ``create_task``, no
     ``time.sleep`` in an ``async def`` and no ``shutil.rmtree`` outside
-    ``base/recover.py`` in the port's system and generation layers."""
+    ``base/recover.py`` in the port's system, generation and gateway
+    layers."""
     from tools import check_async_hygiene
 
-    paths = [str(PORT / "system"), str(PORT / "gen")]
+    paths = [str(PORT / "system"), str(PORT / "gen"), str(PORT / "gateway")]
     assert len(list((PORT / "system").glob("*.py"))) >= 8
     findings = check_async_hygiene.scan_paths(paths)
     assert not findings, [str(f) for f in findings]

@@ -31,6 +31,7 @@ import signal
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -119,12 +120,31 @@ def test_load_engine_refuses_to_fall_back(monkeypatch):
     ("gen.tp_size", "2"), ("gen.spec_decode", "true"),
     ("reward", json.dumps({"arch": TINY_ARCH})),
 ])
-def test_unported_options_raise_before_anything_starts(option, value):
-    """Each option raises before anything starts, except ``reward`` and
-    ``gen.spec_decode``, which are ported now: a trained reward model's
-    config passes the check and loads a fourth engine, and spec decode's
-    builds a generation engine that speculates."""
+def test_unported_options_raise_before_anything_starts(option, value,
+                                                       monkeypatch):
+    """Each option raises before anything starts, except ``reward``,
+    ``gen.spec_decode`` and ``gateway.enabled``, which are ported now: a
+    trained reward model's config passes the check and loads a fourth
+    engine, spec decode's builds a generation engine that speculates, and
+    the gateway's spawns ``gateway_main`` beside the rest of the world."""
     cfg = load_config(AsyncPPOExperiment, None, [f"{option}={value}"])
+    if option == "gateway.enabled":
+        launcher._check_ported(cfg)
+
+        class FakeProcess:
+            def __init__(self, target, args, daemon):
+                self.target, self.pid = target, 0
+
+            def start(self):
+                pass
+
+        monkeypatch.setattr(launcher.mp, "get_context",
+                            lambda method: types.SimpleNamespace(
+                                Process=FakeProcess))
+        procs = launcher._spawn_all(cfg)
+        assert procs["gateway"].target is launcher.gateway_main
+        assert launcher.ROLE_MAINS["gateway"] is launcher.gateway_main
+        return
     if option == "gen.spec_decode":
         launcher._check_ported(cfg)
         cfg.gen.device = "cpu"
